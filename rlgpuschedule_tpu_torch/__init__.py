@@ -1,0 +1,25 @@
+"""PyTorch/CUDA port of ``rlgpuschedule_tpu``: greedy policy serving.
+
+This slice serves a scheduling policy greedily on an NVIDIA GPU through
+the same two entry points as the JAX package's serving layer:
+
+- :func:`.serve.fleet.fleet_replay` -- one policy against N seeded
+  simulated clusters, the simulator, observation builder and policy all
+  on the device at every decision step;
+- :class:`.serve.engine.InferenceEngine` -- the same greedy decision on
+  padded request batches, one power-of-two bucket at a time.
+
+The modules mirror the JAX package's layout (``sim/core.py`` here is
+the counterpart of ``sim/core.py`` there). Every function is batched
+over a leading cluster axis ``E`` and takes an explicit device; the
+default device is ``cuda`` (:mod:`.device`). The port imports neither
+JAX nor the JAX package.
+
+The simulator subset is the one configs 1 and 2 need: no faults, no
+domain randomization, pack-only placement, non-preemptive actions.
+Anything outside it raises ``NotImplementedError`` naming the slice
+that will bring it.
+"""
+from .device import resolve_device
+
+__all__ = ["resolve_device"]

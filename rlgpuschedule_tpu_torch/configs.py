@@ -1,0 +1,97 @@
+"""Named experiment configs (L6): the cluster, trace and env fields.
+
+The port's copy of the JAX package's ``configs.py``. The algorithm and
+its ``ppo``/``a2c`` optimizer fields, the training-loop fields
+(iterations, window streaming, the drain curriculum, fault and domain
+regimes, the preemption charge) and the mode-refusal table wait for the
+training slice; CSV trace paths and graph topology wait for theirs.
+The presets keep their names and the values of the fields kept here, so
+a config name means the same cluster, trace and env in both packages;
+the presets this slice cannot run are refused by
+:func:`..experiment.build_env_params`.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Literal
+
+
+@dataclasses.dataclass(frozen=True)
+class ExperimentConfig:
+    name: str
+    # cluster
+    n_nodes: int = 8
+    gpus_per_node: int = 8
+    # trace source: "synthetic" (Poisson) or "philly-proxy" in this
+    # slice; "philly"/"pai" CSVs and "pai-proxy" are refused at load
+    trace: Literal["synthetic", "philly", "pai",
+                   "philly-proxy", "pai-proxy"] = "synthetic"
+    trace_load: float = 1.1             # proxy traces: offered load target
+    # generated traces: pin the source trace size in jobs; None = one
+    # window-streaming pass over the env batch (window_jobs *
+    # max(n_envs, 8), floored at 1024 / 4096)
+    source_jobs: int | None = None
+    arrival_rate: float = 0.08          # synthetic: jobs/sec
+    mean_duration: float = 600.0        # synthetic: log-normal mean
+    window_jobs: int = 64               # jobs per episode window (max_jobs)
+    # env
+    n_envs: int = 4
+    queue_len: int = 8
+    n_placements: int = 1
+    preempt_len: int = 0                # >0 = preemptive RL action space
+    n_pods: int = 1                     # >1 = hierarchical env (config 5)
+    obs_kind: Literal["flat", "grid", "graph"] = "flat"
+    reward_kind: Literal["jct", "fair"] = "jct"
+    n_tenants: int = 1
+    horizon: int = 512
+    time_scale: float = 600.0
+    reward_scale: float = 10_000.0
+    place_bonus: float = 0.05
+    seed: int = 0
+
+    @property
+    def total_gpus(self) -> int:
+        return self.n_nodes * self.gpus_per_node
+
+
+CONFIGS: dict[str, ExperimentConfig] = {}
+
+
+def _register(cfg: ExperimentConfig) -> ExperimentConfig:
+    CONFIGS[cfg.name] = cfg
+    return cfg
+
+
+# 1. PPO-MLP scheduler, 64-GPU synthetic Poisson trace, 4 envs.
+PPO_MLP_SYNTH64 = _register(ExperimentConfig(
+    name="ppo-mlp-synth64", n_nodes=8, gpus_per_node=8,
+    trace="synthetic", n_envs=4, obs_kind="flat"))
+
+# 2. PPO-CNN, 512-GPU cluster on the Philly-statistics proxy trace.
+PPO_CNN_PHILLY512 = _register(ExperimentConfig(
+    name="ppo-cnn-philly512", n_nodes=64, gpus_per_node=8,
+    trace="philly-proxy", n_envs=8, obs_kind="grid", window_jobs=128,
+    queue_len=16, horizon=1024))
+
+# 3. A2C on the PAI proxy trace with the multi-tenant fairness reward.
+A2C_PAI_FAIR = _register(ExperimentConfig(
+    name="a2c-pai-fair", n_nodes=16, gpus_per_node=8,
+    trace="pai-proxy", n_envs=16, obs_kind="flat", reward_kind="fair",
+    n_tenants=8, window_jobs=96))
+
+# 4. GNN policy over cluster topology, gang-scheduling + placement.
+GNN_GANG_PLACE = _register(ExperimentConfig(
+    name="gnn-gang-place", n_nodes=16, gpus_per_node=8,
+    trace="synthetic", n_envs=4, obs_kind="graph", n_placements=2,
+    window_jobs=64))
+
+# Preemptive variant of config 1.
+PPO_MLP_PREEMPT = _register(ExperimentConfig(
+    name="ppo-mlp-preempt", n_nodes=8, gpus_per_node=8,
+    trace="synthetic", n_envs=4, obs_kind="flat", preempt_len=4))
+
+# 5. Hierarchical multi-agent across 4 pods (a PBT population member).
+HIER_PBT_MEMBER = _register(ExperimentConfig(
+    name="hier-pbt-member", n_nodes=16, gpus_per_node=8,
+    n_pods=4, trace="synthetic", n_envs=4, obs_kind="flat",
+    window_jobs=64))

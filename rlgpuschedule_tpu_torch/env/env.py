@@ -1,0 +1,150 @@
+"""Batched cluster environment (L2) of the port.
+
+Counterpart of the JAX package's ``env/env.py``. An episode is the
+replay of one trace window; the action mask rules out infeasible
+placements. The JAX package writes ``reset``/``step`` per cluster and
+``vmap``s them into ``vec_reset``/``vec_step``; here ``reset`` and
+``step`` are already batched over the leading cluster axis, so
+``vec_reset`` is ``reset`` and ``vec_step`` is ``step`` plus the fused
+auto-reset the JAX ``vec_step`` performs.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Literal, NamedTuple, Sequence
+
+import torch
+
+from ..sim import core
+from ..sim.core import SimParams, SimState, StepInfo, Trace
+from ..traces.records import ArrayTrace
+from . import obs as obs_lib
+from . import rewards as reward_lib
+
+
+@dataclasses.dataclass(frozen=True)
+class EnvParams:
+    """Static env configuration."""
+    sim: SimParams
+    obs_kind: Literal["flat", "grid"] = "flat"
+    reward_kind: Literal["jct"] = "jct"
+    time_scale: float = 600.0     # normalizes times in observations
+    reward_scale: float = 1000.0  # divides reward magnitudes
+    place_bonus: float = 0.0      # potential-based shaping (rewards.py)
+    horizon: int = 512            # max decision steps per episode
+
+    def __post_init__(self):
+        if self.obs_kind not in ("flat", "grid"):
+            raise NotImplementedError(
+                f"obs_kind={self.obs_kind!r}: the topology-graph "
+                f"observation (gnn-gang-place) waits for the config-4 "
+                f"slice")
+        if self.reward_kind != "jct":
+            raise NotImplementedError(
+                f"reward_kind={self.reward_kind!r}: the multi-tenant "
+                f"fairness reward (a2c-pai-fair) waits for the config-3 "
+                f"slice")
+
+    @property
+    def n_actions(self) -> int:
+        return self.sim.n_actions
+
+    def obs_shape(self) -> tuple[int, ...]:
+        """Per-cluster observation shape (no leading E)."""
+        s = self.sim
+        if self.obs_kind == "flat":
+            return (s.n_nodes + 4 * s.queue_len + 2,)
+        return (s.n_nodes + s.queue_len, s.gpus_per_node, 2)
+
+
+class EnvState(NamedTuple):
+    sim: SimState
+    t: torch.Tensor  # i32[E] decision steps taken in the episode
+
+
+class TimeStep(NamedTuple):
+    obs: torch.Tensor
+    reward: torch.Tensor
+    done: torch.Tensor
+    action_mask: torch.Tensor
+    info: StepInfo
+
+
+def build_obs(params: EnvParams, sim: SimState, trace: Trace,
+              queue: torch.Tensor | None = None) -> torch.Tensor:
+    fn = obs_lib.flat_obs if params.obs_kind == "flat" else obs_lib.grid_obs
+    return fn(params.sim, sim, trace, params.time_scale, queue)
+
+
+def _observe(params: EnvParams, sim: SimState, trace: Trace,
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(obs, action_mask), sharing one pending queue between the two."""
+    queue = core.pending_queue(params.sim, sim)
+    return (build_obs(params, sim, trace, queue),
+            core.action_mask(params.sim, sim, trace, queue))
+
+
+def reset(params: EnvParams, trace: Trace) -> tuple[EnvState, TimeStep]:
+    sim = core.init_state(params.sim, trace)
+    E = sim.clock.shape[0]
+    dev = sim.clock.device
+    state = EnvState(sim=sim,
+                     t=torch.zeros(E, dtype=torch.int32, device=dev))
+    obs, mask = _observe(params, sim, trace)
+    false = torch.zeros(E, dtype=torch.bool, device=dev)
+    ts = TimeStep(
+        obs=obs,
+        reward=torch.zeros(E, dtype=torch.float32, device=dev),
+        done=false,
+        action_mask=mask,
+        info=StepInfo(placed=false,
+                      dt=torch.zeros(E, dtype=torch.float32, device=dev),
+                      in_system_before=core.in_system(sim),
+                      done=false, preempted=false, first_placed=false),
+    )
+    return state, ts
+
+
+def step(params: EnvParams, state: EnvState, trace: Trace,
+         action: torch.Tensor) -> tuple[EnvState, TimeStep]:
+    sim, info = core.rl_step(params.sim, state.sim, trace, action)
+    reward = reward_lib.reward_jct(info, params.reward_scale,
+                                   params.place_bonus)
+    t = state.t + 1
+    done = info.done | (t >= params.horizon)
+    obs, mask = _observe(params, sim, trace)
+    return EnvState(sim=sim, t=t), TimeStep(obs=obs, reward=reward,
+                                            done=done, action_mask=mask,
+                                            info=info)
+
+
+def auto_reset(stepped_state: EnvState, ts: TimeStep, fresh_state: EnvState,
+               fresh_ts: TimeStep) -> tuple[EnvState, TimeStep]:
+    """Where an episode ended, continue from the fresh reset (state,
+    obs, mask from the fresh episode; reward and done from the finished
+    one)."""
+    new_state = core.select(ts.done, fresh_state, stepped_state)
+    obs = core.select(ts.done, fresh_ts.obs, ts.obs)
+    mask = core.select(ts.done, fresh_ts.action_mask, ts.action_mask)
+    return new_state, ts._replace(obs=obs, action_mask=mask)
+
+
+# the port's reset is batched over clusters already
+vec_reset = reset
+
+
+def vec_step(params: EnvParams, state: EnvState, traces: Trace,
+             actions: torch.Tensor) -> tuple[EnvState, TimeStep]:
+    """Step plus fused auto-reset: where an episode ended, the cluster
+    continues from a fresh reset of its trace."""
+    stepped, ts = step(params, state, traces, actions)
+    fresh_state, fresh_ts = reset(params, traces)
+    return auto_reset(stepped, ts, fresh_state, fresh_ts)
+
+
+def stack_traces(traces: Sequence[ArrayTrace], params: EnvParams | SimParams,
+                 device: "torch.device | str | None" = None) -> Trace:
+    """Stack per-cluster trace windows (one ``max_jobs``) into a batched
+    device Trace, checking gang sizes against capacity."""
+    sim_params = params.sim if isinstance(params, EnvParams) else params
+    return Trace.from_array_traces(traces, sim_params, device)

@@ -1,0 +1,81 @@
+"""Weights from the JAX package's Flax parameter trees.
+
+:func:`params_from_jax` turns a Flax ``ActorCritic`` parameter tree,
+given as nested dicts of numpy arrays (what ``jax.device_get(params)``
+returns), into a ``state_dict`` for the port's :class:`ActorCritic`.
+:func:`load_npz` reads the same tree flattened to ``/``-joined keys in
+an ``.npz`` file, so a policy trained by the JAX package is served here
+without JAX. Any leaf the mapping does not know is refused, never
+dropped.
+
+The mapping, leaf by leaf (Flax scope -> port module):
+
+- ``.../Dense_i/kernel`` ``[in, out]`` -> ``.weight`` ``[out, in]``;
+- ``.../Conv_i/kernel`` HWIO -> ``.weight`` OIHW;
+- ``.../LayerNorm_i/scale`` -> ``.weight``;
+- ``policy``/``value`` ``kernel`` -> ``.weight`` (transposed);
+- every ``bias`` -> ``.bias``.
+"""
+from __future__ import annotations
+
+import re
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+_DENSE = re.compile(r"(encoder/Dense_\d+|policy|value)/kernel")
+_CONV = re.compile(r"encoder/Conv_\d+/kernel")
+_SCALE = re.compile(r"encoder/LayerNorm_\d+/scale")
+_BIAS = re.compile(r"(encoder/(Dense|Conv|LayerNorm)_\d+|policy|value)/bias")
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str = "") -> dict[str, Any]:
+    out: dict[str, Any] = {}
+    for k, v in tree.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, key + "/"))
+        else:
+            out[key] = v
+    return out
+
+
+def params_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """``state_dict`` of the port's actor-critic from a Flax parameter
+    tree (with or without its top-level ``"params"`` collection)."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    out: dict[str, torch.Tensor] = {}
+    for path, leaf in _flatten(tree).items():
+        a = np.array(leaf, np.float32)  # a writable copy
+        if _DENSE.fullmatch(path):
+            a, name = a.T, path[:-len("kernel")] + "weight"
+        elif _CONV.fullmatch(path):
+            a, name = a.transpose(3, 2, 0, 1), path[:-len("kernel")] + "weight"
+        elif _SCALE.fullmatch(path):
+            name = path[:-len("scale")] + "weight"
+        elif _BIAS.fullmatch(path):
+            name = path
+        else:
+            raise ValueError(
+                f"no port counterpart for Flax parameter {path!r} "
+                f"(shape {a.shape}); this slice maps the MLP and CNN "
+                f"actor-critics only")
+        out[name.replace("/", ".")] = torch.from_numpy(
+            np.ascontiguousarray(a))
+    return out
+
+
+def load_npz(path: str) -> dict[str, torch.Tensor]:
+    """:func:`params_from_jax` of a Flax tree saved flat in an ``.npz``
+    (keys such as ``params/encoder/Dense_0/kernel``)."""
+    tree: dict[str, Any] = {}
+    with np.load(path) as z:
+        for key in z.files:
+            node = tree
+            *parents, leaf = key.split("/")
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = z[key]
+    return params_from_jax(tree)

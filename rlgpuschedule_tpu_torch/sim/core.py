@@ -1,0 +1,373 @@
+"""Batched cluster simulator (L1), the device hot path of the port.
+
+The PyTorch counterpart of the JAX package's ``sim/core.py``. Every
+function takes and returns tensors with a leading cluster axis ``E``:
+the JAX package writes per-cluster functions and ``vmap``s them, the
+port writes the batch into each function. State is a tuple of
+fixed-shape tensors: a job table ``[E, J]`` with status codes, a
+per-job allocation ``[E, J, N]``, a free-GPU vector ``[E, N]`` and a
+clock ``[E]``. The event queue is a masked min over next-event times;
+every outcome of a step is computed and then selected with
+``torch.where``, so a step has no data-dependent host control flow.
+
+dtypes are the JAX package's: i32 for counts and codes, f32 for time.
+On integer-valued traces the state after every step is bit-identical
+to the JAX package's (``tests/test_torch_sim.py``).
+
+The subset is the one configs 1 and 2 need: no faults, no domain
+randomization, pack-only placement (``n_placements == 1``) and a
+non-preemptive action space (``preempt_len == 0``). :class:`SimParams`
+refuses anything else.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..traces.records import ArrayTrace
+
+# Job status codes (the JAX package's sim/oracle.py).
+NOT_ARRIVED, PENDING, RUNNING, DONE = 0, 1, 2, 3
+
+INF = float("inf")
+_EPS = 1e-5  # completion tolerance in float32 virtual time
+
+
+@dataclasses.dataclass(frozen=True)
+class SimParams:
+    """Static simulator configuration."""
+    n_nodes: int
+    gpus_per_node: int
+    max_jobs: int          # J: rows in the (padded) job table
+    queue_len: int = 16    # K: pending-queue slots visible to the agent
+    n_placements: int = 1  # P: 1 = pack only
+    preempt_len: int = 0   # R: 0 = non-preemptive action space
+
+    def __post_init__(self):
+        if self.n_placements != 1:
+            raise NotImplementedError(
+                f"n_placements={self.n_placements}: spread placement (the "
+                f"pack|spread action space of gnn-gang-place) waits for "
+                f"the preemption-and-spread slice of sim/core")
+        if self.preempt_len:
+            raise NotImplementedError(
+                f"preempt_len={self.preempt_len}: the preemptive action "
+                f"space (ppo-mlp-preempt) waits for the preemption-and-"
+                f"spread slice of sim/core")
+
+    @property
+    def capacity(self) -> int:
+        return self.n_nodes * self.gpus_per_node
+
+    @property
+    def n_actions(self) -> int:
+        return self.queue_len + 1   # [K placements][no-op]
+
+
+def validate_trace(params: SimParams, tr: ArrayTrace,
+                   clamp: bool = False) -> ArrayTrace:
+    """A valid job demanding more GPUs than the cluster has can never be
+    placed; in the simulator that shows only as an episode that never
+    ends. Raise here instead, or with ``clamp=True`` cap demands at
+    capacity."""
+    over = tr.valid & (tr.gpus > params.capacity)
+    if not over.any():
+        return tr
+    if not clamp:
+        raise ValueError(
+            f"{int(over.sum())} job(s) demand more than the cluster's "
+            f"{params.capacity} GPUs (max demand "
+            f"{int(tr.gpus[tr.valid].max())}); pass clamp=True to cap "
+            f"demands at capacity")
+    return dataclasses.replace(tr, gpus=np.minimum(tr.gpus, params.capacity))
+
+
+class Trace(NamedTuple):
+    """Device-side traces of E clusters (rows sorted by submit; padding
+    has submit=+inf)."""
+    submit: torch.Tensor    # f32[E, J]
+    duration: torch.Tensor  # f32[E, J]
+    gpus: torch.Tensor      # i32[E, J]
+    tenant: torch.Tensor    # i32[E, J]
+    valid: torch.Tensor     # bool[E, J]
+
+    @staticmethod
+    def from_array_traces(traces: Sequence[ArrayTrace],
+                          params: SimParams,
+                          device: "torch.device | str | None" = None,
+                          ) -> "Trace":
+        """Stack host traces (all of one ``max_jobs``), check their gang
+        sizes against capacity (:func:`validate_trace`) and upload
+        them."""
+        dev = resolve_device(device)
+        traces = [validate_trace(params, t) for t in traces]
+        cols = [np.stack([getattr(t, f) for t in traces])
+                for f in Trace._fields]
+        return Trace(*(torch.from_numpy(c).to(dev) for c in cols))
+
+
+class SimState(NamedTuple):
+    """Dynamic simulator state of E clusters."""
+    clock: torch.Tensor      # f32[E]
+    status: torch.Tensor     # i32[E, J]
+    remaining: torch.Tensor  # f32[E, J]
+    start: torch.Tensor      # f32[E, J] (+inf until started)
+    finish: torch.Tensor     # f32[E, J] (+inf until done)
+    alloc: torch.Tensor      # i32[E, J, N]
+    free: torch.Tensor       # i32[E, N]
+
+
+class StepInfo(NamedTuple):
+    """Per-step outcomes consumed by rewards and metrics, each ``[E]``."""
+    placed: torch.Tensor            # bool: a job was placed this step
+    dt: torch.Tensor                # f32: simulated time advanced
+    in_system_before: torch.Tensor  # i32: arrived-not-done during [t, t+dt)
+    done: torch.Tensor              # bool: all valid jobs DONE
+    preempted: torch.Tensor         # bool: always False in this subset
+    first_placed: torch.Tensor      # bool: placed a job that never ran
+
+
+def select(cond: torch.Tensor, a, b):
+    """``cond ? a : b`` per cluster over a (nested) tuple of tensors;
+    ``cond`` is ``bool[E]`` and broadcasts over each leaf's trailing
+    axes."""
+    if isinstance(a, tuple):
+        return type(a)(*(select(cond, x, y) for x, y in zip(a, b)))
+    c = cond.reshape(cond.shape + (1,) * (a.ndim - cond.ndim))
+    return torch.where(c, a, b)
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[e, idx[e, ...]]`` for ``x`` of shape ``[E, J]``."""
+    flat = idx.reshape(idx.shape[0], -1).long()
+    return x.gather(1, flat).reshape(idx.shape)
+
+
+def _spacing(t: torch.Tensor) -> torch.Tensor:
+    """``jnp.spacing`` for ``t >= 0``: the gap to the next larger f32.
+    NaN at ``+inf``, as there."""
+    return torch.nextafter(t, torch.full_like(t, INF)) - t
+
+
+# ---- lifecycle --------------------------------------------------------------
+
+def init_state(params: SimParams, trace: Trace) -> SimState:
+    E, J = trace.submit.shape
+    N = params.n_nodes
+    dev = trace.submit.device
+    state = SimState(
+        clock=torch.zeros(E, dtype=torch.float32, device=dev),
+        status=torch.where(trace.valid, NOT_ARRIVED, DONE).to(torch.int32),
+        remaining=trace.duration.clone(),
+        start=torch.full((E, J), INF, dtype=torch.float32, device=dev),
+        finish=torch.full((E, J), INF, dtype=torch.float32, device=dev),
+        alloc=torch.zeros(E, J, N, dtype=torch.int32, device=dev),
+        free=torch.full((E, N), params.gpus_per_node, dtype=torch.int32,
+                        device=dev),
+    )
+    return _process_arrivals(state, trace)
+
+
+def _process_arrivals(state: SimState, trace: Trace) -> SimState:
+    arrived = ((state.status == NOT_ARRIVED)
+               & (trace.submit <= state.clock[:, None]))
+    return state._replace(status=torch.where(arrived, PENDING, state.status))
+
+
+# ---- events -----------------------------------------------------------------
+
+def next_event_time(state: SimState, trace: Trace) -> torch.Tensor:
+    """Earliest future arrival or completion per cluster, ``+inf`` if none
+    (a masked min in place of a priority queue)."""
+    arrival = torch.where(state.status == NOT_ARRIVED, trace.submit,
+                          INF).amin(1)
+    eta = state.clock[:, None] + state.remaining
+    completion = torch.where(state.status == RUNNING, eta, INF).amin(1)
+    return torch.minimum(arrival, completion)
+
+
+def advance_to(state: SimState, trace: Trace, t: torch.Tensor) -> SimState:
+    """Advance each clock to ``t`` (the caller guarantees t <= next event;
+    ``+inf`` leaves the clock where it is). Completions at ``t`` are
+    processed before arrivals."""
+    t = torch.where(torch.isfinite(t), t, state.clock)
+    dt = t - state.clock
+    running = state.status == RUNNING
+    progressed = state.remaining - dt[:, None]
+    eta = state.clock[:, None] + state.remaining
+    remaining = torch.where(running, torch.clamp_min(progressed, 0.0),
+                            state.remaining)
+    # Completion is tested on absolute time with a tolerance of a few
+    # ulps of t: at large clocks the f32 spacing of clock + remaining is
+    # wider than any absolute epsilon, so remaining - dt can stay a small
+    # positive number while next_event_time rounds to the current clock
+    # (a dt = 0 deadlock). An absolute epsilon scaled to Philly clocks
+    # would instead complete jobs seconds early.
+    tol = _EPS + 4.0 * _spacing(t)
+    completed = running & (eta <= (t + tol)[:, None])
+    released = (state.alloc * completed[:, :, None]).sum(1, dtype=torch.int32)
+    state = SimState(
+        clock=t,
+        status=torch.where(completed, DONE, state.status),
+        remaining=torch.where(completed, 0.0, remaining),
+        start=state.start,
+        finish=torch.where(completed, t[:, None], state.finish),
+        alloc=torch.where(completed[:, :, None], 0, state.alloc),
+        free=state.free + released,
+    )
+    return _process_arrivals(state, trace)
+
+
+# ---- placement -------------------------------------------------------------
+
+def pack_placement(free: torch.Tensor, demand: torch.Tensor,
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fill the freest nodes first, ties to the lowest node id. ``free``
+    is ``i32[E, N]``, ``demand`` ``i32[E]``; returns (``alloc[E, N]``,
+    ``feasible[E]``). The sort must be stable to give the oracle's
+    (free desc, id asc) order: ``torch.argsort`` is not stable unless
+    asked, and on CUDA not even deterministic."""
+    feasible = demand <= free.sum(1, dtype=torch.int32)
+    order = torch.argsort(-free, dim=1, stable=True)
+    sorted_free = free.gather(1, order)
+    before = torch.cumsum(sorted_free, 1, dtype=torch.int32) - sorted_free
+    take = torch.minimum(torch.clamp_min(demand[:, None] - before, 0),
+                         sorted_free)
+    alloc = torch.zeros_like(free).scatter(1, order, take)
+    return torch.where(feasible[:, None], alloc, 0), feasible
+
+
+# ---- scheduling actions -----------------------------------------------------
+
+def try_place(params: SimParams, state: SimState, trace: Trace,
+              j: torch.Tensor) -> tuple[SimState, torch.Tensor]:
+    """Gang-place job row ``j[e]`` in each cluster (-1 = none). Returns
+    (state', success[E]). All or nothing: where it does not fit, that
+    cluster's state is unchanged."""
+    J = params.max_jobs
+    jc = j.clamp(0, J - 1)
+    pending = (j >= 0) & (_take(state.status, jc) == PENDING)
+    demand = _take(trace.gpus, jc)
+    alloc, feasible = pack_placement(state.free, demand)
+    ok = pending & feasible
+    allocd = torch.where(ok[:, None], alloc, 0)
+    rows = torch.arange(J, device=j.device)
+    row = (rows[None, :] == jc[:, None]) & ok[:, None]          # [E, J]
+    return SimState(
+        clock=state.clock,
+        status=torch.where(row, RUNNING, state.status),
+        remaining=state.remaining,
+        start=torch.where(row, torch.minimum(state.start,
+                                             state.clock[:, None]),
+                          state.start),
+        finish=state.finish,
+        alloc=state.alloc + row[:, :, None].to(torch.int32)
+        * allocd[:, None, :],
+        free=state.free - allocd,
+    ), ok
+
+
+# ---- queue & queries --------------------------------------------------------
+
+def pending_queue(params: SimParams, state: SimState) -> torch.Tensor:
+    """Row indices of the first K pending jobs, -1 padded: ``i32[E, K]``.
+    Trace rows are submit-sorted, so row order is the queue order."""
+    K = params.queue_len
+    E, J = state.status.shape
+    pending = state.status == PENDING
+    rank = torch.cumsum(pending.to(torch.int32), 1, dtype=torch.int32) - 1
+    sel = pending & (rank < K)
+    target = torch.where(sel, rank, K).long()      # K = the drop slot
+    rows = torch.arange(J, dtype=torch.int32, device=rank.device)
+    src = torch.where(sel, rows[None, :], -1)
+    # Every row not among the first K writes slot K, which is cut off
+    # below. CUDA picks an arbitrary one of those writes, and that is
+    # harmless: they all write -1, and the slot is discarded anyway.
+    out = torch.full((E, K + 1), -1, dtype=torch.int32, device=rank.device)
+    return out.scatter_(1, target, src)[:, :K]
+
+
+def in_system(state: SimState) -> torch.Tensor:
+    return ((state.status == PENDING)
+            | (state.status == RUNNING)).sum(1, dtype=torch.int32)
+
+
+def all_done(state: SimState, trace: Trace) -> torch.Tensor:
+    return torch.where(trace.valid, state.status == DONE, True).all(1)
+
+
+def action_mask(params: SimParams, state: SimState, trace: Trace,
+                queue: torch.Tensor | None = None) -> torch.Tensor:
+    """``bool[E, n_actions]``: a queue slot is valid iff it holds a
+    pending job whose gang fits in the free GPUs; no-op is always valid.
+    Pass a precomputed :func:`pending_queue` to share it with the
+    observation builder."""
+    if queue is None:
+        queue = pending_queue(params, state)                   # [E, K]
+    demand = _take(trace.gpus, queue.clamp(0, params.max_jobs - 1))
+    ok = (queue >= 0) & (demand <= state.free.sum(1, dtype=torch.int32
+                                                  )[:, None])
+    noop = torch.ones(ok.shape[0], 1, dtype=torch.bool, device=ok.device)
+    return torch.cat([ok, noop], 1)
+
+
+# ---- the RL decision-point step --------------------------------------------
+
+def rl_step(params: SimParams, state: SimState, trace: Trace,
+            action: torch.Tensor) -> tuple[SimState, StepInfo]:
+    """One decision-point step of every cluster; the batched counterpart
+    of the JAX package's ``rl_step``. Action layout: ``[K placements]
+    [no-op]``. A placement costs no simulated time; a no-op (or a failed
+    placement) advances to the next event, or, when no event is left,
+    force-places the queue head. Every outcome is computed and the
+    right one selected per cluster."""
+    K = params.queue_len
+    queue = pending_queue(params, state)
+    is_place = action < K
+    k = action.clamp(0, K - 1)
+    j = torch.where(is_place, _take(queue, k), -1)
+
+    placed_state, placed = try_place(params, state, trace, j)
+
+    t_next = next_event_time(state, trace)
+    has_event = torch.isfinite(t_next)
+    n_before = in_system(state)
+    advanced_state = advance_to(state, trace, t_next)
+    forced_state, forced_ok = try_place(params, state, trace, queue[:, 0])
+
+    new_state = select(placed, placed_state,
+                       select(has_event, advanced_state, forced_state))
+    dt = torch.where(placed | ~has_event, 0.0, t_next - state.clock)
+    # "first" = the job had never run before this step (start still +inf)
+    never_ran = ~torch.isfinite(state.start)
+    J = params.max_jobs
+    first_sel = _take(never_ran, j.clamp(0, J - 1))
+    first_head = _take(never_ran, queue[:, 0].clamp(0, J - 1))
+    forced_fire = ~placed & ~has_event & forced_ok
+    info = StepInfo(placed=placed | forced_fire,
+                    dt=dt, in_system_before=n_before,
+                    done=all_done(new_state, trace),
+                    preempted=torch.zeros_like(placed),
+                    first_placed=(placed & first_sel)
+                    | (forced_fire & first_head))
+    return new_state, info
+
+
+# ---- metrics ----------------------------------------------------------------
+
+def jct_stats(state: SimState, trace: Trace) -> dict[str, torch.Tensor]:
+    """Avg/max JCT over completed valid jobs, per cluster."""
+    done = trace.valid & (state.status == DONE)
+    jct = torch.where(done, state.finish - trace.submit, 0.0)
+    n_done = done.sum(1, dtype=torch.int32)
+    return {"avg_jct": jct.sum(1) / torch.clamp_min(n_done, 1),
+            "max_jct": torch.where(done, jct, -INF).amax(1),
+            "n_done": n_done}
+
+
+def utilization(params: SimParams, state: SimState) -> torch.Tensor:
+    return 1.0 - state.free.sum(1, dtype=torch.int32) / params.capacity

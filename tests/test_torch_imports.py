@@ -1,0 +1,55 @@
+"""The port stands alone: no file of ``rlgpuschedule_tpu_torch`` and not
+``chip_smoke.py`` imports JAX, Flax or the JAX package, and importing the
+serving path does not pull JAX in through a dependency."""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "rlgpuschedule_tpu")
+
+
+def _port_files():
+    pkg = os.path.join(ROOT, "rlgpuschedule_tpu_torch")
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(pkg):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imported(path):
+    tree = ast.parse(open(path, encoding="utf-8").read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_the_port_has_the_expected_files():
+    names = {os.path.relpath(p, ROOT) for p in _port_files()}
+    assert len(names) > 20
+    assert "rlgpuschedule_tpu_torch/serve/fleet.py" in names
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_import(path):
+    for mod in _imported(path):
+        top = mod.split(".")[0]
+        assert top not in FORBIDDEN, f"{path} imports {mod}"
+
+
+def test_importing_the_serving_path_leaves_jax_out():
+    code = ("import sys, rlgpuschedule_tpu_torch.serve.fleet, "
+            "rlgpuschedule_tpu_torch.serve.engine, "
+            "rlgpuschedule_tpu_torch.serve.__main__; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
+    p = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       env=dict(os.environ, PYTHONPATH=ROOT),
+                       capture_output=True, text=True, timeout=120)
+    assert p.returncode == 0, p.stdout + p.stderr
