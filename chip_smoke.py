@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and training paths on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -26,6 +27,31 @@ imports nothing of JAX. Phases, each fatal on failure:
    actions must equal ``policy_decision`` on the same rows (padded to
    the bucket: exactly; unpadded: up to the phase-3 margin rule). Prints
    p50/p99 ``decide`` latency per bucket.
+5. Training at published geometry: ``Experiment.build`` of
+   ``ppo-cnn-philly512`` on the card (bf16 trunk, seeded init; 8 envs x
+   128 steps, 4 epochs x 4 minibatches of 256), one warm-up iteration
+   through ``Experiment.run``, then three iterations timed stage by
+   stage (rollout, GAE + normalization, update; the card synchronized
+   around each), env-steps/s over those three, a ``torch.profiler``
+   account of one more iteration (device ops and busy time per rollout
+   step and per minibatch update, idle share), one iteration under
+   torch's sync debug mode set to raise (the loop must not wait for the
+   card) and the peak memory. Loss, entropy and approx-KL must be
+   finite; parameters, grads and Adam moments f32, the trunk's output
+   bf16.
+6. ``ppo-mlp-synth64`` at ``bench.py``'s chip geometry (512 envs x 128
+   steps, 2 epochs x 8 minibatches): one warm-up iteration, then three
+   through ``Experiment.run``; prints env-steps/s.
+7. Card against CPU at f32 with TF32 off and deterministic cuDNN, on
+   config 2's CNN with the same seeded weights on both: a 128-step
+   rollout of 8 clusters sampled on the card, whose first 32 steps the
+   CPU replays with the card's actions (obs, mask, reward and done must
+   be bit-identical; a probe counts the inputs on which f32 tanh differs
+   between the devices, the reason the observations take it in f64);
+   then one learn step on the card's batch with the
+   same permutations on both sides (parameters within atol 1e-5,
+   metrics within rtol 1e-4 / atol 1e-6, the CPU parity tests'
+   tolerances).
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it is the card's name and power limit. Without a CUDA device, or
@@ -47,6 +73,10 @@ N_COMPARE = 8
 MARGIN = 1e-4
 BUCKETS = {16: (9, 12, 16), 256: (129, 200, 256)}
 LATENCY_REPS = 30
+TRAIN_TIMED = 3           # timed iterations after one warm-up
+BENCH_CONFIG = "ppo-mlp-synth64"
+REPLAY_STEPS = 32
+PARAM_ATOL, METRIC_RTOL, METRIC_ATOL = 1e-5, 1e-4, 1e-6
 
 
 def _nvidia_smi() -> str:
@@ -268,6 +298,256 @@ def request_phase(torch, env_params, traces, policy, dev):
           unpadded_mismatches_below_margin=loose)
 
 
+def _sync(torch):
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+def _device_account(torch, fn):
+    """Run ``fn`` under ``torch.profiler``; return (its result, device
+    ops, device busy seconds, wall seconds)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = _sync(torch)
+        out = fn()
+        wall = _sync(torch) - t0
+    ops = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    return out, len(ops), sum(e.time_range.elapsed_us() for e in ops) / 1e6, \
+        wall
+
+
+def train_phase(torch, dev):
+    """Config 2 at its published training geometry (phase 5)."""
+    from rlgpuschedule_tpu_torch.algos.ppo import (PPOMetrics,
+                                                   compute_advantages,
+                                                   run_ppo_epochs)
+    from rlgpuschedule_tpu_torch.algos.rollout import rollout
+    from rlgpuschedule_tpu_torch.configs import CONFIGS
+    from rlgpuschedule_tpu_torch.experiment import Experiment
+
+    cfg = CONFIGS[CONFIG]
+    ppo = cfg.ppo
+    cuda = torch.device(dev).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    exp = Experiment.build(cfg, device=dev)
+    warm = exp.run(1, log_every=1)
+
+    def stages():
+        t0 = _sync(torch)
+        exp.carry, tr, last = rollout(exp.net, exp.env_params, exp.traces,
+                                      exp.carry, ppo.n_steps)
+        t1 = _sync(torch)
+        adv, ret = compute_advantages(ppo, tr, last)
+        t2 = _sync(torch)
+        exp.train_state, m = run_ppo_epochs(ppo, exp.train_state, tr, adv,
+                                            ret, generator=exp.generator)
+        t3 = _sync(torch)
+        return m, (t1 - t0, t2 - t1, t3 - t2)
+
+    split, metrics = [], []
+    for _ in range(TRAIN_TIMED):
+        m, s = stages()
+        split.append(s)
+        metrics.append(dict(zip(PPOMetrics._fields,
+                                torch.stack(m).tolist())))
+    wall = sum(sum(s) for s in split)
+    sps = TRAIN_TIMED * exp.steps_per_iteration / wall
+
+    # one more iteration, each stage under the profiler
+    n_mb = ppo.n_epochs * ppo.n_minibatches
+    acct = {}
+    (_, tr, last), ops, busy, w = _device_account(
+        torch, lambda: rollout(exp.net, exp.env_params, exp.traces,
+                               exp.carry, ppo.n_steps))
+    acct["rollout"] = (ops, busy, w, ppo.n_steps)
+    (adv, ret), ops, busy, w = _device_account(
+        torch, lambda: compute_advantages(ppo, tr, last))
+    acct["gae"] = (ops, busy, w, 1)
+    (exp.train_state, _), ops, busy, w = _device_account(
+        torch, lambda: run_ppo_epochs(ppo, exp.train_state, tr, adv, ret,
+                                      generator=exp.generator))
+    acct["update"] = (ops, busy, w, n_mb)
+    busy_all = sum(a[1] for a in acct.values())
+    wall_prof = sum(a[2] for a in acct.values())
+    if cuda:
+        # the loop body waits for the card nowhere: one more iteration
+        # with torch raising on any synchronizing call
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            exp.train_state, exp.carry, _ = exp.train_step(
+                exp.train_state, exp.carry, exp.traces, exp.generator)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    # the precision of the timed path: f32 parameters, grads and Adam
+    # moments; the trunk computing in bf16
+    opt = exp.train_state.opt
+    all_f32 = all(p.dtype == p.grad.dtype == opt.state[p]["exp_avg"].dtype
+                  == opt.state[p]["exp_avg_sq"].dtype == torch.float32
+                  for p in exp.train_state.net.parameters())
+    with torch.no_grad():
+        trunk = exp.train_state.net.encoder(tr.obs[0]).dtype
+    _line("train", config=cfg.name, dtype="bfloat16", n_envs=cfg.n_envs,
+          n_steps=ppo.n_steps, n_epochs=ppo.n_epochs,
+          n_minibatches=ppo.n_minibatches,
+          minibatch=ppo.n_steps * cfg.n_envs // ppo.n_minibatches,
+          params=sum(p.numel() for p in exp.net.parameters()),
+          warmup_s=warm["wall_s"],
+          iteration_split_s=[{"rollout": a, "gae_norm": b, "update": c}
+                             for a, b, c in split],
+          env_steps_per_s=sps,
+          profiled={k: {"device_ops": o, "device_busy_s": b, "wall_s": w,
+                        "per": n, "ops_per": o / n, "busy_ms_per": b / n
+                        * 1e3}
+                    for k, (o, b, w, n) in acct.items()},
+          device_idle_share=1.0 - busy_all / wall_prof,
+          device_idle_share_unprofiled=1.0 - busy_all / (wall
+                                                         / TRAIN_TIMED),
+          iteration_without_host_sync=cuda, peak_memory_bytes=peak,
+          params_grads_adam_moments_f32=all_f32, trunk_output=str(trunk),
+          metrics=metrics)
+    if not (all_f32 and trunk == torch.bfloat16):
+        raise SystemExit(f"training precision: parameters, grads and Adam "
+                         f"moments f32: {all_f32}; trunk output {trunk}")
+    for m in metrics:
+        if not _finite(m["total_loss"], m["entropy"], m["approx_kl"]):
+            raise SystemExit(f"non-finite training metrics: {m}")
+    if not acct["update"][0]:
+        raise SystemExit("the profiler saw no kernel in the update")
+
+
+def bench_phase(torch, dev):
+    """Config 1 at bench.py's chip geometry (phase 6)."""
+    import dataclasses
+
+    from rlgpuschedule_tpu_torch.configs import CONFIGS
+    from rlgpuschedule_tpu_torch.experiment import Experiment
+
+    base = CONFIGS[BENCH_CONFIG]
+    cfg = dataclasses.replace(
+        base, n_envs=512,
+        ppo=dataclasses.replace(base.ppo, n_steps=128, n_epochs=2,
+                                n_minibatches=8))
+    exp = Experiment.build(cfg, device=dev)
+    exp.run(1)
+    out = exp.run(TRAIN_TIMED, log_every=1)
+    last = out["history"][-1]
+    _line("bench", config=cfg.name, dtype="bfloat16", n_envs=cfg.n_envs,
+          n_steps=cfg.ppo.n_steps, n_epochs=cfg.ppo.n_epochs,
+          n_minibatches=cfg.ppo.n_minibatches, iterations=TRAIN_TIMED,
+          wall_s=out["wall_s"], env_steps=out["env_steps"],
+          env_steps_per_s=out["env_steps_per_sec"], last_iteration=last)
+    if not _finite(out["env_steps_per_sec"], last["total_loss"],
+                   last["entropy"]):
+        raise SystemExit("config-1 training reported a non-finite value")
+
+
+def train_compare_phase(torch, dev):
+    """Card against CPU at f32 on config 2's training path (phase 7)."""
+    from rlgpuschedule_tpu_torch.algos import action_dist
+    from rlgpuschedule_tpu_torch.algos.ppo import (make_learn_step,
+                                                   make_train_state)
+    from rlgpuschedule_tpu_torch.algos.rollout import init_carry, rollout
+    from rlgpuschedule_tpu_torch.algos.update import tree_map
+    from rlgpuschedule_tpu_torch.configs import CONFIGS
+    from rlgpuschedule_tpu_torch.env import stack_traces
+    from rlgpuschedule_tpu_torch.experiment import (build_env_params,
+                                                    load_source_trace,
+                                                    make_env_windows)
+    from rlgpuschedule_tpu_torch.models import make_policy
+    from rlgpuschedule_tpu_torch.sim.core import validate_trace
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    cfg = CONFIGS[CONFIG]
+    ppo = cfg.ppo
+    env_params = build_env_params(cfg)
+    windows = make_env_windows(cfg, validate_trace(
+        env_params.sim, load_source_trace(cfg), clamp=True))
+    side = {}
+    for d in (dev, "cpu"):
+        net = make_policy(cfg.obs_kind, env_params.n_actions,
+                          env_params.obs_shape(), dtype=torch.float32,
+                          seed=cfg.seed, device=d)
+        side[d] = (net, stack_traces(windows, env_params, d))
+
+    net, traces = side[dev]
+    carry = init_carry(env_params, traces,
+                       torch.Generator(dev).manual_seed(cfg.seed))
+    _, tr, last = rollout(net, env_params, traces, carry, ppo.n_steps)
+    tr = tree_map(lambda x: x.cpu(), tr)
+    last = last.cpu()
+
+    actions = iter(tr.action[:REPLAY_STEPS])
+
+    def replay(gen, logits):
+        a = next(actions)
+        return a, action_dist.log_prob(logits, a)
+
+    net_c, traces_c = side["cpu"]
+    carry_c = init_carry(env_params, traces_c, torch.Generator())
+    _, tr_c, _ = rollout(net_c, env_params, traces_c, carry_c, REPLAY_STEPS,
+                         sample_fn=replay)
+    differ = {f: int((getattr(tr, f)[:REPLAY_STEPS]
+                      != getattr(tr_c, f)).sum())
+              for f in ("obs", "mask", "reward", "done", "env_steps_dt")}
+    lp_err = float((tr.log_prob[:REPLAY_STEPS] - tr_c.log_prob).abs().max())
+    v_err = float((tr.value[:REPLAY_STEPS] - tr_c.value).abs().max())
+    # why the observations take tanh in f64: f32 tanh on both devices
+    # over the observations' input range, and the f64-rounded form
+    x = torch.cat([torch.arange(2**20) / 600.0,
+                   torch.rand(2**22, generator=torch.Generator()
+                              .manual_seed(0)) * 20])
+    tanh_differ = {
+        "f32": int((torch.tanh(x) != torch.tanh(x.to(dev)).cpu()).sum()),
+        "f64_rounded": int((torch.tanh(x.double()).float()
+                            != torch.tanh(x.to(dev).double()).float().cpu())
+                           .sum())}
+
+    B = ppo.n_steps * cfg.n_envs
+    gen = torch.Generator().manual_seed(cfg.seed)
+    perms = [torch.randperm(B, generator=gen) for _ in range(ppo.n_epochs)]
+    learn = make_learn_step(ppo)
+    out = {}
+    for d in (dev, "cpu"):
+        state = make_train_state(side[d][0], ppo)
+        batch = tree_map(lambda x: x.to(d), tr)
+        state, m = learn(state, batch, last.to(d), perms=perms)
+        out[d] = ({n: p.detach().cpu() for n, p in
+                   state.net.named_parameters()},
+                  {k: float(v) for k, v in m._asdict().items()})
+    (pg, mg), (pc, mc) = out[dev], out["cpu"]
+    param_err = max(float((pg[n] - pc[n]).abs().max()) for n in pc)
+    metric_rel = {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-30)
+                  for k in mc}
+    _line("train_card_vs_cpu", config=cfg.name, dtype="float32", tf32=False,
+          cudnn_deterministic=True, clusters=cfg.n_envs,
+          replay_steps=REPLAY_STEPS, replay_elements_differing=differ,
+          replay_log_prob_max_abs_diff=lp_err,
+          replay_value_max_abs_diff=v_err,
+          tanh_probe_inputs=x.numel(), tanh_elements_differing=tanh_differ,
+          learn_batch=B,
+          learn_param_max_abs_diff=param_err,
+          learn_metric_max_rel_diff=max(metric_rel.values()),
+          metrics_card=mg, metrics_cpu=mc)
+    if any(differ.values()):
+        raise SystemExit(f"card and CPU rollouts differ: {differ}")
+    if not param_err <= PARAM_ATOL:
+        raise SystemExit(f"learn step: parameters differ by {param_err} "
+                         f"(> {PARAM_ATOL}) between the card and the CPU")
+    # the CPU parity tests' metric tolerance: rtol 1e-4, atol 1e-6
+    bad = {k: (mg[k], mc[k]) for k in mc
+           if not abs(mg[k] - mc[k]) <= METRIC_ATOL + METRIC_RTOL * abs(mc[k])}
+    if bad:
+        raise SystemExit(f"learn step: metrics (card, CPU) differ beyond "
+                         f"rtol {METRIC_RTOL} / atol {METRIC_ATOL}: {bad}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -293,6 +573,12 @@ def main() -> int:
     profile_phase(torch, env_params, traces, policy)
     compare_phase(torch, cfg, env_params, windows, "cuda")
     request_phase(torch, env_params, traces, policy, "cuda")
+    del policy, traces, windows
+    for phase in (train_phase, bench_phase, train_compare_phase):
+        t0 = time.perf_counter()
+        phase(torch, "cuda")
+        _line("phase_time", phase=phase.__name__,
+              wall_s=time.perf_counter() - t0)
     _line("done", total_s=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

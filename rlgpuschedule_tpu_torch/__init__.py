@@ -1,13 +1,18 @@
-"""PyTorch/CUDA port of ``rlgpuschedule_tpu``: greedy policy serving.
+"""PyTorch/CUDA port of ``rlgpuschedule_tpu``: greedy policy serving
+and PPO training.
 
-This slice serves a scheduling policy greedily on an NVIDIA GPU through
-the same two entry points as the JAX package's serving layer:
+It serves a scheduling policy greedily on an NVIDIA GPU through the
+same two entry points as the JAX package's serving layer:
 
 - :func:`.serve.fleet.fleet_replay` -- one policy against N seeded
   simulated clusters, the simulator, observation builder and policy all
   on the device at every decision step;
 - :class:`.serve.engine.InferenceEngine` -- the same greedy decision on
-  padded request batches, one power-of-two bucket at a time.
+  padded request batches, one power-of-two bucket at a time;
+
+and trains it with PPO through :class:`.experiment.Experiment` and
+``python -m rlgpuschedule_tpu_torch.train``: rollout, GAE and the
+epoch x minibatch update on the device.
 
 The modules mirror the JAX package's layout (``sim/core.py`` here is
 the counterpart of ``sim/core.py`` there). Every function is batched

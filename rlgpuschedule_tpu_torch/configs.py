@@ -1,24 +1,26 @@
-"""Named experiment configs (L6): the cluster, trace and env fields.
+"""Named experiment configs (L6): cluster, trace, env and PPO fields.
 
-The port's copy of the JAX package's ``configs.py``. The algorithm and
-its ``ppo``/``a2c`` optimizer fields, the training-loop fields
-(iterations, window streaming, the drain curriculum, fault and domain
-regimes, the preemption charge) and the mode-refusal table wait for the
-training slice; CSV trace paths and graph topology wait for theirs.
+The port's copy of the JAX package's ``configs.py``. The ``a2c``
+optimizer fields, window streaming, the drain curriculum, fault and
+domain regimes, the preemption charge and the mode-refusal table wait
+for their slices; CSV trace paths and graph topology wait for theirs.
 The presets keep their names and the values of the fields kept here, so
-a config name means the same cluster, trace and env in both packages;
-the presets this slice cannot run are refused by
-:func:`..experiment.build_env_params`.
+a config name means the same run in both packages; the presets this
+port cannot run are refused by :func:`..experiment.build_env_params`
+and :meth:`..experiment.Experiment.build`.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Literal
 
+from .algos.ppo import PPOConfig
+
 
 @dataclasses.dataclass(frozen=True)
 class ExperimentConfig:
     name: str
+    algo: Literal["ppo", "a2c"] = "ppo"   # "a2c" waits for config 3
     # cluster
     n_nodes: int = 8
     gpus_per_node: int = 8
@@ -47,6 +49,9 @@ class ExperimentConfig:
     time_scale: float = 600.0
     reward_scale: float = 10_000.0
     place_bonus: float = 0.05
+    # training
+    ppo: PPOConfig = PPOConfig()
+    iterations: int = 100
     seed: int = 0
 
     @property
@@ -75,7 +80,7 @@ PPO_CNN_PHILLY512 = _register(ExperimentConfig(
 
 # 3. A2C on the PAI proxy trace with the multi-tenant fairness reward.
 A2C_PAI_FAIR = _register(ExperimentConfig(
-    name="a2c-pai-fair", n_nodes=16, gpus_per_node=8,
+    name="a2c-pai-fair", algo="a2c", n_nodes=16, gpus_per_node=8,
     trace="pai-proxy", n_envs=16, obs_kind="flat", reward_kind="fair",
     n_tenants=8, window_jobs=96))
 

@@ -134,11 +134,16 @@ vec_reset = reset
 
 
 def vec_step(params: EnvParams, state: EnvState, traces: Trace,
-             actions: torch.Tensor) -> tuple[EnvState, TimeStep]:
+             actions: torch.Tensor,
+             fresh: "tuple[EnvState, TimeStep] | None" = None,
+             ) -> tuple[EnvState, TimeStep]:
     """Step plus fused auto-reset: where an episode ended, the cluster
-    continues from a fresh reset of its trace."""
+    continues from a fresh reset of its trace. The reset depends only on
+    the traces, so a caller stepping in a loop passes
+    ``fresh = vec_reset(params, traces)`` built once; without it every
+    step builds the reset anew."""
     stepped, ts = step(params, state, traces, actions)
-    fresh_state, fresh_ts = reset(params, traces)
+    fresh_state, fresh_ts = reset(params, traces) if fresh is None else fresh
     return auto_reset(stepped, ts, fresh_state, fresh_ts)
 
 

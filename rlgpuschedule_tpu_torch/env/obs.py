@@ -2,13 +2,27 @@
 
 Counterparts of ``queue_features``, ``flat_obs`` and ``grid_obs`` in the
 JAX package's ``env/obs.py``, batched over the leading cluster axis.
-The topology-graph observation waits for the config-4 slice."""
+The topology-graph observation waits for the config-4 slice.
+
+Every division by a config constant is written as a product with its
+reciprocal: jitted XLA computes it so, and so does torch's CUDA
+division by a scalar, while torch's CPU kernel divides; written as a
+product, the CPU and the card give the same bits."""
 from __future__ import annotations
 
 import torch
 
 from ..sim.core import (RUNNING, SimParams, SimState, Trace, _take,
                         in_system, pending_queue, utilization)
+
+
+def _tanh(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``tanh`` with the same bits on every device. An f32 tanh is
+    not correctly rounded, and torch's CPU and CUDA kernels round some
+    inputs differently; taken in f64 and rounded to f32 it is the
+    correctly rounded value (but for about one input in 10^8), so a
+    rollout replayed on the CPU sees the card's observations."""
+    return torch.tanh(x.double()).to(x.dtype)
 
 
 def queue_features(params: SimParams, state: SimState, trace: Trace,
@@ -20,8 +34,8 @@ def queue_features(params: SimParams, state: SimState, trace: Trace,
     jc = queue.clamp(0, params.max_jobs - 1)
     occupied = queue >= 0
     valid = occupied.to(torch.float32)
-    demand = (_take(trace.gpus, jc).to(torch.float32) / params.capacity
-              * valid)
+    demand = (_take(trace.gpus, jc).to(torch.float32)
+              * (1.0 / params.capacity) * valid)
     # where, not *valid: padding rows have submit=+inf, and
     # (clock - inf) * 0 would be NaN
     wait = torch.where(occupied,
@@ -37,12 +51,12 @@ def flat_obs(params: SimParams, state: SimState, trace: Trace,
     tanh-squashed by ``time_scale``), utilization, normalized in-system
     count."""
     E = state.free.shape[0]
-    free_frac = state.free.to(torch.float32) / params.gpus_per_node
+    free_frac = state.free.to(torch.float32) * (1.0 / params.gpus_per_node)
     qf = queue_features(params, state, trace, queue)
-    qf = torch.cat([qf[:, :, :1], torch.tanh(qf[:, :, 1:3] / time_scale),
+    qf = torch.cat([qf[:, :, :1], _tanh(qf[:, :, 1:3] * (1.0 / time_scale)),
                     qf[:, :, 3:]], dim=2)
     util = utilization(params, state)
-    n_insys = in_system(state) / params.max_jobs
+    n_insys = in_system(state) * (1.0 / params.max_jobs)
     return torch.cat([free_frac, qf.reshape(E, -1),
                       torch.stack([util, n_insys], dim=1)], dim=1)
 
@@ -64,7 +78,7 @@ def grid_obs(params: SimParams, state: SimState, trace: Trace,
     slots = torch.arange(G, dtype=torch.float32, device=dev)   # [G]
     occ = (slots < used[:, :, None]).to(torch.float32)         # [E, N, G]
     running = (state.status == RUNNING).to(torch.float32)
-    val = running * torch.tanh(state.remaining / time_scale)   # [E, J]
+    val = running * _tanh(state.remaining * (1.0 / time_scale))   # [E, J]
     # stable, as jnp.argsort is: equal values keep row order
     order = torch.argsort(-val, dim=1, stable=True)            # [E, J]
     # slot s of node n belongs to the first job (longest remaining first)
@@ -86,6 +100,7 @@ def grid_obs(params: SimParams, state: SimState, trace: Trace,
     demand = (torch.clamp_max(_take(trace.gpus, jc), G).to(torch.float32)
               * valid)
     bar = (slots < demand[:, :, None]).to(torch.float32)       # [E, K, G]
-    service = torch.tanh(_take(trace.duration, jc) / time_scale) * valid
+    service = (_tanh(_take(trace.duration, jc) * (1.0 / time_scale))
+               * valid)
     qimg = torch.stack([bar, bar * service[:, :, None]], dim=3)
     return torch.cat([cluster, qimg], dim=1)                   # [E, N+K, G, 2]

@@ -1,17 +1,32 @@
-"""Experiment assembly (L6) of the port: config -> env params and trace
-windows.
+"""Experiment assembly (L6) of the port: config -> traces, env, policy,
+optimizer and the training loop.
 
 Counterparts of ``build_env_params``, ``load_source_trace``,
-``windows_per_pass`` and ``make_env_windows`` in the JAX package's
-``experiment.py``. The ``Experiment`` class (policy, optimizer, train
-loop) waits for the training slice. Configs outside this slice's
-simulator subset are refused here with ``NotImplementedError``.
+``build_stack``, ``windows_per_pass``, ``make_env_windows`` and the
+single-run ``Experiment`` (``build``, ``run``, ``steps_per_iteration``)
+in the JAX package's ``experiment.py``. Checkpoints, eval probes,
+window streaming, ``run_fused``, meshes, faults and domains are not
+ported; configs outside the port's simulator subset, and A2C, are
+refused here with ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import dataclasses
+import time
+from typing import Callable
+
+import torch
+
+from .algos.ppo import (PPOMetrics, TrainState, make_train_state,
+                        make_train_step)
+from .algos.rollout import (RolloutCarry, init_carry,
+                            validate_rollout_geometry)
+from .algos.update import validate_update_geometry
 from .configs import ExperimentConfig
-from .env.env import EnvParams
-from .sim.core import SimParams
+from .device import resolve_device
+from .env.env import EnvParams, stack_traces
+from .models import ActorCritic, make_policy
+from .sim.core import SimParams, Trace, validate_trace
 from .traces import ArrayTrace, gen_philly_proxy_trace, gen_poisson_trace
 
 
@@ -74,3 +89,103 @@ def make_env_windows(cfg: ExperimentConfig, source: ArrayTrace,
         off = min(k * cfg.window_jobs, total - cfg.window_jobs)
         windows.append(source.slice(off, cfg.window_jobs))
     return windows
+
+
+def build_stack(cfg: ExperimentConfig,
+                device: "torch.device | str | None" = None):
+    """Trace load/validate/window/stack and the policy for a flat or grid
+    config, on ``device`` (default ``cuda``). Returns ``(env_params,
+    windows, traces [E, ...], net, source)``; ``net(obs, mask)`` is the
+    apply function and ``source`` the full validated source trace."""
+    env_params = build_env_params(cfg)
+    source = validate_trace(env_params.sim, load_source_trace(cfg),
+                            clamp=True)
+    windows = make_env_windows(cfg, source)
+    traces = stack_traces(windows, env_params, device)
+    net = make_policy(cfg.obs_kind, env_params.n_actions,
+                      env_params.obs_shape(), seed=cfg.seed, device=device)
+    return env_params, windows, traces, net, source
+
+
+@dataclasses.dataclass
+class Experiment:
+    """An assembled PPO run: the train step and its host loop."""
+    cfg: ExperimentConfig
+    env_params: EnvParams
+    windows: list            # host ArrayTrace windows
+    traces: Trace            # batched device traces [E, ...]
+    train_state: TrainState  # policy + optimizer, updated in place
+    train_step: Callable
+    carry: RolloutCarry      # env state, obs, mask, sampling generator
+    generator: torch.Generator   # the update's permutation stream
+    source: ArrayTrace
+    device: torch.device
+
+    @property
+    def net(self) -> ActorCritic:
+        return self.train_state.net
+
+    @staticmethod
+    def build(cfg: ExperimentConfig,
+              device: "torch.device | str | None" = None) -> "Experiment":
+        """Policy from ``cfg.seed``, optimizer, first env reset. The
+        rollout samples from a generator seeded ``cfg.seed`` and the
+        update permutes with one seeded ``cfg.seed + 1``, both on
+        ``device``."""
+        dev = resolve_device(device)
+        if cfg.algo != "ppo":
+            raise NotImplementedError(
+                f"config {cfg.name!r} trains with algo={cfg.algo!r}: A2C "
+                f"(a2c-pai-fair) waits for the config-3 slice (ROADMAP.md "
+                f"queue 1, item 16)")
+        ppo = cfg.ppo
+        # fail fast on a geometry that cannot tile the rollout batch
+        validate_rollout_geometry(ppo.n_steps, cfg.n_envs)
+        validate_update_geometry(ppo.n_epochs, ppo.n_minibatches,
+                                 ppo.minibatch_size, n_steps=ppo.n_steps,
+                                 n_envs=cfg.n_envs)
+        env_params, windows, traces, net, source = build_stack(cfg, dev)
+        carry = init_carry(env_params, traces,
+                           torch.Generator(dev).manual_seed(cfg.seed))
+        return Experiment(
+            cfg=cfg, env_params=env_params, windows=windows, traces=traces,
+            train_state=make_train_state(net, ppo),
+            train_step=make_train_step(env_params, ppo), carry=carry,
+            generator=torch.Generator(dev).manual_seed(cfg.seed + 1),
+            source=source, device=dev)
+
+    @property
+    def steps_per_iteration(self) -> int:
+        return self.cfg.ppo.n_steps * self.cfg.n_envs
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def run(self, iterations: int | None = None, log_every: int = 0,
+            logger: Callable[[int, dict], None] | None = None) -> dict:
+        """Run the training loop; returns the summary (wall time, env
+        steps per second, logged history). Iteration ``i`` is logged
+        when ``i % log_every == 0`` and at the last iteration; a logged
+        iteration costs one host sync (its metrics in one transfer), and
+        nothing else in the loop waits for the device."""
+        iterations = iterations or self.cfg.iterations
+        history = []
+        self._sync()
+        t0 = time.perf_counter()
+        for i in range(iterations):
+            self.train_state, self.carry, metrics = self.train_step(
+                self.train_state, self.carry, self.traces, self.generator)
+            if log_every and (i % log_every == 0 or i == iterations - 1):
+                m = dict(zip(PPOMetrics._fields,
+                             torch.stack(metrics).tolist()))
+                history.append({"iteration": i, **m})
+                if logger is not None:
+                    logger(i, m)
+        self._sync()
+        wall = time.perf_counter() - t0
+        env_steps = iterations * self.steps_per_iteration
+        return {"wall_s": wall, "iterations": iterations,
+                "env_steps": env_steps,
+                "env_steps_per_sec": env_steps / wall,
+                "history": history}

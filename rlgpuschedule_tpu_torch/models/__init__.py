@@ -1,7 +1,8 @@
 """L3 policy networks of the port."""
 from .actor_critic import NEG_INF, ActorCritic, make_policy, mask_logits
-from .convert import load_npz, params_from_jax
+from .convert import load_npz, opt_state_from_jax, params_from_jax
 from .encoders import CNNEncoder, MLPEncoder
 
 __all__ = ["ActorCritic", "MLPEncoder", "CNNEncoder", "make_policy",
-           "mask_logits", "NEG_INF", "params_from_jax", "load_npz"]
+           "mask_logits", "NEG_INF", "params_from_jax", "load_npz",
+           "opt_state_from_jax"]

@@ -5,8 +5,9 @@ given as nested dicts of numpy arrays (what ``jax.device_get(params)``
 returns), into a ``state_dict`` for the port's :class:`ActorCritic`.
 :func:`load_npz` reads the same tree flattened to ``/``-joined keys in
 an ``.npz`` file, so a policy trained by the JAX package is served here
-without JAX. Any leaf the mapping does not know is refused, never
-dropped.
+without JAX. :func:`opt_state_from_jax` carries an optax Adam state the
+same way, so a JAX ``TrainState`` taken mid-run continues here. Any
+leaf the mapping does not know is refused, never dropped.
 
 The mapping, leaf by leaf (Flax scope -> port module):
 
@@ -79,3 +80,26 @@ def load_npz(path: str) -> dict[str, torch.Tensor]:
                 node = node.setdefault(p, {})
             node[leaf] = z[key]
     return params_from_jax(tree)
+
+
+def opt_state_from_jax(mu: Mapping[str, Any], nu: Mapping[str, Any],
+                       count: Any, net: torch.nn.Module,
+                       optimizer: torch.optim.Optimizer) -> dict:
+    """A ``state_dict`` for ``optimizer`` (a ``torch.optim.Adam`` over
+    ``net.parameters()``, in their order) from an optax Adam state: the
+    first and second moments ``mu``/``nu`` (Flax parameter trees, mapped
+    leaf by leaf as :func:`params_from_jax` maps the parameters) and the
+    update ``count``. torch's ``step`` is optax's ``count``: both are the
+    number of updates taken, and both bias corrections use it plus
+    one."""
+    mu_sd, nu_sd = params_from_jax(mu), params_from_jax(nu)
+    names = [n for n, _ in net.named_parameters()]
+    if set(mu_sd) != set(names) or set(nu_sd) != set(names):
+        raise ValueError(
+            f"the Adam moments name {sorted(set(mu_sd) ^ set(names))} "
+            f"differently from the network's parameters")
+    step = torch.tensor(float(np.asarray(count)), dtype=torch.float32)
+    state = {i: {"step": step.clone(), "exp_avg": mu_sd[n],
+                 "exp_avg_sq": nu_sd[n]} for i, n in enumerate(names)}
+    return {"state": state,
+            "param_groups": optimizer.state_dict()["param_groups"]}

@@ -370,4 +370,6 @@ def jct_stats(state: SimState, trace: Trace) -> dict[str, torch.Tensor]:
 
 
 def utilization(params: SimParams, state: SimState) -> torch.Tensor:
-    return 1.0 - state.free.sum(1, dtype=torch.int32) / params.capacity
+    # the reciprocal's product, as jitted XLA and torch's CUDA divide
+    return 1.0 - (state.free.sum(1, dtype=torch.int32)
+                  * (1.0 / params.capacity))

@@ -1,6 +1,7 @@
 """The port stands alone: no file of ``rlgpuschedule_tpu_torch`` and not
 ``chip_smoke.py`` imports JAX, Flax or the JAX package, and importing the
-serving path does not pull JAX in through a dependency."""
+serving or the training path does not pull JAX in through a
+dependency."""
 import ast
 import os
 import subprocess
@@ -33,6 +34,7 @@ def test_the_port_has_the_expected_files():
     names = {os.path.relpath(p, ROOT) for p in _port_files()}
     assert len(names) > 20
     assert "rlgpuschedule_tpu_torch/serve/fleet.py" in names
+    assert "rlgpuschedule_tpu_torch/train.py" in names
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -43,13 +45,20 @@ def test_no_jax_import(path):
         assert top not in FORBIDDEN, f"{path} imports {mod}"
 
 
-def test_importing_the_serving_path_leaves_jax_out():
-    code = ("import sys, rlgpuschedule_tpu_torch.serve.fleet, "
-            "rlgpuschedule_tpu_torch.serve.engine, "
-            "rlgpuschedule_tpu_torch.serve.__main__; "
-            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+def _leaves_jax_out(modules):
+    code = ("import sys, "
+            + ", ".join(f"rlgpuschedule_tpu_torch.{m}" for m in modules)
+            + "; bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
     p = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        env=dict(os.environ, PYTHONPATH=ROOT),
                        capture_output=True, text=True, timeout=120)
     assert p.returncode == 0, p.stdout + p.stderr
+
+
+def test_importing_the_serving_path_leaves_jax_out():
+    _leaves_jax_out(("serve.fleet", "serve.engine", "serve.__main__"))
+
+
+def test_importing_the_training_path_leaves_jax_out():
+    _leaves_jax_out(("train", "experiment", "algos", "ops.gae"))

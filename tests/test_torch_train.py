@@ -1,0 +1,390 @@
+"""Parity of the port's training path with the JAX package's, and smoke
+tests of ``Experiment`` and the ``train`` CLI.
+
+A small world (4 nodes x 4 GPUs, 16-job windows, queue 3, 8 steps x 4
+envs, PPO at 4 epochs x 4 minibatches) goes through both packages:
+
+- one learn step from a JAX ``TrainState`` taken mid-run (Adam count 16),
+  on the same batch with JAX's own permutations: parameters within
+  atol 1e-5 at f32 and metrics within rtol 1e-4, for a flat (MLP) and a
+  grid (CNN) policy; and the same against JAX's ``dtype=bf16`` trainer
+  (f32 parameters, bf16 trunk), at a bf16 band, with the trunk's
+  outputs bf16 and every grad and Adam moment f32;
+- a rollout that replays JAX's sampled actions across an episode end:
+  mask, reward, done and the simulated ``dt`` bit-identical, the
+  observations within the env tolerance of ``tests/test_torch_sim.py``
+  (rtol 1e-6, atol 1e-7: tanh differs by an ulp between XLA and torch),
+  log-probs and values within 1e-5; then the learn step on each side's
+  own rollout, parameters within atol 1e-5 (the slice as a whole).
+"""
+import dataclasses
+import json
+import math
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+from flax.training.train_state import TrainState
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from rlgpuschedule_tpu import configs as jconfigs
+from rlgpuschedule_tpu import train as jtrain
+from rlgpuschedule_tpu.algos import action_dist as jdist
+from rlgpuschedule_tpu.algos import ppo as jppo
+from rlgpuschedule_tpu.algos.rollout import init_carry as jinit_carry
+from rlgpuschedule_tpu.algos.rollout import rollout as jrollout
+from rlgpuschedule_tpu.algos.rollout import Transition as JTransition
+from rlgpuschedule_tpu.env import env as jenv
+from rlgpuschedule_tpu.models import make_policy as jmake_policy
+from rlgpuschedule_tpu.sim import core as jcore
+from rlgpuschedule_tpu.traces import gen_poisson_trace as jpoisson
+from rlgpuschedule_tpu_torch import train as ttrain
+from rlgpuschedule_tpu_torch.algos import action_dist as tdist
+from rlgpuschedule_tpu_torch.algos import ppo as tppo
+from rlgpuschedule_tpu_torch.algos.rollout import init_carry, rollout
+from rlgpuschedule_tpu_torch.algos.rollout import Transition
+from rlgpuschedule_tpu_torch.configs import CONFIGS
+from rlgpuschedule_tpu_torch.env import env as tenv
+from rlgpuschedule_tpu_torch.experiment import Experiment
+from rlgpuschedule_tpu_torch.models import (make_policy, opt_state_from_jax,
+                                            params_from_jax)
+from rlgpuschedule_tpu_torch.sim import core as tcore
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+N, G, J, K = 4, 4, 16, 3
+A = K + 1
+T, E = 8, 4
+SHAPES = {"flat": (N + 4 * K + 2,), "grid": (N + K, G, 2)}
+GEOMETRY = dict(n_steps=T, n_epochs=4, n_minibatches=4)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    # the tensors are tiny: more threads only contend with other workers
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
+class World:
+    """The JAX side of one policy kind and trunk dtype, jitted once for
+    the module."""
+
+    def __init__(self, kind, dtype="float32"):
+        self.kind = kind
+        self.dtype = dtype
+        self.cfg = jppo.PPOConfig(**GEOMETRY)
+        self.net = jmake_policy(kind, A, dtype=getattr(jnp, dtype))
+        self.apply_fn = lambda p, o, m: self.net.apply(p, o, m)
+        ex_obs = np.zeros((1,) + SHAPES[kind], np.float32)
+        ex_mask = np.ones((1, A), bool)
+        # make_train_state with the init jitted (eager Flax init runs op
+        # by op and takes seconds)
+        self.state = TrainState.create(
+            apply_fn=self.net.apply,
+            params=jax.jit(self.net.init)(jax.random.PRNGKey(0), ex_obs,
+                                          ex_mask),
+            tx=jppo.make_optimizer(self.cfg))
+        self.learn = jax.jit(jppo.make_learn_step(self.apply_fn, self.cfg))
+        self.apply = jax.jit(self.net.apply)
+
+
+@pytest.fixture(scope="module")
+def worlds():
+    return {}
+
+
+def _world(worlds, kind, dtype="float32"):
+    if (kind, dtype) not in worlds:
+        worlds[kind, dtype] = World(kind, dtype)
+    return worlds[kind, dtype]
+
+
+def _batch(world, params, rng):
+    """A numpy Transition [T, E, ...] with legal actions and behaviour
+    log-probs near the policy's (so some ratios clip)."""
+    obs = rng.random((T, E) + SHAPES[world.kind], dtype=np.float32)
+    mask = rng.random((T, E, A)) < 0.6
+    mask[..., -1] = True
+    action = np.array([[rng.choice(np.flatnonzero(m)) for m in row]
+                       for row in mask], np.int32)
+    logits, _ = world.apply(params, obs, mask)
+    lp = np.asarray(jdist.log_prob(logits, action))
+    return JTransition(
+        obs=obs, action=action,
+        log_prob=(lp + rng.normal(0, 0.2, lp.shape)).astype(np.float32),
+        value=rng.normal(size=(T, E)).astype(np.float32),
+        reward=rng.normal(size=(T, E)).astype(np.float32),
+        done=rng.random((T, E)) < 0.1, mask=mask,
+        env_steps_dt=np.ones((T, E), np.float32))
+
+
+def _jax_perms(key, n_epochs, b):
+    """The permutations JAX's update engine draws from ``key``."""
+    perms = []
+    for _ in range(n_epochs):
+        key, sub = jax.random.split(key)
+        perms.append(torch.tensor(np.asarray(jax.random.permutation(sub, b))))
+    return perms
+
+
+def _adam(opt_state):
+    return next(s for s in jax.tree.leaves(
+        opt_state, is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState))
+        if isinstance(s, optax.ScaleByAdamState))
+
+
+def _port_state(world, jstate):
+    """The port's TrainState carrying a JAX TrainState's weights and
+    Adam state."""
+    net = make_policy(world.kind, A, SHAPES[world.kind],
+                      dtype=getattr(torch, world.dtype), device="cpu")
+    net.load_state_dict(params_from_jax(jax.device_get(jstate.params)))
+    state = tppo.make_train_state(net, tppo.PPOConfig(**GEOMETRY))
+    adam = jax.device_get(_adam(jstate.opt_state))
+    state.opt.load_state_dict(opt_state_from_jax(adam.mu, adam.nu,
+                                                 adam.count, net, state.opt))
+    return state
+
+
+def _to_torch(tr):
+    return Transition(*(torch.tensor(np.asarray(x)) for x in tr))
+
+
+def _assert_learned_alike(world, jstate, jmetrics, state, metrics,
+                          param_atol=1e-5, metric_rtol=1e-4,
+                          metric_atol=1e-6):
+    want = params_from_jax(jax.device_get(jstate.params))
+    moved = 0.0
+    for name, p in state.net.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), want[name].numpy(),
+                                   rtol=0, atol=param_atol, err_msg=name)
+    for name, p in params_from_jax(jax.device_get(world.state.params)
+                                   ).items():
+        moved = max(moved, float((want[name] - p).abs().max()))
+    assert moved > 1e-3, "the learn steps did not move the parameters"
+    for f in jppo.PPOMetrics._fields:
+        np.testing.assert_allclose(float(getattr(metrics, f)),
+                                   float(getattr(jmetrics, f)),
+                                   rtol=metric_rtol, atol=metric_atol,
+                                   err_msg=f)
+
+
+class _MatmulDtypes(TorchDispatchMode):
+    """Records the operand dtypes and shapes of every matmul and
+    convolution that autograd runs, forward and backward."""
+
+    OPS = {"mm", "addmm", "bmm", "convolution", "convolution_backward"}
+
+    def __init__(self):
+        super().__init__()
+        self.calls = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.overloadpacket.__name__
+        if name in self.OPS:
+            ts = [a for a in args if isinstance(a, torch.Tensor)]
+            self.calls.append((name, {t.dtype for t in ts},
+                               {d for t in ts for d in t.shape}))
+        return func(*args, **(kwargs or {}))
+
+
+# (kind, trunk dtype, param atol, metric rtol, metric atol). At bf16 the
+# band is set by rounding, not by the port: XLA's CPU backend does not
+# round bf16 where torch does (a third of the trunk's outputs are
+# bit-equal), so one step's grads differ by about 1.5e-2 relative and
+# sixteen Adam steps apart by 0.35e-3 at most (grid); atol 1e-3 is a
+# quarter of the step's largest movement (4e-3). Metrics take the bf16
+# band of tests/test_torch_models.py (2e-2), atol 1e-4 for approx_kl.
+LEARN_CASES = [("flat", "float32", 1e-5, 1e-4, 1e-6),
+               ("grid", "float32", 1e-5, 1e-4, 1e-6),
+               ("flat", "bfloat16", 1e-3, 2e-2, 1e-4),
+               ("grid", "bfloat16", 1e-3, 2e-2, 1e-4)]
+
+
+@pytest.mark.parametrize("kind,dtype,param_atol,metric_rtol,metric_atol",
+                         LEARN_CASES,
+                         ids=[f"{c[0]}-{c[1]}" for c in LEARN_CASES])
+def test_learn_step_matches_jax_from_a_mid_run_state(
+        worlds, kind, dtype, param_atol, metric_rtol, metric_atol):
+    w = _world(worlds, kind, dtype)
+    rng = np.random.default_rng(1)
+    tr_a = _batch(w, w.state.params, rng)
+    state1, _ = w.learn(w.state, tr_a, rng.normal(size=E).astype(np.float32),
+                        jax.random.PRNGKey(1))
+    assert int(_adam(state1.opt_state).count) == 16
+    tr_b = _batch(w, state1.params, rng)
+    last = rng.normal(size=E).astype(np.float32)
+    key = jax.random.PRNGKey(2)
+    state2, jm = w.learn(state1, tr_b, last, key)
+
+    state = _port_state(w, state1)
+    learn = tppo.make_learn_step(tppo.PPOConfig(**GEOMETRY))
+    with _MatmulDtypes() as ops:
+        state, m = learn(state, _to_torch(tr_b), torch.tensor(last),
+                         perms=_jax_perms(key, 4, T * E))
+    assert 0.0 < float(m.clip_frac) < 1.0
+    _assert_learned_alike(w, state2, jm, state, m, param_atol, metric_rtol,
+                          metric_atol)
+    # f32 parameters, grads and Adam moments; the trunk's products,
+    # forward and backward, in the trunk's dtype; the heads' in f32 (as
+    # Flax with dtype=bf16 and optax). A head's product is the one with
+    # an operand dimension of n_actions (policy) or 1 (value).
+    trunk = getattr(torch, dtype)
+    cnn = len(SHAPES[kind]) == 3    # image observations: the CNN trunk
+    assert any(n == "convolution_backward" for n, _, _ in ops.calls) == cnn
+    for name, dts, dims in ops.calls:
+        head = name in ("mm", "addmm") and bool(dims & {A, 1})
+        assert dts == {torch.float32 if head else trunk}, (name, dts, dims)
+    assert sum(dts == {trunk} for _, dts, _ in ops.calls) > 16
+    for p in state.net.parameters():
+        assert p.dtype == p.grad.dtype == torch.float32
+        moments = state.opt.state[p]
+        assert moments["exp_avg"].dtype == torch.float32
+        assert moments["exp_avg_sq"].dtype == torch.float32
+
+
+def _integer_windows():
+    out = []
+    for s in range(E):
+        tr = jpoisson(0.05, J, seed=s, max_jobs=J, mean_duration=300.0)
+        out.append(dataclasses.replace(
+            tr,
+            submit=np.where(tr.valid, np.round(tr.submit),
+                            np.inf).astype(np.float32),
+            duration=np.maximum(np.round(tr.duration), 1.0
+                                ).astype(np.float32)))
+    return out
+
+
+def test_rollout_replaying_jax_actions_then_learning_matches_jax(worlds):
+    w = _world(worlds, "flat")
+    kw = dict(obs_kind="flat", horizon=5, place_bonus=0.05,
+              reward_scale=1e4, time_scale=600.0)
+    jp = jenv.EnvParams(sim=jcore.SimParams(N, G, J, K), **kw)
+    tp = tenv.EnvParams(sim=tcore.SimParams(N, G, J, K), **kw)
+    wins = _integer_windows()
+    jtr = jenv.stack_traces(wins, jp)
+    ttr = tenv.stack_traces(wins, tp, device="cpu")
+    carry = jax.jit(lambda tr, k: jinit_carry(jp, tr, k))(
+        jtr, jax.random.PRNGKey(5))
+    _, jtrans, jlast = jax.jit(lambda p, c, tr: jrollout(
+        w.apply_fn, p, jp, tr, c, T))(w.state.params, carry, jtr)
+
+    state = _port_state(w, w.state)
+    actions = iter(torch.tensor(np.asarray(jtrans.action)))
+
+    def replay(gen, logits):
+        a = next(actions)
+        return a, tdist.log_prob(logits, a)
+
+    tcarry = init_carry(tp, ttr, torch.Generator().manual_seed(0))
+    tcarry, trans, last = rollout(state.net, tp, ttr, tcarry, T,
+                                           sample_fn=replay)
+    assert bool(np.asarray(jtrans.done).any()), "no episode ended"
+    for f in ("action", "reward", "done", "mask", "env_steps_dt"):
+        np.testing.assert_array_equal(getattr(trans, f).numpy(),
+                                      np.asarray(getattr(jtrans, f)),
+                                      err_msg=f)
+    np.testing.assert_allclose(trans.obs.numpy(), np.asarray(jtrans.obs),
+                               rtol=1e-6, atol=1e-7)
+    for got, want in ((trans.log_prob, jtrans.log_prob),
+                      (trans.value, jtrans.value), (last, jlast)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-5, atol=1e-5)
+    assert not trans.obs.requires_grad
+
+    key = jax.random.PRNGKey(6)
+    jstate, jm = w.learn(w.state, jtrans, jlast, key)
+    learn = tppo.make_learn_step(tppo.PPOConfig(**GEOMETRY))
+    state, m = learn(state, trans, last, perms=_jax_perms(key, 4, T * E))
+    _assert_learned_alike(w, jstate, jm, state, m)
+
+
+# ---- Experiment and the CLI ---------------------------------------------------
+
+def _cut(name):
+    cfg = CONFIGS[name]
+    return dataclasses.replace(
+        cfg, n_envs=2, ppo=dataclasses.replace(cfg.ppo, n_steps=8,
+                                               n_epochs=2, n_minibatches=2))
+
+
+@pytest.mark.parametrize("name", ["ppo-mlp-synth64", "ppo-cnn-philly512"])
+def test_experiment_trains_and_logs_finite_metrics(name):
+    exp = Experiment.build(_cut(name), device="cpu")
+    before = [p.detach().clone() for p in exp.net.parameters()]
+    logged = []
+    out = exp.run(2, log_every=1, logger=lambda i, m: logged.append(i))
+    assert exp.steps_per_iteration == 16
+    assert out["env_steps"] == 32 and out["env_steps_per_sec"] > 0
+    assert logged == [0, 1] and len(out["history"]) == 2
+    for row in out["history"]:
+        assert set(row) == {"iteration", *tppo.PPOMetrics._fields}
+        assert all(math.isfinite(v) for v in row.values())
+    assert any(not torch.equal(a, b.detach())
+               for a, b in zip(before, exp.net.parameters()))
+    assert exp.carry.obs.shape[0] == 2
+
+
+def test_train_cli_prints_finite_metrics_on_the_cpu():
+    p = subprocess.run(
+        [sys.executable, "-m", "rlgpuschedule_tpu_torch.train",
+         "--config", "ppo-mlp-synth64", "--n-envs", "2", "--n-steps", "8",
+         "--n-epochs", "1", "--n-minibatches", "2", "--iterations", "2",
+         "--log-every", "1", "--device", "cpu"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+        capture_output=True, text=True, timeout=300)
+    assert p.returncode == 0, p.stderr
+    lines = [json.loads(x) for x in p.stdout.splitlines()]
+    rows, summary = lines[:-1], lines[-1]
+    assert [r["iteration"] for r in rows] == [0, 1]
+    for r in rows:
+        assert math.isfinite(r["total_loss"]) and r["entropy"] > 0
+    assert summary["env_steps"] == 32 and summary["env_steps_per_sec"] > 0
+    assert summary["device_name"] == "cpu"
+
+
+def test_train_cli_refuses_a2c_with_the_slice_named():
+    with pytest.raises(SystemExit, match="config-3 slice"):
+        ttrain.main(["--config", "a2c-pai-fair", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("argv", [
+    ["--ckpt-dir", "x"], ["--async"], ["--mesh=auto"], ["--faults", "storm"],
+    ["--correction", "vtrace"], ["--eval-every", "5"]])
+def test_train_cli_refuses_unported_flags_with_the_slice_named(argv):
+    with pytest.raises(SystemExit, match=r"waits for .*item \d+"):
+        ttrain.main(argv + ["--device", "cpu"])
+
+
+def test_every_jax_train_flag_is_taken_or_refused():
+    def flags(parser):
+        return {s for a in parser._actions for s in a.option_strings
+                if s.startswith("--") and s != "--help"}
+    jax_flags = flags(jtrain.build_parser())
+    taken = flags(ttrain.build_parser())
+    assert jax_flags - taken == set(ttrain.UNPORTED_FLAGS)
+    assert taken - jax_flags == {"--device"}
+
+
+def test_train_cli_defaults_to_cuda_and_refuses_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ttrain.main(["--iterations", "1"])
+
+
+def test_presets_mean_the_same_run_as_jax():
+    for name, cfg in CONFIGS.items():
+        ref = jconfigs.CONFIGS[name]
+        assert (cfg.algo, cfg.iterations) == (ref.algo, ref.iterations)
+        for f in dataclasses.fields(cfg.ppo):
+            assert getattr(cfg.ppo, f.name) == getattr(ref.ppo, f.name), f
