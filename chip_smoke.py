@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and training paths on one
-NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving, training and evaluation paths
+on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -52,6 +52,35 @@ imports nothing of JAX. Phases, each fatal on failure:
    same permutations on both sides (parameters within atol 1e-5,
    metrics within rtol 1e-4 / atol 1e-6, the CPU parity tests'
    tolerances).
+8. Config 2's JCT table at full width: ``jct_report`` on 64 held-out
+   streaming windows (seed ``cfg.seed + 1000``, 128 jobs each, 512
+   GPUs), ``max_steps`` 4096, the baselines on the native engine,
+   p50/p90/p99 columns, after the native engine's first-use build
+   (timed), and after 63 steps of the gated greedy and of the random
+   replay under torch's sync debug mode set to raise (the loop may wait
+   for the card only at its every-64-steps check). The policy is the
+   seeded init in bf16; then the policy row again with the weights
+   phase 5 trained. Prints every row, the completion, ``vs_tiresias``,
+   the wall time of the policy replay, the random replay and the
+   baselines (the card synchronized around each), and the policy
+   replay's decision steps and decisions/s. Every value must be finite
+   and the completion reported.
+9. Card against CPU, and native against Python, on 4 of those windows
+   at f32 with TF32 off: the greedy replay's actions identical under
+   phase 3's margin rule, and for the windows compared to the end
+   ``n_done``, ``steps`` and every per-job JCT identical (the policy
+   row within rtol 1e-6, an f32 mean whose summation order differs by
+   device); the ``backlog_gate=4`` replay's actions identical under the
+   same rule; the four baselines on the native engine against the
+   Python oracle, finish and start within atol 1e-6, status equal, avg
+   JCT within rel 1e-9 (``tests/test_torch_oracle.py``'s tolerances),
+   with the time per window of each backend.
+10. The entry points, each in a subprocess that must exit 0:
+    ``python -m rlgpuschedule_tpu_torch.evaluate --config
+    ppo-cnn-philly512 --eval-windows 8 --max-steps 4096 --percentiles``
+    and ``python -m rlgpuschedule_tpu_torch.train --config
+    ppo-mlp-synth64 --iterations 6 --eval-every 3 --report``; their JSON
+    lines (the probe rows and the report) are echoed.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it is the card's name and power limit. Without a CUDA device, or
@@ -60,6 +89,7 @@ exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -77,6 +107,13 @@ TRAIN_TIMED = 3           # timed iterations after one warm-up
 BENCH_CONFIG = "ppo-mlp-synth64"
 REPLAY_STEPS = 32
 PARAM_ATOL, METRIC_RTOL, METRIC_ATOL = 1e-5, 1e-4, 1e-6
+EVAL_WINDOWS = 64         # held-out windows of the phase-8 table
+EVAL_STEPS = 4096         # decision steps per window
+EVAL_COMPARE = 4          # windows compared card against CPU (phase 9)
+GATE = 4
+PERCENTILES = (50, 90, 99)
+ROWS = ("policy", "random", "fifo", "sjf", "srtf", "tiresias")
+BASELINES = ("fifo", "sjf", "srtf", "tiresias")
 
 
 def _nvidia_smi() -> str:
@@ -418,6 +455,7 @@ def train_phase(torch, dev):
             raise SystemExit(f"non-finite training metrics: {m}")
     if not acct["update"][0]:
         raise SystemExit("the profiler saw no kernel in the update")
+    return exp
 
 
 def bench_phase(torch, dev):
@@ -548,6 +586,288 @@ def train_compare_phase(torch, dev):
                          f"rtol {METRIC_RTOL} / atol {METRIC_ATOL}: {bad}")
 
 
+def eval_phase(torch, dev, trained):
+    """Config 2's JCT table on held-out windows (phase 8); returns the
+    windows. ``trained`` is phase 5's experiment."""
+    from rlgpuschedule_tpu_torch import native
+    from rlgpuschedule_tpu_torch.configs import CONFIGS
+    from rlgpuschedule_tpu_torch.env import stack_traces
+    from rlgpuschedule_tpu_torch.eval import format_report, jct_report, replay
+    from rlgpuschedule_tpu_torch.experiment import (Experiment,
+                                                    load_source_trace,
+                                                    make_env_windows)
+    from rlgpuschedule_tpu_torch.sim.core import validate_trace
+
+    # the native engine is compiled on first use (g++, into the user
+    # cache); a failed build raises here
+    t0 = time.perf_counter()
+    if not native.available():
+        raise SystemExit(f"native engine unavailable: "
+                         f"{native.build_error()}")
+    build_s = time.perf_counter() - t0
+    cfg = CONFIGS[CONFIG]
+    exp = Experiment.build(cfg, device=dev)
+    held = dataclasses.replace(cfg, seed=cfg.seed + 1000,
+                               n_envs=EVAL_WINDOWS, source_jobs=None)
+    windows = make_env_windows(held, validate_trace(
+        exp.env_params.sim, load_source_trace(held), clamp=True))
+    # first-call costs (allocator, cuDNN at this batch) outside the table
+    jct_report(exp, windows=windows, max_steps=4, include_random=False,
+               baselines=())
+    # the replay loop waits for the card nowhere but at its every-64-steps
+    # "all done?" check: 63 steps of the gated greedy and of the random
+    # replay with torch raising on any synchronizing call
+    cuda = torch.device(dev).type == "cuda"
+    if cuda:
+        traces = stack_traces(windows, exp.env_params, dev)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            replay(exp.net, exp.env_params, traces, 63, backlog_gate=GATE)
+            replay(None, exp.env_params, traces, 63, policy="random",
+                   generator=torch.Generator(dev).manual_seed(1))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        del traces
+    report = jct_report(exp, windows=windows, max_steps=EVAL_STEPS,
+                        percentiles=PERCENTILES, backend="native")
+    print(format_report(report), file=sys.stderr, flush=True)
+    pcts = report["percentiles"]
+    for row in ROWS:
+        _line("eval_row", row=row, avg_jct=report[row], **pcts[row])
+    wall = report["wall_s"]
+    _line("eval_table", config=cfg.name, weights="seeded init (bf16)",
+          windows=len(windows), jobs_per_window=cfg.window_jobs,
+          gpus=cfg.total_gpus, held_out_seed=held.seed,
+          max_steps=EVAL_STEPS,
+          policy_completion=report["policy_completion"],
+          policy_utilization=report["policy_utilization"],
+          vs_tiresias=report["vs_tiresias"],
+          baseline_backend=report["baseline_backend"],
+          native_build_or_load_s=build_s,
+          wall_s=wall, replay_loop_without_host_sync=cuda,
+          policy_steps=report["policy_steps"],
+          policy_decisions_per_s=report["policy_steps"]
+          / wall["policy_replay"],
+          baseline_s_per_window=wall["baselines"] / len(windows))
+    values = [report[k] for k in ROWS + ("policy_completion",
+                                         "vs_tiresias")]
+    values += [v for row in pcts.values() for v in row.values()]
+    values += list(wall.values())
+    if not _finite(*values):
+        raise SystemExit(f"the JCT table has a non-finite value: {report}")
+    if not report["policy_completion"] > 0:
+        raise SystemExit("the policy completed no job in the JCT table")
+    if report["baseline_backend"] != "native":
+        raise SystemExit("the baselines did not run on the native engine")
+
+    # the policy phase 5 trained, on the same windows
+    tr = jct_report(trained, windows=windows, max_steps=EVAL_STEPS,
+                    include_random=False, baselines=("tiresias",),
+                    backend="native")
+    _line("eval_trained", weights="after phase 5 (6 PPO iterations)",
+          policy=tr["policy"], policy_completion=tr["policy_completion"],
+          vs_tiresias=tr["vs_tiresias"], policy_steps=tr["policy_steps"],
+          wall_s=tr["wall_s"])
+    if not _finite(tr["policy"], tr["policy_completion"],
+                   tr["vs_tiresias"]):
+        raise SystemExit(f"the trained policy's row is not finite: {tr}")
+    return windows
+
+
+def _first_split(acts_a, acts_b, margin, steps):
+    """Per window: None if the actions agree over ``steps``, else (step,
+    the CPU's margin there)."""
+    out = []
+    for e in range(acts_a.shape[1]):
+        n = int(steps[e])
+        diff = (acts_a[:n, e] != acts_b[:n, e]).nonzero().flatten()
+        out.append(None if not diff.numel() else
+                   (int(diff[0]), float(margin[int(diff[0]), e])))
+    return out
+
+
+def _window_jcts(torch, states, traces, e):
+    """Per-job JCTs of window ``e``'s completed jobs, in f64."""
+    finish = states.sim.finish[e].cpu().double()
+    done = traces.valid[e].cpu() & torch.isfinite(finish)
+    return (finish[done] - traces.submit[e].cpu().double()[done]).tolist()
+
+
+def eval_compare_phase(torch, dev, windows):
+    """Card against CPU and native against Python on the held-out
+    windows (phase 9)."""
+    import numpy as np
+
+    from rlgpuschedule_tpu_torch.configs import CONFIGS
+    from rlgpuschedule_tpu_torch.env import stack_traces
+    from rlgpuschedule_tpu_torch.eval import pooled_avg_jct, replay
+    from rlgpuschedule_tpu_torch.experiment import build_env_params
+    from rlgpuschedule_tpu_torch.models import make_policy
+    from rlgpuschedule_tpu_torch.sim.schedulers import run_baseline
+    from rlgpuschedule_tpu_torch.traces import gen_poisson_trace
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = CONFIGS[CONFIG]
+    env_params = build_env_params(cfg)
+    sub = windows[:EVAL_COMPARE]
+    out = {}
+    for side in (dev, "cpu"):
+        net = make_policy(cfg.obs_kind, env_params.n_actions,
+                          env_params.obs_shape(), dtype=torch.float32,
+                          seed=cfg.seed, device=side)
+        traces = stack_traces(sub, env_params, side)
+        res, states, rec = replay(net, env_params, traces, EVAL_STEPS,
+                                  record=True, return_states=True)
+        gres, grec = replay(net, env_params, traces, EVAL_STEPS,
+                            record=True, backlog_gate=GATE)
+        out[side] = dict(
+            res={k: v.cpu() for k, v in res._asdict().items()},
+            acts=rec.actions.cpu(), margin=rec.margin.cpu(),
+            jcts=[_window_jcts(torch, states, traces, e)
+                  for e in range(EVAL_COMPARE)],
+            row=pooled_avg_jct(res)[0],
+            gsteps=gres.steps.cpu(), gacts=grec.actions.cpu(),
+            gmargin=grec.margin.cpu())
+    g, c = out[dev], out["cpu"]
+    steps = torch.minimum(g["res"]["steps"], c["res"]["steps"])
+    splits = _first_split(g["acts"], c["acts"], c["margin"], steps)
+    gsteps = torch.minimum(g["gsteps"], c["gsteps"])
+    gsplits = _first_split(g["gacts"], c["gacts"], c["gmargin"], gsteps)
+    for what, sp in (("greedy", splits), ("backlog-gated", gsplits)):
+        for e, cut in enumerate(sp):
+            if cut is not None and cut[1] >= MARGIN:
+                raise SystemExit(
+                    f"window {e}: card and CPU {what} actions differ at "
+                    f"step {cut[0]} where the CPU's margin is {cut[1]}")
+    compared = [e for e, cut in enumerate(splits) if cut is None]
+    for e in compared:
+        for k in ("steps", "n_done"):
+            if int(g["res"][k][e]) != int(c["res"][k][e]):
+                raise SystemExit(f"window {e}: {k} differs between the "
+                                 f"card and the CPU")
+        if g["jcts"][e] != c["jcts"][e]:
+            raise SystemExit(f"window {e}: per-job JCTs differ between the "
+                             f"card and the CPU")
+    row_rel = abs(g["row"] - c["row"]) / max(abs(c["row"]), 1e-30)
+    if len(compared) == EVAL_COMPARE and row_rel > 1e-6:
+        raise SystemExit(f"the policy row differs by {row_rel} (relative)")
+    if not compared:
+        raise SystemExit("no window was compared to the end")
+
+    # native engine against the Python oracle: on the held-out windows,
+    # where no job waits for GPUs and the four baselines tie, and on an
+    # overloaded 2x8 cluster (tests/test_torch_oracle.py's trace), where
+    # SRTF and Tiresias preempt and the rows part
+    overloaded = gen_poisson_trace(0.05, 80, 0, mean_duration=2000.0)
+    cases = [("held_out", cfg.n_nodes, cfg.gpus_per_node, w) for w in sub]
+    cases.append(("overloaded", 2, 8, overloaded))
+    secs = {"native": {}, "python": {}}
+    worst = {"finish": 0.0, "start": 0.0, "avg_jct_rel": 0.0}
+    overloaded_rows = {}
+    for name in BASELINES:
+        for b in secs:
+            secs[b][name] = 0.0
+        for what, n_nodes, gpn, w in cases:
+            runs = {}
+            for b in secs:
+                t0 = time.perf_counter()
+                runs[b] = run_baseline(w, n_nodes, gpn, name, backend=b)
+                if what == "held_out":
+                    secs[b][name] += (time.perf_counter() - t0) / len(sub)
+            nat, py = runs["native"], runs["python"]
+            for f in ("finish", "start"):
+                a = np.where(np.isnan(getattr(nat, f)), np.inf,
+                             getattr(nat, f))[w.valid]
+                b = np.where(np.isnan(getattr(py, f)), np.inf,
+                             getattr(py, f))[w.valid]
+                same_inf = np.isinf(a) == np.isinf(b)
+                err = float(np.abs(a - b)[np.isfinite(a)].max(initial=0))
+                if not same_inf.all() or err > 1e-6:
+                    raise SystemExit(f"{name} ({what}): native and Python "
+                                     f"{f} times differ by {err}")
+                worst[f] = max(worst[f], err)
+            if not np.array_equal(nat.status, py.status):
+                raise SystemExit(f"{name} ({what}): native and Python "
+                                 f"status differ")
+            rel = abs(nat.avg_jct() - py.avg_jct()) / abs(py.avg_jct())
+            if rel > 1e-9:
+                raise SystemExit(f"{name} ({what}): avg JCT differs by "
+                                 f"{rel}")
+            worst["avg_jct_rel"] = max(worst["avg_jct_rel"], rel)
+            if what == "overloaded":
+                overloaded_rows[name] = nat.avg_jct()
+    if len(set(overloaded_rows.values())) < 2:
+        raise SystemExit(f"the overloaded trace did not part the baselines: "
+                         f"{overloaded_rows}")
+    _line("eval_card_vs_cpu", config=cfg.name, windows=EVAL_COMPARE,
+          dtype="float32", tf32=False, compared_to_end=len(compared),
+          cut_short={str(e): {"step": s, "cpu_margin": m}
+                     for e, cut in enumerate(splits) if cut
+                     for s, m in [cut]},
+          steps=[int(x) for x in c["res"]["steps"]],
+          n_done=[int(x) for x in c["res"]["n_done"]],
+          policy_row_card=g["row"], policy_row_cpu=c["row"],
+          policy_row_rel_diff=row_rel,
+          gated_cut_short={str(e): {"step": s, "cpu_margin": m}
+                           for e, cut in enumerate(gsplits) if cut
+                           for s, m in [cut]},
+          gated_steps=[int(x) for x in c["gsteps"]],
+          native_vs_python_max_diff=worst,
+          native_vs_python_cases={"held_out_windows": len(sub),
+                                  "overloaded_2x8_windows": 1},
+          overloaded_avg_jct=overloaded_rows,
+          baseline_s_per_window=secs)
+
+
+def _run_cli(module: str, args: list[str], timeout: int = 600):
+    """``python -m <module> <args>`` from the checkout; its JSON lines."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", module, *args], cwd=root,
+                       env=dict(os.environ, PYTHONPATH=root),
+                       capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if p.returncode != 0:
+        print(p.stderr[-4000:], file=sys.stderr)
+        raise SystemExit(f"python -m {module} exited {p.returncode}")
+    lines = [json.loads(x) for x in p.stdout.splitlines()
+             if x.startswith("{")]
+    return lines, p.stderr, wall
+
+
+def entry_point_phase(torch, dev):
+    """The evaluate and train CLIs on the card (phase 10)."""
+    lines, err, wall = _run_cli(
+        "rlgpuschedule_tpu_torch.evaluate",
+        ["--config", CONFIG, "--eval-windows", "8", "--max-steps",
+         str(EVAL_STEPS), "--percentiles"])
+    (line,) = lines
+    _line("evaluate_cli", wall_s=wall, report=line)
+    if not (line["device"].startswith("cuda") and
+            _finite(line["policy"], line["vs_tiresias"],
+                    line["policy_completion"])):
+        raise SystemExit(f"evaluate CLI: {line}")
+    lines, err, wall = _run_cli(
+        "rlgpuschedule_tpu_torch.train",
+        ["--config", BENCH_CONFIG, "--iterations", "6", "--eval-every", "3",
+         "--report"])
+    probes = [r for r in lines if "eval_vs_tiresias" in r]
+    summary = lines[-1]
+    _line("train_cli", wall_s=wall, probes=probes,
+          jct_report=summary.get("jct_report"),
+          env_steps_per_s=summary.get("env_steps_per_sec"),
+          device=summary.get("device"))
+    if [r["iteration"] for r in probes] != [2, 5]:
+        raise SystemExit(f"train CLI: probe rows {probes}")
+    rep = summary.get("jct_report") or {}
+    if not (summary.get("device", "").startswith("cuda")
+            and _finite(rep.get("policy", math.nan),
+                        rep.get("vs_tiresias", math.nan),
+                        *(r["eval_vs_tiresias"] for r in probes))):
+        raise SystemExit(f"train CLI: summary {summary}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -574,11 +894,21 @@ def main() -> int:
     compare_phase(torch, cfg, env_params, windows, "cuda")
     request_phase(torch, env_params, traces, policy, "cuda")
     del policy, traces, windows
-    for phase in (train_phase, bench_phase, train_compare_phase):
+
+    def timed(phase, *args):
         t0 = time.perf_counter()
-        phase(torch, "cuda")
+        out = phase(torch, "cuda", *args)
         _line("phase_time", phase=phase.__name__,
               wall_s=time.perf_counter() - t0)
+        return out
+
+    trained = timed(train_phase)
+    timed(bench_phase)
+    timed(train_compare_phase)
+    held_out = timed(eval_phase, trained)
+    del trained
+    timed(eval_compare_phase, held_out)
+    timed(entry_point_phase)
     _line("done", total_s=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

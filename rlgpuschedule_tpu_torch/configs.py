@@ -2,8 +2,8 @@
 
 The port's copy of the JAX package's ``configs.py``. The ``a2c``
 optimizer fields, window streaming, the drain curriculum, fault and
-domain regimes, the preemption charge and the mode-refusal table wait
-for their slices; CSV trace paths and graph topology wait for theirs.
+domain regimes, the preemption charge, graph topology and the
+mode-refusal table wait for their slices.
 The presets keep their names and the values of the fields kept here, so
 a config name means the same run in both packages; the presets this
 port cannot run are refused by :func:`..experiment.build_env_params`
@@ -24,10 +24,12 @@ class ExperimentConfig:
     # cluster
     n_nodes: int = 8
     gpus_per_node: int = 8
-    # trace source: "synthetic" (Poisson) or "philly-proxy" in this
-    # slice; "philly"/"pai" CSVs and "pai-proxy" are refused at load
+    # trace source: "synthetic" (Poisson), "philly-proxy"/"pai-proxy"
+    # (seeded traces with the published Philly/PAI statistics), or
+    # "philly"/"pai", a real CSV at trace_path
     trace: Literal["synthetic", "philly", "pai",
                    "philly-proxy", "pai-proxy"] = "synthetic"
+    trace_path: str | None = None
     trace_load: float = 1.1             # proxy traces: offered load target
     # generated traces: pin the source trace size in jobs; None = one
     # window-streaming pass over the env batch (window_jobs *
@@ -57,6 +59,18 @@ class ExperimentConfig:
     @property
     def total_gpus(self) -> int:
         return self.n_nodes * self.gpus_per_node
+
+
+def repro_tuple(cfg: ExperimentConfig) -> dict:
+    """The config fields that determine a replay: enough to regenerate
+    any reported row (the JAX package's ``repro_tuple`` without the
+    fields the port does not have yet, the checkpoint among them)."""
+    return {"config": cfg.name, "seed": cfg.seed, "trace": cfg.trace,
+            "trace_path": cfg.trace_path, "trace_load": cfg.trace_load,
+            "source_jobs": cfg.source_jobs, "n_envs": cfg.n_envs,
+            "n_nodes": cfg.n_nodes, "gpus_per_node": cfg.gpus_per_node,
+            "window_jobs": cfg.window_jobs, "queue_len": cfg.queue_len,
+            "horizon": cfg.horizon, "obs_kind": cfg.obs_kind}
 
 
 CONFIGS: dict[str, ExperimentConfig] = {}

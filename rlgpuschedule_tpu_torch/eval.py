@@ -1,29 +1,49 @@
-"""Greedy trace replay (L6) of the port.
+"""Trace replay and the JCT-vs-baselines table (L6) of the port.
 
-Counterpart of ``EvalResult``, ``replay`` and ``pooled_avg_jct`` in the
-JAX package's ``eval.py``. There the replay is one ``lax.scan``; here it
-is a Python loop over decision steps whose body stays on the device:
-no value comes back to the host inside the loop, except one "all done?"
-check every 64 steps that ends the loop early (a finished cluster is
-frozen, so the steps it skips would change nothing).
+Counterpart of ``EvalResult``, ``replay``, ``pooled_avg_jct``,
+``baseline_jcts``, ``baseline_jct_table``, ``jct_report`` and
+``format_report`` in the JAX package's ``eval.py``. There the replay is
+one ``lax.scan``; here it is a Python loop over decision steps whose
+body stays on the device: no value comes back to the host inside the
+loop, except one "all done?" check every 64 steps that ends the loop
+early (a finished cluster is frozen, so the steps it skips would change
+nothing).
 
-Greedy play only: no fault schedules, no backlog gate, no random
-policy; those wait for the slices that bring faults and training.
+The policy side plays greedily (argmax over the masked logits) or as
+the masked-uniform random control, optionally gated to
+FIFO-with-backfill while the backlog is shallow (``backlog_gate``). The
+baseline side replays the same windows on the host through
+:mod:`.sim.schedulers` (the native engine unless no compiler is
+present), so the table compares like with like.
+
+Not here: the stall guard (it only ever masks preempt actions, and the
+port refuses preemptive configs at build), fault replay, the
+hierarchical env, and the fairness, chaos, matrix and full-trace
+reports; they come with their slices (``ROADMAP.md`` queue 1).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import time
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from .algos import action_dist
 from .decision import greedy_actions
 from .env import env as env_lib
-from .env.env import EnvParams
+from .env.env import EnvParams, stack_traces
 from .sim import core
+from .sim.core import PENDING
+from .sim.schedulers import BASELINES, resolve_backend, run_baseline
+from .traces.records import ArrayTrace
 
 _DONE_CHECK_EVERY = 64
+BASELINE_NAMES = tuple(BASELINES)   # fifo, sjf, srtf, tiresias
+# the random control's generator seed (JAX draws it from PRNGKey(1); the
+# two streams differ, so the rows agree in distribution only)
+RANDOM_SEED = 1
 
 
 class EvalResult(NamedTuple):
@@ -39,20 +59,86 @@ class EvalResult(NamedTuple):
 class ReplayRecord(NamedTuple):
     """What the policy did at every step of a replay (``[T, E]``).
     Steps at and after a cluster's ``steps`` act on its frozen state."""
-    actions: torch.Tensor   # i64 greedy action
-    margin: torch.Tensor    # f32 top-1 minus top-2 masked logit
+    actions: torch.Tensor   # the action taken (after any backlog gate)
+    margin: torch.Tensor    # f32 top-1 minus top-2 of the deciding logits
 
 
-def replay(policy: nn.Module, env_params: EnvParams, traces: core.Trace,
-           max_steps: int | None = None, record: bool = False,
-           ) -> "EvalResult | tuple[EvalResult, ReplayRecord]":
-    """Replay the batched trace windows greedily under ``policy`` on the
+def _random_actions(generator: torch.Generator,
+                    mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Masked-uniform actions drawn from ``generator`` (on the mask's
+    device), and the logits they were drawn from (0 where legal, -1e9
+    elsewhere)."""
+    logits = torch.where(mask, 0.0, -1e9)
+    actions, _ = action_dist.sample(generator, logits)
+    return actions, logits
+
+
+def _fifo_preferences(env_params: EnvParams,
+                      device: torch.device) -> torch.Tensor:
+    """``f32[A]`` preference of the FIFO fall-through: the oldest queue
+    slot first (pack before spread within a slot), then the no-op; the
+    preempt slots below every valid choice, so FIFO never evicts."""
+    sim = env_params.sim
+    K, P, R = sim.queue_len, sim.n_placements, sim.preempt_len
+    # built on the device: a host-to-device copy would wait for the card
+    return torch.cat([
+        torch.arange(K * P, 0, -1, dtype=torch.float32, device=device),
+        torch.full((R,), -1.0, device=device),
+        torch.full((1,), 0.5, device=device),
+    ])
+
+
+def _gate_to_fifo(prefs: torch.Tensor, sim_status: torch.Tensor,
+                  mask: torch.Tensor, actions: torch.Tensor,
+                  gate: int) -> torch.Tensor:
+    """The backlog-gated hybrid: where fewer than ``gate`` jobs are
+    PENDING, play FIFO-with-backfill instead of ``actions``: place the
+    oldest pending job whose gang fits (the queue is submit-sorted), the
+    oldest-first admit rule of the oracle baselines; no-op only when
+    nothing fits; never preempt. ``prefs`` is
+    :func:`_fifo_preferences`."""
+    pending = torch.sum(sim_status == PENDING, dim=-1)
+    fifo = torch.argmax(torch.where(mask, prefs, -torch.inf),
+                        dim=-1).to(actions.dtype)
+    return torch.where(pending < gate, fifo, actions)
+
+
+def replay(net: "nn.Module | None", env_params: EnvParams,
+           traces: core.Trace, max_steps: int | None = None,
+           record: bool = False, policy: str = "greedy",
+           generator: torch.Generator | None = None,
+           return_states: bool = False, backlog_gate: int = 0):
+    """Replay the batched trace windows under the policy ``net`` on the
     traces' device. Each cluster runs its window to completion (or
     ``max_steps``, default the horizon) and is then frozen while the
-    others go on. With ``record``, also return the per-step
-    :class:`ReplayRecord`."""
+    others go on; there is no auto-reset.
+
+    ``policy``: ``"greedy"`` (argmax over the masked logits, the
+    deterministic replay) or ``"random"`` (masked-uniform, drawn from
+    ``generator``, default one seeded 0 on the traces' device; ``net``
+    is not called). ``backlog_gate > 0`` replays the backlog-gated
+    hybrid (:func:`_gate_to_fifo`) of the greedy policy.
+
+    Returns the :class:`EvalResult`, followed by the final ``EnvState``
+    with ``return_states`` and the per-step :class:`ReplayRecord` with
+    ``record``."""
+    if policy not in ("greedy", "random"):
+        raise ValueError(f"unknown replay policy {policy!r}; "
+                         f"expected 'greedy' or 'random'")
+    if backlog_gate < 0:
+        raise ValueError("backlog_gate must be >= 0 (a negative gate never "
+                         "engages: silently ungated)")
+    if backlog_gate and policy == "random":
+        raise ValueError("backlog_gate composes with the learned policy "
+                         "only: gating the random control would overwrite "
+                         "its actions with FIFO whenever the backlog is "
+                         "shallow, silently inflating the baseline")
     max_steps = int(max_steps or env_params.horizon)
     capacity = env_params.sim.capacity
+    dev = traces.submit.device
+    if policy == "random" and generator is None:
+        generator = torch.Generator(dev).manual_seed(0)
+    prefs = _fifo_preferences(env_params, dev) if backlog_gate else None
     acts, margins = [], []
     with torch.inference_mode():
         state, ts = env_lib.reset(env_params, traces)
@@ -60,8 +146,14 @@ def replay(policy: nn.Module, env_params: EnvParams, traces: core.Trace,
         done = torch.zeros_like(ts.done)
         busy_time = torch.zeros_like(ts.reward)
         for i in range(max_steps):
-            logits, _ = policy(obs, mask)
-            actions = greedy_actions(logits)
+            if policy == "random":
+                actions, logits = _random_actions(generator, mask)
+            else:
+                logits, _ = net(obs, mask)
+                actions = greedy_actions(logits)
+            if prefs is not None:
+                actions = _gate_to_fifo(prefs, state.sim.status, mask,
+                                        actions, backlog_gate)
             if record:
                 top2 = torch.topk(logits, 2, dim=-1).values
                 acts.append(actions)
@@ -86,9 +178,12 @@ def replay(policy: nn.Module, env_params: EnvParams, traces: core.Trace,
                             n_valid=traces.valid.sum(1, dtype=torch.int32),
                             makespan=makespan, utilization=util,
                             steps=state.t)
+    out: tuple = (result,)
+    if return_states:
+        out += (state,)
     if record:
-        return result, ReplayRecord(torch.stack(acts), torch.stack(margins))
-    return result
+        out += (ReplayRecord(torch.stack(acts), torch.stack(margins)),)
+    return out if len(out) > 1 else result
 
 
 def pooled_avg_jct(result: EvalResult) -> tuple[float, float]:
@@ -98,3 +193,159 @@ def pooled_avg_jct(result: EvalResult) -> tuple[float, float]:
     total = n.sum()
     frac = float(total / max(int(result.n_valid.sum()), 1))
     return float((jct * n).sum() / max(total, 1.0)), frac
+
+
+def _pct_row(jcts: np.ndarray,
+             percentiles: tuple[float, ...]) -> dict[str, float]:
+    """One scheduler's tail-latency columns, e.g. {"p50": .., "p99": ..}."""
+    return {f"p{g:g}": float(np.percentile(jcts, g))
+            for g in percentiles} if jcts.size else {}
+
+
+def baseline_jcts(windows: list[ArrayTrace], n_nodes: int,
+                  gpus_per_node: int, name: str,
+                  backend: str = "auto") -> np.ndarray:
+    """Pooled per-job JCTs of one baseline over the windows (completed
+    valid jobs only), the array behind both the mean and the percentile
+    columns."""
+    jcts = [run_baseline(w, n_nodes, gpus_per_node, name, backend).jcts()
+            for w in windows]
+    return np.concatenate(jcts) if jcts else np.zeros(0)
+
+
+def baseline_jct_table(windows: list[ArrayTrace], n_nodes: int,
+                       gpus_per_node: int,
+                       names: tuple[str, ...] = BASELINE_NAMES,
+                       ) -> dict[str, float]:
+    """Completion-weighted avg JCT per baseline over the same windows the
+    policy is evaluated on."""
+    return {name: float(np.mean(jcts)) if (jcts := baseline_jcts(
+                windows, n_nodes, gpus_per_node, name)).size else 0.0
+            for name in names}
+
+
+def _replay_jcts(states, traces: core.Trace) -> np.ndarray:
+    """Pooled per-job JCTs (completed valid jobs) from replay end states,
+    in f64."""
+    finish = states.sim.finish.cpu().numpy().astype(np.float64)
+    submit = traces.submit.cpu().numpy().astype(np.float64)
+    done = traces.valid.cpu().numpy() & np.isfinite(finish)
+    return finish[done] - submit[done]
+
+
+def _clock(device: torch.device) -> float:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()
+
+
+def jct_report(exp, windows: list[ArrayTrace] | None = None,
+               max_steps: int | None = None,
+               baselines: tuple[str, ...] = BASELINE_NAMES,
+               include_random: bool = True,
+               percentiles: tuple[float, ...] | None = None,
+               backlog_gate: int = 0, backend: str = "auto",
+               ) -> dict[str, Any]:
+    """The comparison table for an assembled :class:`..experiment
+    .Experiment`: the policy's greedy replay (on the experiment's
+    device) against the baselines (on the host) on identical windows
+    (default: the experiment's own).
+
+    Returns ``{"policy": jct, "random": jct, <baseline>: jct, ...,
+    "policy_completion": frac, "policy_utilization": u, "vs_tiresias":
+    ratio}``; a ratio below 1 means the policy beats Tiresias. With
+    ``percentiles`` (e.g. ``(50, 90, 99)``) the report also carries
+    ``report["percentiles"][<row>]["p90"]``; a replay that did not
+    complete every job gets an empty row, since cutting it short drops
+    exactly the longest jobs and would flatter its tail. The report also
+    records ``baseline_backend`` (``native`` or ``python``),
+    ``policy_steps`` (decision steps, summed over windows) and
+    ``wall_s``, the wall time of each part with the device synchronized
+    around it (not counting a first-use build of the native engine)."""
+    dev = exp.device
+    if windows is None:
+        windows, traces = exp.windows, exp.traces
+    else:
+        traces = stack_traces(windows, exp.env_params, dev)
+    report: dict[str, Any] = {}
+    pcts: dict[str, dict[str, float]] = {}
+    wall: dict[str, float] = {}
+    if backlog_gate:
+        report["backlog_gate"] = int(backlog_gate)
+    t0 = _clock(dev)
+    # the gate is part of the scheduler under evaluation (policy + FIFO
+    # hybrid); the random control row stays pure random
+    res, states = replay(exp.net, exp.env_params, traces, max_steps,
+                         return_states=True, backlog_gate=backlog_gate)
+    report["policy"], report["policy_completion"] = pooled_avg_jct(res)
+    report["policy_utilization"] = float(np.mean(res.utilization.cpu()
+                                                 .numpy()))
+    report["policy_steps"] = int(res.steps.sum())
+    if percentiles is not None:
+        pcts["policy"] = (_pct_row(_replay_jcts(states, traces), percentiles)
+                          if report["policy_completion"] >= 1.0 else {})
+    wall["policy_replay"] = _clock(dev) - t0
+    if include_random:
+        t0 = _clock(dev)
+        rnd, rnd_states = replay(
+            None, exp.env_params, traces, max_steps, policy="random",
+            generator=torch.Generator(dev).manual_seed(RANDOM_SEED),
+            return_states=True)
+        report["random"], rnd_completion = pooled_avg_jct(rnd)
+        if percentiles is not None:
+            pcts["random"] = (_pct_row(_replay_jcts(rnd_states, traces),
+                                       percentiles)
+                              if rnd_completion >= 1.0 else {})
+        wall["random_replay"] = _clock(dev) - t0
+    if baselines:
+        # resolving the backend builds the native engine on first use;
+        # that one-off compile is not part of the baselines' time
+        report["baseline_backend"] = resolve_backend(backend)
+        t0 = time.perf_counter()
+        for name in baselines:
+            jcts = baseline_jcts(windows, exp.cfg.n_nodes,
+                                 exp.cfg.gpus_per_node, name,
+                                 report["baseline_backend"])
+            report[name] = float(np.mean(jcts)) if jcts.size else 0.0
+            if percentiles is not None:
+                pcts[name] = _pct_row(jcts, percentiles)
+        wall["baselines"] = time.perf_counter() - t0
+    if "tiresias" in report and report["tiresias"] > 0:
+        report["vs_tiresias"] = report["policy"] / report["tiresias"]
+    if percentiles is not None:
+        report["percentiles"] = pcts
+    report["wall_s"] = wall
+    return report
+
+
+def format_report(report: dict[str, Any]) -> str:
+    """Human-readable JCT table (the BASELINE.md-style comparison)."""
+    rows = [(k, v) for k, v in report.items()
+            if isinstance(v, float) and k not in
+            ("vs_tiresias", "policy_completion", "policy_utilization")]
+    rows.sort(key=lambda kv: kv[1])
+    width = max(len("scheduler"), *(len(k) for k, _ in rows))
+    lines = [f"{'scheduler':<{width}}  avg JCT (s)",
+             f"{'-' * width}  -----------"]
+    for k, v in rows:
+        lines.append(f"{k:<{width}}  {v:>11.1f}")
+    if "percentiles" in report:
+        cols = sorted({c for row in report["percentiles"].values()
+                       for c in row},
+                      key=lambda c: float(c[1:]))
+        lines.append(f"{'':<{width}}  " +
+                     "  ".join(f"{c:>9}" for c in cols))
+        for k, _ in rows:
+            row = report["percentiles"].get(k, {})
+            lines.append(f"{k:<{width}}  " + "  ".join(
+                f"{row[c]:>9.1f}" if c in row else f"{'—':>9}"
+                for c in cols))
+    if "vs_tiresias" in report:
+        lines.append(f"policy/tiresias ratio: {report['vs_tiresias']:.3f} "
+                     f"(<1 beats Tiresias)")
+    if "policy_completion" in report:
+        lines.append(f"policy completion: {report['policy_completion']:.1%}")
+    if "baseline_backend" in report:
+        lines.append(f"baselines on the {report['baseline_backend']} "
+                     f"engine")
+    return "\n".join(lines)

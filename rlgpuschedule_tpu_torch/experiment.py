@@ -3,11 +3,11 @@ optimizer and the training loop.
 
 Counterparts of ``build_env_params``, ``load_source_trace``,
 ``build_stack``, ``windows_per_pass``, ``make_env_windows`` and the
-single-run ``Experiment`` (``build``, ``run``, ``steps_per_iteration``)
-in the JAX package's ``experiment.py``. Checkpoints, eval probes,
-window streaming, ``run_fused``, meshes, faults and domains are not
-ported; configs outside the port's simulator subset, and A2C, are
-refused here with ``NotImplementedError``.
+single-run ``Experiment`` (``build``, ``run`` with its eval hook,
+``steps_per_iteration``) in the JAX package's ``experiment.py``.
+Checkpoints, window streaming, ``run_fused``, meshes, faults and
+domains are not ported; configs outside the port's simulator subset,
+and A2C, are refused here with ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -27,7 +27,8 @@ from .device import resolve_device
 from .env.env import EnvParams, stack_traces
 from .models import ActorCritic, make_policy
 from .sim.core import SimParams, Trace, validate_trace
-from .traces import ArrayTrace, gen_philly_proxy_trace, gen_poisson_trace
+from .traces import (ArrayTrace, gen_pai_proxy_trace, gen_philly_proxy_trace,
+                     gen_poisson_trace, load_pai, load_philly)
 
 
 def build_env_params(cfg: ExperimentConfig) -> EnvParams:
@@ -48,23 +49,31 @@ def build_env_params(cfg: ExperimentConfig) -> EnvParams:
 
 
 def load_source_trace(cfg: ExperimentConfig) -> ArrayTrace:
-    """The full source trace this experiment schedules (generated from
-    the config's seed)."""
-    seed, n_jobs = cfg.seed, cfg.source_jobs
+    """The full source trace this experiment schedules: generated from
+    ``cfg.seed`` for the synthetic and proxy traces, sized by
+    ``cfg.source_jobs``; read from ``cfg.trace_path`` for the CSV
+    traces."""
+    # source_jobs pins generated traces only; a CSV is its own size
     if cfg.trace == "synthetic":
-        n = n_jobs or max(cfg.window_jobs * max(cfg.n_envs, 8), 1024)
-        return gen_poisson_trace(cfg.arrival_rate, n, seed,
+        n = cfg.source_jobs or max(cfg.window_jobs * max(cfg.n_envs, 8),
+                                   1024)
+        return gen_poisson_trace(cfg.arrival_rate, n, cfg.seed,
                                  mean_duration=cfg.mean_duration,
                                  n_tenants=max(cfg.n_tenants, 1))
-    if cfg.trace == "philly-proxy":
-        n = n_jobs or max(cfg.window_jobs * max(cfg.n_envs, 8), 4096)
+    if cfg.trace in ("philly-proxy", "pai-proxy"):
+        n = cfg.source_jobs or max(cfg.window_jobs * max(cfg.n_envs, 8),
+                                   4096)
+        gen = (gen_philly_proxy_trace if cfg.trace == "philly-proxy"
+               else gen_pai_proxy_trace)
         kw = {"n_tenants": cfg.n_tenants} if cfg.n_tenants else {}
-        return gen_philly_proxy_trace(n, seed, n_gpus=cfg.total_gpus,
-                                      load=cfg.trace_load,
-                                      max_gang=cfg.total_gpus, **kw)
-    raise NotImplementedError(
-        f"config {cfg.name!r} uses trace={cfg.trace!r}: the PAI proxy "
-        f"and the Philly/PAI CSV loaders wait for a later trace slice")
+        return gen(n, cfg.seed, n_gpus=cfg.total_gpus, load=cfg.trace_load,
+                   max_gang=cfg.total_gpus, **kw)
+    if cfg.trace_path is None:
+        raise ValueError(
+            f"config {cfg.name!r} uses trace={cfg.trace!r} but has no "
+            f"trace_path; pass one (CSV) or use trace='synthetic'")
+    loader = load_philly if cfg.trace == "philly" else load_pai
+    return loader(cfg.trace_path)
 
 
 def windows_per_pass(total_jobs: int, window_jobs: int) -> int:
@@ -163,14 +172,24 @@ class Experiment:
             torch.cuda.synchronize(self.device)
 
     def run(self, iterations: int | None = None, log_every: int = 0,
-            logger: Callable[[int, dict], None] | None = None) -> dict:
+            logger: Callable[[int, dict], None] | None = None,
+            eval_every: int = 0,
+            eval_fn: "Callable[[int], dict] | None" = None,
+            eval_logger: Callable[[int, dict], None] | None = None,
+            ) -> dict:
         """Run the training loop; returns the summary (wall time, env
         steps per second, logged history). Iteration ``i`` is logged
         when ``i % log_every == 0`` and at the last iteration; a logged
-        iteration costs one host sync (its metrics in one transfer), and
-        nothing else in the loop waits for the device."""
+        iteration costs one host sync (its metrics in one transfer).
+
+        ``eval_fn(i) -> dict`` runs after iteration ``i`` when
+        ``(i + 1) % eval_every == 0`` and at the last iteration (the
+        in-training quality probe, e.g. a held-out JCT replay); its rows
+        go to ``eval_logger`` and into the summary's ``eval_history``.
+        Nothing else in the loop waits for the device. ``wall_s`` and
+        env-steps/s include the probes' time."""
         iterations = iterations or self.cfg.iterations
-        history = []
+        history, eval_history = [], []
         self._sync()
         t0 = time.perf_counter()
         for i in range(iterations):
@@ -182,10 +201,19 @@ class Experiment:
                 history.append({"iteration": i, **m})
                 if logger is not None:
                     logger(i, m)
+            if eval_fn is not None and eval_every and \
+                    ((i + 1) % eval_every == 0 or i == iterations - 1):
+                em = dict(eval_fn(i))
+                eval_history.append({"iteration": i, **em})
+                if eval_logger is not None:
+                    eval_logger(i, em)
         self._sync()
         wall = time.perf_counter() - t0
         env_steps = iterations * self.steps_per_iteration
-        return {"wall_s": wall, "iterations": iterations,
-                "env_steps": env_steps,
-                "env_steps_per_sec": env_steps / wall,
-                "history": history}
+        out = {"wall_s": wall, "iterations": iterations,
+               "env_steps": env_steps,
+               "env_steps_per_sec": env_steps / wall,
+               "history": history}
+        if eval_history:
+            out["eval_history"] = eval_history
+        return out

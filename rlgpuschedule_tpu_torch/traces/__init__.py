@@ -1,13 +1,19 @@
-"""L0 trace layer of the port: records, the synthetic generator and the
-Philly-statistics proxy (numpy copies of the JAX package's modules)."""
-from .philly_proxy import gen_philly_proxy_jobs, gen_philly_proxy_trace
+"""L0 trace layer of the port: records, the synthetic generator, the
+Philly and PAI statistics proxies and the Philly/PAI CSV loaders (numpy
+copies of the JAX package's modules)."""
+from .pai import load_pai, load_pai_jobs
+from .philly import load_philly, load_philly_jobs
+from .philly_proxy import (gen_pai_proxy_jobs, gen_pai_proxy_trace,
+                           gen_philly_proxy_jobs, gen_philly_proxy_trace)
 from .records import (STATUS_FAILED, STATUS_KILLED, STATUS_PASS,
-                      ArrayTrace, JobRecord, to_array_trace)
+                      ArrayTrace, JobRecord, parse_status, to_array_trace)
 from .synthetic import gen_poisson_jobs, gen_poisson_trace
 
 __all__ = [
-    "JobRecord", "ArrayTrace", "to_array_trace",
+    "JobRecord", "ArrayTrace", "to_array_trace", "parse_status",
     "STATUS_PASS", "STATUS_KILLED", "STATUS_FAILED",
     "gen_poisson_jobs", "gen_poisson_trace",
     "gen_philly_proxy_jobs", "gen_philly_proxy_trace",
+    "gen_pai_proxy_jobs", "gen_pai_proxy_trace",
+    "load_philly", "load_philly_jobs", "load_pai", "load_pai_jobs",
 ]

@@ -1,7 +1,7 @@
 """Philly-statistics proxy trace generator (L0), config 2's source.
 
-A numpy copy of the JAX package's ``traces/philly_proxy.py`` (Philly
-preset only). It draws a seeded trace with the workload statistics
+A numpy copy of the JAX package's ``traces/philly_proxy.py``, with its
+PAI preset (:func:`gen_pai_proxy_trace`). It draws a seeded trace with the workload statistics
 published with the Microsoft Philly trace (Jeon et al., USENIX ATC'19):
 power-of-two gangs dominated by 1-GPU jobs with a thin 128-GPU tail;
 heavy-tailed log-normal durations; a pass/killed/failed status mix with
@@ -135,4 +135,30 @@ def gen_philly_proxy_trace(n_jobs: int, seed: int,
                            max_jobs: int | None = None,
                            **kw) -> ArrayTrace:
     return to_array_trace(gen_philly_proxy_jobs(n_jobs, seed, **kw),
+                          max_jobs=max_jobs)
+
+
+# The PAI-statistics preset (Weng et al., "MLaaS in the Wild", NSDI'22):
+# smaller gangs than Philly's (1-GPU jobs dominate harder, gangs rarely
+# exceed 8), minutes-scale durations, many tenants sharing one cluster.
+PAI_GPU_SIZES = (1, 2, 4, 8)
+PAI_GPU_PROBS = (0.81, 0.10, 0.06, 0.03)
+PAI_MEDIAN_DURATION_S = 300.0
+PAI_DURATION_SIGMA = 1.6
+PAI_N_TENANTS = 24
+
+
+def gen_pai_proxy_jobs(n_jobs: int, seed: int, n_gpus: int = 128,
+                       load: float = 1.1, max_gang: int | None = None,
+                       n_tenants: int = PAI_N_TENANTS) -> list[JobRecord]:
+    return gen_philly_proxy_jobs(
+        n_jobs, seed, n_gpus=n_gpus, load=load, max_gang=max_gang,
+        n_tenants=n_tenants, gpu_sizes=PAI_GPU_SIZES,
+        gpu_probs=PAI_GPU_PROBS, median_duration=PAI_MEDIAN_DURATION_S,
+        sigma=PAI_DURATION_SIGMA)
+
+
+def gen_pai_proxy_trace(n_jobs: int, seed: int, max_jobs: int | None = None,
+                        **kw) -> ArrayTrace:
+    return to_array_trace(gen_pai_proxy_jobs(n_jobs, seed, **kw),
                           max_jobs=max_jobs)

@@ -17,6 +17,20 @@ STATUS_PASS = 0
 STATUS_KILLED = 1
 STATUS_FAILED = 2
 
+_STATUS_NAMES = {"pass": STATUS_PASS, "passed": STATUS_PASS,
+                 "completed": STATUS_PASS, "terminated": STATUS_PASS,
+                 "killed": STATUS_KILLED, "canceled": STATUS_KILLED,
+                 "cancelled": STATUS_KILLED,
+                 "failed": STATUS_FAILED, "error": STATUS_FAILED}
+
+
+def parse_status(s: str | int) -> int:
+    """A terminal status from a trace's CSV: a code, or a name in any
+    case (unknown names read as passed)."""
+    if isinstance(s, (int, np.integer)):
+        return int(s)
+    return _STATUS_NAMES.get(s.strip().lower(), STATUS_PASS)
+
 
 @dataclasses.dataclass(frozen=True)
 class JobRecord:

@@ -4,15 +4,18 @@
 Counterpart of the JAX package's ``train.py`` for single-run PPO. It
 takes the subset of that CLI's flags this port implements; every other
 flag of the JAX CLI is refused with a message that names the slice it
-waits for. One JSON line per logged iteration, then a summary line with
-env-steps/s and the device it ran on.
+waits for. One JSON line per logged iteration, one per ``--eval-every``
+probe (its keys start with ``eval_``), then a summary line with
+env-steps/s, the device it ran on and, with ``--report``, the
+JCT-vs-baselines table (also printed on stderr).
 
 Examples::
 
     python -m rlgpuschedule_tpu_torch.train --config ppo-cnn-philly512 \\
         --iterations 3 --log-every 1
     python -m rlgpuschedule_tpu_torch.train --config ppo-mlp-synth64 \\
-        --n-envs 2 --n-steps 16 --iterations 2 --device cpu
+        --n-envs 2 --n-steps 16 --iterations 2 --eval-every 1 --report \\
+        --device cpu
 """
 from __future__ import annotations
 
@@ -23,19 +26,17 @@ import sys
 
 import torch
 
+from . import eval as eval_lib
+from .cli import (add_config_flags, check_source_jobs, config_overrides,
+                  numeric_rows, refuse_unported)
 from .configs import CONFIGS, ExperimentConfig
-from .experiment import Experiment
+from .env.env import stack_traces
+from .experiment import Experiment, load_source_trace, make_env_windows
+from .sim.core import validate_trace
 
 _Q1 = "ROADMAP.md queue 1"
 # the JAX CLI's flags that this port does not take, and what they wait for
 UNPORTED_FLAGS: dict[str, str] = {
-    **dict.fromkeys(
-        ("--n-nodes", "--gpus-per-node", "--window-jobs", "--queue-len",
-         "--horizon", "--obs-kind"),
-        f"the config-override flags of the train CLI ({_Q1}, item 10)"),
-    **dict.fromkeys(
-        ("--trace", "--trace-path", "--trace-load", "--source-jobs"),
-        f"the CSV and custom trace slice ({_Q1}, item 13)"),
     **dict.fromkeys(("--resample-every", "--drain-frac"),
                     f"window streaming ({_Q1}, item 13)"),
     **dict.fromkeys(("--faults", "--domains"),
@@ -53,12 +54,8 @@ UNPORTED_FLAGS: dict[str, str] = {
     **dict.fromkeys(("--mesh", "--max-rollbacks", "--fault"),
                     f"the data-parallel and resilience slice ({_Q1}, "
                     f"item 21)"),
-    **dict.fromkeys(
-        ("--eval-every", "--eval-windows", "--eval-seed", "--eval-probe",
-         "--keep-best", "--report"),
-        f"the evaluation slice ({_Q1}, item 11)"),
     **dict.fromkeys(("--ckpt-dir", "--ckpt-every", "--ckpt-keep",
-                     "--resume"),
+                     "--resume", "--keep-best"),
                     f"the checkpoint slice ({_Q1}, item 12)"),
     **dict.fromkeys(("--continual", "--continual-trust",
                      "--continual-rho-max"),
@@ -83,6 +80,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--iterations", type=int, default=None)
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--n-envs", type=int, default=None)
+    add_config_flags(p)
     p.add_argument("--n-steps", type=int, default=None,
                    help="rollout length T per iteration")
     p.add_argument("--n-epochs", type=int, default=None,
@@ -95,6 +93,23 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lr", type=float, default=None)
     p.add_argument("--ent-coef", type=float, default=None)
     p.add_argument("--log-every", type=int, default=10)
+    p.add_argument("--eval-every", type=int, default=0,
+                   help="every N iterations (and at the last), replay the "
+                        "policy greedily on a small held-out window batch "
+                        "and log its avg JCT and eval_vs_tiresias")
+    p.add_argument("--eval-windows", type=int, default=4,
+                   help="held-out windows per --eval-every probe")
+    p.add_argument("--eval-seed", type=int, default=None,
+                   help="seed of the held-out eval trace (default: "
+                        "training seed + 1000)")
+    p.add_argument("--eval-probe", default="auto",
+                   choices=["auto", "drain", "stream"],
+                   help="probe regime; the port probes streaming windows "
+                        "('auto' = 'stream'); 'drain' waits for the drain "
+                        "curriculum")
+    p.add_argument("--report", action="store_true",
+                   help="print the JCT-vs-baselines table after training "
+                        "(stderr) and add it to the summary line")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda)")
     return p
@@ -102,10 +117,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def apply_overrides(cfg: ExperimentConfig,
                     args: argparse.Namespace) -> ExperimentConfig:
-    fields = {"iterations": args.iterations, "seed": args.seed,
-              "n_envs": args.n_envs}
-    cfg = dataclasses.replace(
-        cfg, **{k: v for k, v in fields.items() if v is not None})
+    over = config_overrides(args)
+    if args.iterations is not None:
+        over["iterations"] = args.iterations
+    cfg = dataclasses.replace(cfg, **over)
     ppo = {"lr": args.lr, "ent_coef": args.ent_coef,
            "n_steps": args.n_steps, "n_epochs": args.n_epochs,
            "n_minibatches": args.n_minibatches,
@@ -117,20 +132,62 @@ def apply_overrides(cfg: ExperimentConfig,
     return cfg
 
 
-def _refuse_unported(extra: list[str], parser: argparse.ArgumentParser):
-    for tok in extra:
-        flag = tok.split("=", 1)[0]
-        if flag in UNPORTED_FLAGS:
-            sys.exit(f"{flag} is not in the PyTorch port yet: it waits for "
-                     f"{UNPORTED_FLAGS[flag]}")
-    if extra:
-        parser.error(f"unrecognized arguments: {' '.join(extra)}")
+def make_eval_probe(cfg: ExperimentConfig, exp: Experiment, n_windows: int,
+                    eval_seed: int | None, regime: str = "auto"):
+    """The ``--eval-every`` in-training quality probe: a greedy replay of
+    the live policy on a held-out window batch (a fresh trace seed,
+    ``cfg.seed + 1000`` unless ``eval_seed``; never trained on), scored
+    against the FIFO and Tiresias baselines computed once, here. Returns
+    ``eval_fn(i) -> dict`` for :meth:`Experiment.run`.
+
+    ``regime``: the port probes streaming windows (``"auto"`` and
+    ``"stream"``); ``"drain"`` waits for the drain curriculum. CSV traces
+    have no second trace to hold out: the probe replays leading windows
+    of the training CSV (on-distribution), says so on stderr, and
+    refuses ``eval_seed``."""
+    if regime == "drain":
+        raise NotImplementedError(
+            "the drain probe (--eval-probe drain) waits for window "
+            "streaming and the drain curriculum (ROADMAP.md queue 1, "
+            "item 13)")
+    if regime not in ("auto", "stream"):
+        raise ValueError(f"unknown probe regime {regime!r}")
+    if cfg.trace in ("philly", "pai"):
+        if eval_seed is not None:
+            raise ValueError("--eval-seed has no effect for csv traces "
+                             "(philly/pai load a file, not a seeded "
+                             "generator)")
+        print("note: --eval-every probe windows come from the training "
+              "CSV (csv traces have no held-out seed); treat the curve "
+              "as on-distribution quality, not generalization",
+              file=sys.stderr)
+    seed = cfg.seed + 1000 if eval_seed is None else eval_seed
+    # source_jobs=None: the probe's trace is sized to its own windows
+    ecfg = dataclasses.replace(cfg, n_envs=n_windows, seed=seed,
+                               source_jobs=None)
+    sim_params = exp.env_params.sim
+    windows = make_env_windows(ecfg, validate_trace(
+        sim_params, load_source_trace(ecfg), clamp=True))
+    traces = stack_traces(windows, sim_params, exp.device)
+    baselines = eval_lib.baseline_jct_table(
+        windows, cfg.n_nodes, cfg.gpus_per_node, names=("fifo", "tiresias"))
+
+    def eval_fn(_i: int) -> dict:
+        res = eval_lib.replay(exp.net, exp.env_params, traces)
+        jct, completion = eval_lib.pooled_avg_jct(res)
+        out = {"eval_avg_jct": jct, "eval_completion": completion,
+               **{f"eval_{k}": v for k, v in baselines.items()}}
+        if baselines.get("tiresias"):
+            out["eval_vs_tiresias"] = jct / baselines["tiresias"]
+        return out
+
+    return eval_fn
 
 
 def main(argv: "list[str] | None" = None) -> dict:
     parser = build_parser()
     args, extra = parser.parse_known_args(argv)
-    _refuse_unported(extra, parser)
+    refuse_unported(extra, parser, UNPORTED_FLAGS)
     if args.list_configs:
         for name, c in CONFIGS.items():
             print(f"{name:20s} algo={c.algo} obs={c.obs_kind} "
@@ -139,16 +196,29 @@ def main(argv: "list[str] | None" = None) -> dict:
         return {}
     if args.config not in CONFIGS:
         sys.exit(f"unknown config {args.config!r}; try --list-configs")
+    if args.eval_probe != "auto" and not args.eval_every:
+        sys.exit("--eval-probe selects the --eval-every probe's regime; "
+                 "without --eval-every no probe runs and the flag would "
+                 "be a silent no-op")
     cfg = apply_overrides(CONFIGS[args.config], args)
+    check_source_jobs(args, cfg)
     try:
         exp = Experiment.build(cfg, device=args.device)
-    except NotImplementedError as e:
+        eval_kw = {}
+        if args.eval_every:
+            eval_kw = dict(
+                eval_every=args.eval_every,
+                eval_fn=make_eval_probe(cfg, exp, args.eval_windows,
+                                        args.eval_seed, args.eval_probe),
+                eval_logger=lambda i, m: print(
+                    json.dumps({"iteration": i, **m}), flush=True))
+    except (NotImplementedError, ValueError) as e:
         sys.exit(str(e))
 
     def logger(i: int, m: dict) -> None:
         print(json.dumps({"iteration": i, **m}), flush=True)
 
-    out = exp.run(log_every=args.log_every, logger=logger)
+    out = exp.run(log_every=args.log_every, logger=logger, **eval_kw)
     dev = exp.device
     summary = {k: v for k, v in out.items() if k != "history"}
     summary.update(
@@ -156,6 +226,10 @@ def main(argv: "list[str] | None" = None) -> dict:
         device=str(dev),
         device_name=(torch.cuda.get_device_name(dev)
                      if dev.type == "cuda" else "cpu"))
+    if args.report:
+        report = eval_lib.jct_report(exp)
+        print(eval_lib.format_report(report), file=sys.stderr)
+        summary["jct_report"] = numeric_rows(report)
     print(json.dumps(summary), flush=True)
     return summary
 

@@ -1,0 +1,297 @@
+"""The evaluation slice as a whole: the port's ``jct_report`` against the
+JAX package's, the backlog gate, the truncation guard and the random
+control.
+
+Configs 1 and 2 at a small size go through both packages'
+``Experiment.build`` and ``jct_report``, the policy on both sides the
+same f32 weights (the JAX init, converted with ``params_from_jax``) on
+the same windows. The policy row, ``policy_completion``,
+``policy_utilization``, the four baseline rows, ``vs_tiresias`` and the
+p50/p90/p99 rows agree within rtol 1e-6; the random row does not enter
+the comparison (the two random streams differ), only its checks here.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch import nn
+
+from rlgpuschedule_tpu import configs as jconfigs
+from rlgpuschedule_tpu import eval as jeval
+from rlgpuschedule_tpu import experiment as jexp
+from rlgpuschedule_tpu.env import env as jenv
+from rlgpuschedule_tpu.models import make_policy as jmake_policy
+from rlgpuschedule_tpu_torch import configs as tconfigs
+from rlgpuschedule_tpu_torch import eval as teval
+from rlgpuschedule_tpu_torch.env import env as tenv
+from rlgpuschedule_tpu_torch.env.env import EnvParams, stack_traces
+from rlgpuschedule_tpu_torch.experiment import Experiment
+from rlgpuschedule_tpu_torch.models import make_policy, params_from_jax
+from rlgpuschedule_tpu_torch.sim.core import SimParams
+from rlgpuschedule_tpu_torch.traces import ArrayTrace
+
+# the tensors here are tiny: more threads only contend with the other
+# test workers
+torch.set_num_threads(1)
+
+SMALL = {
+    "ppo-mlp-synth64": dict(n_envs=3, n_nodes=4, gpus_per_node=4,
+                            window_jobs=12, queue_len=4, horizon=96),
+    "ppo-cnn-philly512": dict(n_envs=3, n_nodes=5, gpus_per_node=4,
+                              window_jobs=16, queue_len=4, horizon=128),
+}
+PCTS = (50, 90, 99)
+ROWS = ("policy", "policy_completion", "policy_utilization", "fifo", "sjf",
+        "srtf", "tiresias", "vs_tiresias")
+
+
+class Pair:
+    """One small config built by both packages, the policy in f32 with
+    the JAX init's weights on both sides."""
+
+    def __init__(self, name):
+        cfg_j = dataclasses.replace(jconfigs.CONFIGS[name], **SMALL[name])
+        cfg_t = dataclasses.replace(tconfigs.CONFIGS[name], **SMALL[name])
+        exp_j = jexp.Experiment.build(cfg_j)
+        net32 = jmake_policy(cfg_j.obs_kind, exp_j.env_params.n_actions,
+                             dtype=jnp.float32)
+        self.jexp = dataclasses.replace(
+            exp_j, apply_fn=lambda p, o, m: net32.apply(p, o, m))
+        self.params = jax.device_get(exp_j.train_state.params)
+        self.texp = Experiment.build(cfg_t, device="cpu")
+        tp = self.texp.env_params
+        net = make_policy(cfg_t.obs_kind, tp.n_actions, tp.obs_shape(),
+                          dtype=torch.float32, device="cpu")
+        net.load_state_dict(params_from_jax(self.params))
+        self.texp.train_state = self.texp.train_state._replace(net=net)
+
+
+@pytest.fixture(scope="module")
+def pairs():
+    return {}
+
+
+def _pair(pairs, name) -> Pair:
+    if name not in pairs:
+        pairs[name] = Pair(name)
+    return pairs[name]
+
+
+@pytest.mark.parametrize("name", sorted(SMALL))
+def test_jct_report_matches_jax(pairs, name):
+    p = _pair(pairs, name)
+    want = jeval.jct_report(p.jexp, percentiles=PCTS)
+    got = teval.jct_report(p.texp, percentiles=PCTS)
+    assert want["policy_completion"] == 1.0
+    for k in ROWS:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-6, err_msg=k)
+    rows = ("policy", "fifo", "sjf", "srtf", "tiresias")
+    for r in rows:
+        assert set(got["percentiles"][r]) == {"p50", "p90", "p99"}
+        for c, v in want["percentiles"][r].items():
+            np.testing.assert_allclose(got["percentiles"][r][c], v,
+                                       rtol=1e-6, err_msg=f"{r} {c}")
+    assert got["baseline_backend"] == "native"
+    assert np.isfinite(got["random"]) and got["random"] > 0
+    assert got["policy_steps"] > 0
+    assert set(got["wall_s"]) == {"policy_replay", "random_replay",
+                                  "baselines"}
+    text = teval.format_report(got)
+    assert "tiresias" in text and "p99" in text and "native" in text
+
+
+def test_baseline_table_matches_jax_on_held_out_windows(pairs):
+    p = _pair(pairs, "ppo-mlp-synth64")
+    cfg_j, cfg_t = (dataclasses.replace(c, seed=1000, n_envs=5)
+                    for c in (p.jexp.cfg, p.texp.cfg))
+    jwin = jexp.make_env_windows(cfg_j, jexp.load_source_trace(cfg_j))
+    from rlgpuschedule_tpu_torch import experiment as texp
+    twin = texp.make_env_windows(cfg_t, texp.load_source_trace(cfg_t))
+    want = jeval.baseline_jct_table(jwin, 4, 4)
+    got = teval.baseline_jct_table(twin, 4, 4)
+    assert got == want
+    # and through the report's windows= path, policy rows included
+    jr = jeval.jct_report(p.jexp, windows=jwin, include_random=False)
+    tr = teval.jct_report(p.texp, windows=twin, include_random=False)
+    for k in ROWS:
+        np.testing.assert_allclose(tr[k], jr[k], rtol=1e-6, err_msg=k)
+    assert "random" not in tr
+
+
+def test_truncated_replay_has_no_percentile_row(pairs):
+    p = _pair(pairs, "ppo-mlp-synth64")
+    report = teval.jct_report(p.texp, include_random=False,
+                              baselines=("fifo",), percentiles=(50, 99),
+                              max_steps=4)
+    assert report["policy_completion"] < 1.0
+    assert report["percentiles"]["policy"] == {}
+    assert report["percentiles"]["fifo"]
+    assert "—" in teval.format_report(report)
+    assert "vs_tiresias" not in report
+
+
+class FifoBackfill(nn.Module):
+    """The gate's fall-through as a policy: the oldest fitting queue slot,
+    the no-op only when nothing fits."""
+
+    def __init__(self, env_params):
+        super().__init__()
+        self.prefs = teval._fifo_preferences(env_params,
+                                             torch.device("cpu"))
+
+    def forward(self, obs, mask):
+        return (torch.where(mask, self.prefs, -1e9),
+                torch.zeros(obs.shape[0]))
+
+
+def test_gate_zero_is_plain_greedy(pairs):
+    p = _pair(pairs, "ppo-cnn-philly512")
+    e = p.texp
+    plain, rp = teval.replay(e.net, e.env_params, e.traces, record=True)
+    gated, rg = teval.replay(e.net, e.env_params, e.traces, record=True,
+                             backlog_gate=0)
+    torch.testing.assert_close(rp.actions, rg.actions, rtol=0, atol=0)
+    for a, b in zip(plain, gated):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name", sorted(SMALL))
+def test_always_on_gate_matches_jax_action_for_action(pairs, name):
+    """A gate deeper than the job table always engages: the port's
+    actions equal JAX's ``_gate_to_fifo`` at every step of every
+    cluster (JAX's env driven by the port's actions), and the replay
+    equals a FIFO-with-backfill policy's."""
+    p = _pair(pairs, name)
+    e = p.texp
+    gate = e.env_params.sim.max_jobs + 1
+    res, rec = teval.replay(e.net, e.env_params, e.traces, record=True,
+                            backlog_gate=gate)
+    acts = rec.actions.numpy()
+    steps = res.steps.numpy()
+    jp = p.jexp.env_params
+    state, ts = jax.jit(lambda tr: jenv.vec_reset(jp, tr))(p.jexp.traces)
+    step = jax.jit(jax.vmap(lambda s, tr, a: jenv.step(jp, s, tr, a)))
+    decide = jax.jit(lambda st, o, m: jeval._gate_to_fifo(
+        jp, st.sim.status, m,
+        jnp.argmax(p.jexp.apply_fn(p.params, o, m)[0], -1), gate))
+    for t in range(int(steps.max())):
+        want = np.asarray(decide(state, ts.obs, ts.action_mask))
+        live = t < steps
+        np.testing.assert_array_equal(acts[t][live], want[live],
+                                      err_msg=f"step {t}")
+        state, ts = step(state, p.jexp.traces, jnp.asarray(acts[t]))
+    fifo = teval.replay(FifoBackfill(e.env_params), e.env_params, e.traces)
+    for a, b in zip(res, fifo):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_gate_mid_threshold_switches_within_episode():
+    """The port's copy of the JAX gate test: four whole-cluster jobs run
+    serially, so each finish time says who placed it. Newest-first
+    (LIFO) alone finishes them at 50/200/150/100, FIFO at
+    50/100/150/200, and gate 3 (FIFO while fewer than 3 are pending) at
+    50/150/200/100: the gate hands control over and back mid-episode."""
+    sim = SimParams(n_nodes=2, gpus_per_node=4, max_jobs=8, queue_len=4)
+    params = EnvParams(sim=sim, obs_kind="flat", horizon=256)
+    J = sim.max_jobs
+    submit = np.full(J, np.inf, np.float32)
+    submit[:4] = [0.0, 10.0, 20.0, 30.0]
+    duration = np.full(J, 1.0, np.float32)
+    duration[:4] = 50.0
+    gpus = np.zeros(J, np.int32)
+    gpus[:4] = sim.capacity
+    tr = ArrayTrace(submit, duration, gpus, np.zeros(J, np.int32),
+                    np.arange(J) < 4)
+    traces = stack_traces([tr], params, "cpu")
+
+    class NewestFirst(nn.Module):
+        def forward(self, obs, mask):
+            prefs = torch.arange(mask.shape[-1], dtype=torch.float32) + 2.0
+            prefs[-1] = 0.5
+            return torch.where(mask, prefs, -1e9), torch.zeros(obs.shape[0])
+
+    def finishes(**kw):
+        res, state = teval.replay(NewestFirst(), params, traces,
+                                  return_states=True, **kw)
+        assert int(res.n_done[0]) == 4
+        return state.sim.finish[0, :4].numpy()
+
+    np.testing.assert_allclose(finishes(), [50, 200, 150, 100], rtol=1e-5)
+    np.testing.assert_allclose(finishes(backlog_gate=J + 1),
+                               [50, 100, 150, 200], rtol=1e-5)
+    np.testing.assert_allclose(finishes(backlog_gate=3),
+                               [50, 150, 200, 100], rtol=1e-5)
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(policy="random", backlog_gate=2), "LEARNED|learned"),
+    (dict(backlog_gate=-1), ">= 0"),
+    (dict(policy="sampled"), "unknown replay policy"),
+])
+def test_replay_refuses_like_jax(pairs, kw, match):
+    e = _pair(pairs, "ppo-mlp-synth64").texp
+    with pytest.raises(ValueError, match=match):
+        teval.replay(e.net, e.env_params, e.traces, **kw)
+    jkw = dict(kw)
+    if "policy" in jkw and jkw["policy"] == "random":
+        jkw["key"] = jax.random.PRNGKey(0)
+    j = _pair(pairs, "ppo-mlp-synth64").jexp
+    with pytest.raises(ValueError, match=match):
+        jeval.replay(j.apply_fn, j.train_state.params, j.env_params,
+                     j.traces, **jkw)
+
+
+def _random_replay(e, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return teval.replay(None, e.env_params, e.traces, policy="random",
+                        generator=gen, record=True)
+
+
+def test_random_control_is_deterministic_and_legal(pairs):
+    e = _pair(pairs, "ppo-cnn-philly512").texp
+    res, rec = _random_replay(e, 1)
+    res2, rec2 = _random_replay(e, 1)
+    torch.testing.assert_close(rec.actions, rec2.actions, rtol=0, atol=0)
+    for a, b in zip(res, res2):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    _, rec3 = _random_replay(e, 2)
+    assert not torch.equal(rec.actions, rec3.actions)
+    # drive the env with the recorded actions: each one is legal under
+    # the mask of the state it was taken in
+    steps = res.steps
+    with torch.inference_mode():
+        state, ts = tenv.reset(e.env_params, e.traces)
+        for t in range(int(steps.max())):
+            a = rec.actions[t]
+            legal = ts.action_mask.gather(1, a.long()[:, None])[:, 0]
+            assert bool(legal[t < steps].all()), f"step {t}"
+            state, ts = tenv.step(e.env_params, state, e.traces, a)
+    assert (res.n_done == res.n_valid).all()
+
+
+def test_random_actions_are_uniform_over_the_legal_set():
+    """A frequency test (the port's stream is not JAX's): 20,000 draws
+    on each of four masks; every draw legal, and every legal action's
+    count within 5 standard deviations of uniform."""
+    masks = torch.tensor([[1, 1, 1, 1, 1, 1],
+                          [1, 0, 0, 1, 0, 1],
+                          [0, 0, 0, 0, 0, 1],
+                          [0, 1, 1, 0, 1, 1]], dtype=torch.bool)
+    n = 20_000
+    gen = torch.Generator().manual_seed(7)
+    counts = torch.zeros(masks.shape, dtype=torch.int64)
+    for _ in range(n // 500):
+        a, logits = teval._random_actions(gen, masks.repeat(500, 1))
+        assert logits.dtype == torch.float32
+        a = a.long().view(500, 4)
+        for r in range(4):
+            counts[r] += torch.bincount(a[:, r], minlength=6)
+    assert int(counts[~masks].sum()) == 0
+    for r in range(4):
+        k = int(masks[r].sum())
+        mean, sd = n / k, (n * (1 / k) * (1 - 1 / k)) ** 0.5
+        got = counts[r][masks[r]].double()
+        assert float((got - mean).abs().max()) <= 5 * sd + 1e-9, (r, got)

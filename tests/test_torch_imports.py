@@ -62,3 +62,43 @@ def test_importing_the_serving_path_leaves_jax_out():
 
 def test_importing_the_training_path_leaves_jax_out():
     _leaves_jax_out(("train", "experiment", "algos", "ops.gae"))
+
+
+def test_importing_the_evaluation_path_leaves_jax_out():
+    _leaves_jax_out(("evaluate", "eval", "sim.oracle", "sim.schedulers",
+                     "native", "traces.philly", "traces.pai"))
+
+
+def test_the_evaluation_slice_has_its_files():
+    names = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for f in ("evaluate.py", "cli.py", "eval.py", "sim/oracle.py",
+              "sim/schedulers.py",
+              "native/__init__.py", "traces/philly.py", "traces/pai.py"):
+        assert f"rlgpuschedule_tpu_torch/{f}" in names, f
+    assert os.path.isfile(os.path.join(ROOT, "rlgpuschedule_tpu_torch",
+                                       "native", "fast_oracle.cpp"))
+
+
+def test_the_native_engine_builds_from_the_ports_own_source():
+    """The loader compiles the port's copy of ``fast_oracle.cpp`` and
+    names no file of the JAX package; its cache is the port's own."""
+    from rlgpuschedule_tpu_torch import native
+    port_native = os.path.join(ROOT, "rlgpuschedule_tpu_torch", "native")
+    assert os.path.dirname(os.path.realpath(native.SRC)) == port_native
+    assert native.NativeEngine().src == native.SRC
+    assert native.cache_dir().endswith("rlgpuschedule_tpu_torch")
+    src = open(os.path.join(port_native, "__init__.py"),
+               encoding="utf-8").read()
+    assert "rlgpuschedule_tpu/" not in src
+    assert "rlgpuschedule_tpu\"" not in src
+
+
+def test_the_evaluate_cli_does_not_depend_on_the_train_cli():
+    """The two CLIs are peers: what they share lives in ``cli.py``."""
+    path = os.path.join(ROOT, "rlgpuschedule_tpu_torch", "evaluate.py")
+    tree = ast.parse(open(path, encoding="utf-8").read(), path)
+    relative = {(node.module, a.name) for node in ast.walk(tree)
+                if isinstance(node, ast.ImportFrom) and node.level
+                for a in node.names}
+    assert not {m for m, n in relative if m == "train" or n == "train"}
+    assert ("cli", "add_config_flags") in relative

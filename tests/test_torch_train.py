@@ -34,6 +34,7 @@ from flax.training.train_state import TrainState
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from rlgpuschedule_tpu import configs as jconfigs
+from rlgpuschedule_tpu import evaluate as jevaluate
 from rlgpuschedule_tpu import train as jtrain
 from rlgpuschedule_tpu.algos import action_dist as jdist
 from rlgpuschedule_tpu.algos import ppo as jppo
@@ -44,6 +45,8 @@ from rlgpuschedule_tpu.env import env as jenv
 from rlgpuschedule_tpu.models import make_policy as jmake_policy
 from rlgpuschedule_tpu.sim import core as jcore
 from rlgpuschedule_tpu.traces import gen_poisson_trace as jpoisson
+from rlgpuschedule_tpu_torch import cli as tcli
+from rlgpuschedule_tpu_torch import evaluate as tevaluate
 from rlgpuschedule_tpu_torch import train as ttrain
 from rlgpuschedule_tpu_torch.algos import action_dist as tdist
 from rlgpuschedule_tpu_torch.algos import ppo as tppo
@@ -359,7 +362,7 @@ def test_train_cli_refuses_a2c_with_the_slice_named():
 
 @pytest.mark.parametrize("argv", [
     ["--ckpt-dir", "x"], ["--async"], ["--mesh=auto"], ["--faults", "storm"],
-    ["--correction", "vtrace"], ["--eval-every", "5"]])
+    ["--correction", "vtrace"], ["--keep-best"]])
 def test_train_cli_refuses_unported_flags_with_the_slice_named(argv):
     with pytest.raises(SystemExit, match=r"waits for .*item \d+"):
         ttrain.main(argv + ["--device", "cpu"])
@@ -388,3 +391,174 @@ def test_presets_mean_the_same_run_as_jax():
         assert (cfg.algo, cfg.iterations) == (ref.algo, ref.iterations)
         for f in dataclasses.fields(cfg.ppo):
             assert getattr(cfg.ppo, f.name) == getattr(ref.ppo, f.name), f
+
+
+# config 1 cut to a few seconds on the CPU (tests/test_eval.py's world)
+TINY = ["--config", "ppo-mlp-synth64", "--n-nodes", "4",
+        "--gpus-per-node", "4", "--window-jobs", "12", "--queue-len", "4",
+        "--horizon", "96", "--device", "cpu"]
+TINY_TRAIN = TINY + ["--n-envs", "2", "--n-steps", "8", "--n-epochs", "1",
+                     "--n-minibatches", "2"]
+
+
+def _json_lines(out):
+    return [json.loads(x) for x in out.splitlines() if x.startswith("{")]
+
+
+def test_train_cli_eval_probe_and_report_on_the_cpu(capsys):
+    summary = ttrain.main(TINY_TRAIN + ["--iterations", "2",
+                                        "--log-every", "1",
+                                        "--eval-every", "2", "--report"])
+    out = capsys.readouterr()
+    lines = _json_lines(out.out)
+    probes = [r for r in lines if "eval_avg_jct" in r]
+    assert [r["iteration"] for r in probes] == [1]
+    for r in probes:
+        assert set(r) >= {"eval_avg_jct", "eval_completion", "eval_fifo",
+                          "eval_tiresias", "eval_vs_tiresias"}
+        assert r["eval_vs_tiresias"] == pytest.approx(
+            r["eval_avg_jct"] / r["eval_tiresias"])
+    assert lines[-1] == json.loads(json.dumps(summary))
+    assert summary["eval_history"] == probes
+    rep = summary["jct_report"]
+    assert set(rep) >= {"policy", "random", "fifo", "sjf", "srtf",
+                        "tiresias", "vs_tiresias", "policy_completion"}
+    assert rep["baseline_backend"] == "native"
+    assert all(math.isfinite(rep[k]) for k in ("policy", "vs_tiresias"))
+    assert "policy/tiresias ratio" in out.err
+
+
+def test_train_eval_probe_holds_out_seed_plus_1000():
+    """The probe's windows are those of a run seeded ``seed + 1000``,
+    and its baselines equal the table on those windows."""
+    from rlgpuschedule_tpu_torch import eval as teval
+    from rlgpuschedule_tpu_torch import experiment as texp
+    args = ttrain.build_parser().parse_args(TINY_TRAIN)
+    cfg = ttrain.apply_overrides(CONFIGS["ppo-mlp-synth64"], args)
+    exp = Experiment.build(cfg, device="cpu")
+    row = ttrain.make_eval_probe(cfg, exp, 3, None)(0)
+    held = dataclasses.replace(cfg, seed=1000, n_envs=3)
+    win = texp.make_env_windows(held, texp.load_source_trace(held))
+    want = teval.baseline_jct_table(win, 4, 4, names=("fifo", "tiresias"))
+    assert row["eval_fifo"] == want["fifo"]
+    assert row["eval_tiresias"] == want["tiresias"]
+    with pytest.raises(NotImplementedError, match="item 13"):
+        ttrain.make_eval_probe(cfg, exp, 3, None, regime="drain")
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--eval-every", "1", "--eval-probe", "drain"], "item 13"),
+    (["--eval-probe", "stream"], "silent no-op"),
+    (["--trace", "philly", "--trace-path",
+      os.path.join(ROOT, "tests", "fixtures", "philly_small.csv"),
+      "--source-jobs", "10"], "silent no-op"),
+    (["--source-jobs", "0"], "must be positive"),
+    (["--obs-kind", "graph"], "config-4 slice"),
+])
+def test_train_cli_refuses_what_jax_refuses(argv, match):
+    with pytest.raises(SystemExit, match=match):
+        ttrain.main(TINY_TRAIN + ["--iterations", "1"] + argv)
+
+
+def test_train_cli_refuses_eval_seed_on_a_csv_trace(capsys):
+    csv = os.path.join(ROOT, "tests", "fixtures", "philly_small.csv")
+    argv = ["--trace", "philly", "--trace-path", csv, "--window-jobs", "2",
+            "--n-nodes", "1", "--gpus-per-node", "8", "--n-envs", "2",
+            "--n-steps", "4", "--n-minibatches", "1", "--n-epochs", "1",
+            "--iterations", "1", "--eval-every", "1", "--device", "cpu"]
+    with pytest.raises(SystemExit, match="no effect for csv"):
+        ttrain.main(argv + ["--eval-seed", "3"])
+    summary = ttrain.main(argv + ["--eval-windows", "2"])
+    assert "on-distribution" in capsys.readouterr().err
+    assert summary["eval_history"][0]["eval_completion"] == 1.0
+
+
+def test_evaluate_cli_prints_the_table_and_one_json_line(capsys):
+    report = tevaluate.main(TINY + ["--no-random", "--percentiles",
+                                    "--eval-windows", "3"])
+    out = capsys.readouterr()
+    (line,) = _json_lines(out.out)
+    assert "random" not in line
+    assert set(line["percentiles"]) == {"policy", "fifo", "sjf", "srtf",
+                                        "tiresias"}
+    assert line["policy"] == report["policy"]
+    assert line["device_name"] == "cpu"
+    assert line["repro"]["n_nodes"] == 4 and line["repro"]["config"] == \
+        "ppo-mlp-synth64"
+    assert line["baseline_backend"] == "native"
+    assert "untrained init weights" in out.err and "p99" in out.err
+
+
+def test_evaluate_cli_baselines_only(capsys):
+    report = tevaluate.main(TINY + ["--baselines-only"])
+    (line,) = _json_lines(capsys.readouterr().out)
+    assert set(report) == {"fifo", "sjf", "srtf", "tiresias"}
+    assert {k: line[k] for k in report} == report
+    assert "repro" in line
+
+
+def test_evaluate_cli_gate_and_windows_match_the_library(capsys):
+    from rlgpuschedule_tpu_torch import eval as teval
+    from rlgpuschedule_tpu_torch import experiment as texp
+    report = tevaluate.main(TINY + ["--backlog-gate", "3", "--no-random",
+                                    "--eval-windows", "5"])
+    args = tevaluate.build_parser().parse_args(TINY)
+    cfg = dataclasses.replace(CONFIGS["ppo-mlp-synth64"],
+                              **tcli.config_overrides(args))
+    exp = Experiment.build(cfg, device="cpu")
+    win = texp.make_env_windows(dataclasses.replace(cfg, n_envs=5),
+                                exp.source)
+    want = teval.jct_report(exp, windows=win, include_random=False,
+                            backlog_gate=3)
+    assert report["backlog_gate"] == 3
+    for k in ("policy", "policy_completion", "fifo", "tiresias"):
+        assert report[k] == want[k], k
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--backlog-gate", "-1"], ">= 0"),
+    (["--baselines-only", "--percentiles"], "--percentiles"),
+    (["--baselines-only", "--eval-windows", "2"], "--eval-windows"),
+    (["--baselines-only", "--backlog-gate", "2"], "--backlog-gate"),
+    (["--config", "nope"], "unknown config"),
+])
+def test_evaluate_cli_refuses_what_jax_refuses(argv, match):
+    with pytest.raises(SystemExit, match=match):
+        tevaluate.main(TINY + argv)
+
+
+@pytest.mark.parametrize("flag", sorted(tevaluate.UNPORTED_FLAGS))
+def test_evaluate_cli_refuses_unported_flags_with_the_slice_named(flag):
+    with pytest.raises(SystemExit,
+                       match=r"waits for .*ROADMAP.md queue 1, "
+                             r"(item \d+|next 2)"):
+        tevaluate.main([flag, "x", "--device", "cpu"])
+
+
+def test_every_jax_evaluate_flag_is_taken_or_refused():
+    def flags(parser):
+        return {s for a in parser._actions for s in a.option_strings
+                if s.startswith("--") and s != "--help"}
+    jax_flags = flags(jevaluate.build_parser())
+    taken = flags(tevaluate.build_parser())
+    assert jax_flags - taken == set(tevaluate.UNPORTED_FLAGS)
+    assert taken - jax_flags == {"--device"}
+
+
+def test_evaluate_cli_defaults_to_cuda_and_refuses_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tevaluate.main(["--baselines-only"])
+
+
+def test_evaluate_cli_runs_as_a_module():
+    p = subprocess.run(
+        [sys.executable, "-m", "rlgpuschedule_tpu_torch.evaluate"] + TINY
+        + ["--eval-windows", "2", "--max-steps", "64"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+        capture_output=True, text=True, timeout=300)
+    assert p.returncode == 0, p.stderr
+    (line,) = _json_lines(p.stdout)
+    assert math.isfinite(line["policy"]) and 0 < line["policy_completion"]
+    assert "tiresias" in p.stderr
