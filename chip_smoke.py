@@ -81,6 +81,31 @@ imports nothing of JAX. Phases, each fatal on failure:
     and ``python -m rlgpuschedule_tpu_torch.train --config
     ppo-mlp-synth64 --iterations 6 --eval-every 3 --report``; their JSON
     lines (the probe rows and the report) are echoed.
+11. The preemptive and pack|spread action spaces, for
+    ``ppo-mlp-preempt`` (8x8 GPUs, queue 8, 4 preempt slots, the MLP)
+    and ``gnn-gang-place`` (16x8 GPUs in racks of 4, queue 8, pack|spread,
+    the GNN over the 24-node topology graph), each at its published
+    width: ``fleet_replay`` of 512 seeded clusters at horizon 1024
+    (bf16, seeded weights) with decisions/s, device ops per decision
+    step and the unprofiled idle share (phase 2's profile); card against
+    CPU at f32 on 8 clusters under phase 3's rule, at the preset's
+    horizon; and a host-drawn
+    (numpy, seeded) masked-uniform action sequence fed through
+    ``env.step`` on both devices on integer-valued traces, the sim
+    state, mask and reward bit-identical at every step. Then a policy
+    made to cycle (biases on preempting running slot 0 and placing
+    queue slot 0) replays ``ppo-mlp-preempt``: with the stall guard on
+    every job must finish, with it off none may. The phase prints the
+    spread placements and preemptions the feeds made and the stall
+    gate's engagements, and fails if any of the three totals is zero.
+12. Training and evaluation of both presets on the card: one warm-up
+    and three timed PPO iterations at the published geometry (4 envs x
+    128 steps, 4 epochs x 4 minibatches; env-steps/s, the rollout / GAE
+    / update split, finite losses); one learn step card against CPU at
+    f32 (parameters within atol 1e-5, phase 7's rule); ``jct_report``
+    on 16 held-out windows (every row finite, completion printed,
+    ``stall_guard`` recorded for ``ppo-mlp-preempt``); and the
+    ``evaluate`` CLI for ``gnn-gang-place`` in a subprocess.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it is the card's name and power limit. Without a CUDA device, or
@@ -112,6 +137,13 @@ EVAL_STEPS = 4096         # decision steps per window
 EVAL_COMPARE = 4          # windows compared card against CPU (phase 9)
 GATE = 4
 PERCENTILES = (50, 90, 99)
+NEW_PRESETS = ("ppo-mlp-preempt", "gnn-gang-place")
+NEW_HORIZON = 1024        # phase 11's fleet replay
+FEED_CLUSTERS, FEED_STEPS = 64, 128
+# the cycling policy spends up to stall_threshold + 1 = 17 steps on each
+# event: 32-job windows (half the preset's) finish in about 2,000 steps
+CYCLE_CLUSTERS, CYCLE_JOBS, CYCLE_STEPS, UNGUARDED_STEPS = 16, 32, 4096, 128
+NEW_EVAL_WINDOWS = 16
 ROWS = ("policy", "random", "fifo", "sjf", "srtf", "tiresias")
 BASELINES = ("fifo", "sjf", "srtf", "tiresias")
 
@@ -133,12 +165,10 @@ def _finite(*xs) -> bool:
 
 
 def fleet_phase(torch, cfg, env_params, traces, dev):
-    from rlgpuschedule_tpu_torch.models import make_policy
+    from rlgpuschedule_tpu_torch.experiment import build_policy
     from rlgpuschedule_tpu_torch.serve.fleet import fleet_replay
 
-    policy = make_policy(cfg.obs_kind, env_params.n_actions,
-                         env_params.obs_shape(), seed=cfg.seed,
-                         device=dev)
+    policy = build_policy(cfg, env_params, device=dev)
     # first-call costs (allocator, cuDNN/cuBLAS handles) outside the
     # timed run
     fleet_replay(policy, env_params, traces, max_steps=4, device=dev)
@@ -159,6 +189,11 @@ def fleet_phase(torch, cfg, env_params, traces, dev):
 
 
 def profile_phase(torch, env_params, traces, policy):
+    """Phase 2's profile of the decision step, printed."""
+    _line("profile", **_replay_profile(torch, env_params, traces, policy))
+
+
+def _replay_profile(torch, env_params, traces, policy, s1=8, s2=40):
     """Kernel launches per decision step, from the difference of two
     replay lengths (which cancels reset and final statistics); device
     time by op and the device idle share over the longer one, with and
@@ -184,7 +219,6 @@ def profile_phase(torch, env_params, traces, policy):
                       if e.device_type.name == "CUDA"]
         return prof, device_ops, wall
 
-    s1, s2 = 8, 40
     _, k1, _ = run(s1)
     prof, k2, wall = run(s2)
     wall_plain = timed(s2)
@@ -206,33 +240,33 @@ def profile_phase(torch, env_params, traces, policy):
             policy(ts.obs, ts.action_mask)
         end.record()
         torch.cuda.synchronize()
-    _line("profile", steps=s2, device_ops=len(k2), copies_and_sets=copies,
-          launches_per_step=(len(k2) - len(k1)) / (s2 - s1),
-          device_busy_s=busy_s, window_s=wall,
-          device_idle_share=1.0 - busy_s / wall,
-          window_s_unprofiled=wall_plain,
-          device_idle_share_unprofiled=1.0 - busy_s / wall_plain,
-          step_ms_unprofiled=wall_plain / s2 * 1e3,
-          policy_forward_ms=start.elapsed_time(end) / 20,
-          top_device_ops=[{"op": k, "device_ms": t / 1e3, "calls": c}
-                          for k, t, c in ops])
     if not k2:
         raise SystemExit("the profiler saw no kernel on the card")
+    return dict(
+        steps=s2, device_ops=len(k2), copies_and_sets=copies,
+        launches_per_step=(len(k2) - len(k1)) / (s2 - s1),
+        device_busy_s=busy_s, window_s=wall,
+        device_idle_share=1.0 - busy_s / wall,
+        window_s_unprofiled=wall_plain,
+        device_idle_share_unprofiled=1.0 - busy_s / wall_plain,
+        step_ms_unprofiled=wall_plain / s2 * 1e3,
+        policy_forward_ms=start.elapsed_time(end) / 20,
+        top_device_ops=[{"op": k, "device_ms": t / 1e3, "calls": c}
+                        for k, t, c in ops])
 
 
 def compare_phase(torch, cfg, env_params, windows, dev):
     from rlgpuschedule_tpu_torch.env import stack_traces
     from rlgpuschedule_tpu_torch.eval import replay
-    from rlgpuschedule_tpu_torch.models import make_policy
+    from rlgpuschedule_tpu_torch.experiment import build_policy
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     sub = windows[:N_COMPARE]
     out = {}
     for side in (dev, "cpu"):
-        policy = make_policy(cfg.obs_kind, env_params.n_actions,
-                             env_params.obs_shape(), dtype=torch.float32,
-                             seed=cfg.seed, device=side)
+        policy = build_policy(cfg, env_params, dtype=torch.float32,
+                              device=side)
         traces = stack_traces(sub, env_params, side)
         res, rec = replay(policy, env_params, traces, record=True)
         out[side] = ({k: v.cpu() for k, v in res._asdict().items()},
@@ -259,7 +293,8 @@ def compare_phase(torch, cfg, env_params, windows, dev):
     rel = max((abs(float(rg["avg_jct"][e]) - float(rc["avg_jct"][e]))
                / max(abs(float(rc["avg_jct"][e])), 1e-30)
                for e in compared), default=0.0)
-    _line("card_vs_cpu", clusters=N_COMPARE, dtype="float32", tf32=False,
+    _line("card_vs_cpu", config=cfg.name, clusters=N_COMPARE,
+          dtype="float32", tf32=False,
           compared_to_end=len(compared),
           cut_short={str(e): {"step": s, "cpu_margin": m}
                      for e, (s, m) in cut.items()},
@@ -868,6 +903,275 @@ def entry_point_phase(torch, dev):
         raise SystemExit(f"train CLI: summary {summary}")
 
 
+def _integer_windows(windows):
+    """The windows with integer submit times and durations (exact in
+    f32, where the card and the CPU must agree bit for bit)."""
+    import numpy as np
+    return [dataclasses.replace(
+        w, submit=np.where(w.valid, np.round(w.submit),
+                           np.inf).astype(np.float32),
+        duration=np.maximum(np.round(w.duration), 1.0).astype(np.float32))
+        for w in windows]
+
+
+def _feed(torch, env_params, windows, dev, seed):
+    """A host-drawn masked-uniform action sequence through ``env.step``
+    on the card and on the CPU: the sim state, mask and reward must be
+    bit-identical at every step. Returns the spread placements and the
+    preemptions the feed made, and the observation elements that differ
+    (reported, not required to be zero)."""
+    import numpy as np
+
+    from rlgpuschedule_tpu_torch.env import env as env_lib
+    from rlgpuschedule_tpu_torch.env import stack_traces
+
+    sim = env_params.sim
+    kp, P = sim.queue_len * sim.n_placements, sim.n_placements
+    sides = {}
+    for d in (dev, "cpu"):
+        traces = stack_traces(windows, env_params, d)
+        sides[d] = [traces, *env_lib.reset(env_params, traces)]
+    rng = np.random.default_rng(seed)
+    spread = preempted = obs_differ = 0
+    with torch.inference_mode():
+        for i in range(FEED_STEPS):
+            mask = sides["cpu"][2].action_mask.numpy()
+            a = np.array([rng.choice(np.flatnonzero(r)) for r in mask],
+                         np.int64)
+            for d, (traces, state, _) in sides.items():
+                state, ts = env_lib.step(env_params, state, traces,
+                                         torch.from_numpy(a).to(d))
+                sides[d][1:] = [state, ts]
+            (_, sg, tg), (_, sc, tc) = sides[dev], sides["cpu"]
+            pairs = [(f"sim.{f}", getattr(sg.sim, f), getattr(sc.sim, f))
+                     for f in sc.sim._fields]
+            pairs += [("mask", tg.action_mask, tc.action_mask),
+                      ("reward", tg.reward, tc.reward),
+                      ("done", tg.done, tc.done)]
+            for name, x, y in pairs:
+                x = x.cpu()
+                if not (x.dtype == y.dtype
+                        and x.numpy().tobytes() == y.numpy().tobytes()):
+                    raise SystemExit(f"action feed: {name} differs between "
+                                     f"the card and the CPU at step {i}")
+            obs_differ += int((tg.obs.cpu().view(torch.int32)
+                               != tc.obs.view(torch.int32)).sum())
+            placed = tc.info.placed.numpy()
+            spread += int((placed & (a < kp) & (a % P == 1)).sum()) \
+                if P > 1 else 0
+            preempted += int(tc.info.preempted.sum())
+    return spread, preempted, obs_differ
+
+
+def _cycling_policy(torch, cfg, env_params, dev):
+    """The seeded preempt policy with +20 on preempting running slot 0
+    and +10 on placing queue slot 0: place<->preempt is its argmax
+    whenever both are legal, so only the stall guard ends the cycle."""
+    from rlgpuschedule_tpu_torch.experiment import build_policy
+
+    policy = build_policy(cfg, env_params, device=dev)
+    kp = cfg.queue_len * cfg.n_placements
+    with torch.no_grad():
+        policy.policy.bias[kp] += 20.0
+        policy.policy.bias[0] += 10.0
+    return policy
+
+
+def action_space_phase(torch, dev):
+    """The preemptive and pack|spread action spaces on the card
+    (phase 11)."""
+    from rlgpuschedule_tpu_torch.configs import CONFIGS
+    from rlgpuschedule_tpu_torch.eval import replay
+    from rlgpuschedule_tpu_torch.experiment import build_env_params
+    from rlgpuschedule_tpu_torch.serve.fleet import (fleet_replay,
+                                                     fleet_windows)
+
+    totals = {"spread_placements": 0, "preemptions": 0,
+              "stall_gate_engagements": 0}
+    for name in NEW_PRESETS:
+        cfg = dataclasses.replace(CONFIGS[name], horizon=NEW_HORIZON)
+        env_params = build_env_params(cfg)
+        t0 = time.perf_counter()
+        windows, traces = fleet_windows(cfg, N_CLUSTERS, device=dev)
+        policy = fleet_phase(torch, cfg, env_params, traces, dev)
+        # phase 2's method over a shorter window (the profiler's own
+        # processing of the events is most of its cost)
+        prof = _replay_profile(torch, env_params, traces, policy, 4, 20)
+        _line("new_profile", config=name,
+              fleet_and_profile_wall_s=time.perf_counter() - t0,
+              **{k: prof[k] for k in (
+                  "launches_per_step", "device_busy_s", "step_ms_unprofiled",
+                  "device_idle_share_unprofiled", "policy_forward_ms",
+                  "top_device_ops")})
+        del policy, traces
+        # card against CPU at the preset's own horizon
+        t0 = time.perf_counter()
+        compare_phase(torch, CONFIGS[name], build_env_params(CONFIGS[name]),
+                      windows, dev)
+        t1 = time.perf_counter()
+        spread, pre, obs_differ = _feed(
+            torch, env_params, _integer_windows(windows[:FEED_CLUSTERS]),
+            dev, cfg.seed)
+        totals["spread_placements"] += spread
+        totals["preemptions"] += pre
+        _line("action_feed", config=name, clusters=FEED_CLUSTERS,
+              steps=FEED_STEPS, state_mask_reward_bit_identical=True,
+              obs_elements_differing=obs_differ, spread_placements=spread,
+              preemptions=pre, compare_wall_s=t1 - t0,
+              feed_wall_s=time.perf_counter() - t1)
+        if not cfg.preempt_len:
+            continue
+        # the cycling policy: the guard must end every cycle
+        ccfg = dataclasses.replace(cfg, window_jobs=CYCLE_JOBS,
+                                   horizon=CYCLE_STEPS)
+        long = build_env_params(ccfg)
+        cyc = _cycling_policy(torch, ccfg, long, dev)
+        _, sub = fleet_windows(ccfg, CYCLE_CLUSTERS, device=dev)
+        t0 = _sync(torch)
+        res, rec = replay(cyc, long, sub, record=True)
+        wall = _sync(torch) - t0
+        open_ = replay(cyc, long, sub, UNGUARDED_STEPS, stall_guard=False)
+        gated = int(rec.gated.sum())
+        totals["stall_gate_engagements"] += gated
+        done, valid = int(res.n_done.sum()), int(res.n_valid.sum())
+        open_done = int(open_.n_done.sum())
+        _line("stall_guard", config=name, clusters=CYCLE_CLUSTERS,
+              jobs_per_window=CYCLE_JOBS,
+              guarded_steps=[int(x) for x in res.steps],
+              guarded_completion=done / valid, gate_engagements=gated,
+              preempts_taken=int((rec.actions == cfg.queue_len
+                                  * cfg.n_placements).sum()),
+              guarded_wall_s=wall, unguarded_steps=UNGUARDED_STEPS,
+              unguarded_done=open_done)
+        if done != valid:
+            raise SystemExit(f"{name}: with the stall guard the cycling "
+                             f"policy finished {done} of {valid} jobs")
+        if open_done:
+            raise SystemExit(f"{name}: without the stall guard the cycling "
+                             f"policy still finished {open_done} jobs")
+    _line("action_space_totals", **totals)
+    zero = [k for k, v in totals.items() if not v]
+    if zero:
+        raise SystemExit(f"phase 11 never exercised: {zero}")
+
+
+def preset_train_eval_phase(torch, dev):
+    """Training and evaluation of both new presets (phase 12)."""
+    from rlgpuschedule_tpu_torch.algos.ppo import (PPOMetrics,
+                                                   compute_advantages,
+                                                   make_learn_step,
+                                                   make_train_state,
+                                                   run_ppo_epochs)
+    from rlgpuschedule_tpu_torch.algos.rollout import init_carry, rollout
+    from rlgpuschedule_tpu_torch.algos.update import tree_map
+    from rlgpuschedule_tpu_torch.configs import CONFIGS
+    from rlgpuschedule_tpu_torch.eval import format_report, jct_report
+    from rlgpuschedule_tpu_torch.experiment import (Experiment,
+                                                    build_policy,
+                                                    load_source_trace,
+                                                    make_env_windows)
+    from rlgpuschedule_tpu_torch.sim.core import validate_trace
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for name in NEW_PRESETS:
+        cfg = CONFIGS[name]
+        ppo = cfg.ppo
+        exp = Experiment.build(cfg, device=dev)
+        exp.run(1)
+        split, metrics = [], []
+        for _ in range(TRAIN_TIMED):
+            t0 = _sync(torch)
+            exp.carry, tr, last = rollout(exp.net, exp.env_params,
+                                          exp.traces, exp.carry, ppo.n_steps)
+            t1 = _sync(torch)
+            adv, ret = compute_advantages(ppo, tr, last)
+            t2 = _sync(torch)
+            exp.train_state, m = run_ppo_epochs(
+                ppo, exp.train_state, tr, adv, ret, generator=exp.generator)
+            t3 = _sync(torch)
+            split.append({"rollout": t1 - t0, "gae_norm": t2 - t1,
+                          "update": t3 - t2})
+            metrics.append(dict(zip(PPOMetrics._fields,
+                                    torch.stack(m).tolist())))
+        wall = sum(sum(x.values()) for x in split)
+        _line("new_train", config=name, dtype="bfloat16", n_envs=cfg.n_envs,
+              n_steps=ppo.n_steps, n_epochs=ppo.n_epochs,
+              n_minibatches=ppo.n_minibatches,
+              params=sum(p.numel() for p in exp.net.parameters()),
+              iteration_split_s=split,
+              env_steps_per_s=TRAIN_TIMED * exp.steps_per_iteration / wall,
+              metrics=metrics)
+        for m in metrics:
+            if not _finite(m["total_loss"], m["entropy"], m["approx_kl"]):
+                raise SystemExit(f"{name}: non-finite training metrics {m}")
+
+        # one learn step, card against CPU at f32
+        side = {}
+        for d in (dev, "cpu"):
+            side[d] = build_policy(cfg, exp.env_params, dtype=torch.float32,
+                                   device=d)
+        carry = init_carry(exp.env_params, exp.traces,
+                           torch.Generator(dev).manual_seed(cfg.seed))
+        _, tr, last = rollout(side[dev], exp.env_params, exp.traces, carry,
+                              ppo.n_steps)
+        tr, last = tree_map(lambda x: x.cpu(), tr), last.cpu()
+        B = ppo.n_steps * cfg.n_envs
+        gen = torch.Generator().manual_seed(cfg.seed)
+        perms = [torch.randperm(B, generator=gen)
+                 for _ in range(ppo.n_epochs)]
+        learn = make_learn_step(ppo)
+        out = {}
+        for d in (dev, "cpu"):
+            state, m = learn(make_train_state(side[d], ppo),
+                             tree_map(lambda x: x.to(d), tr), last.to(d),
+                             perms=perms)
+            out[d] = ({n: p.detach().cpu()
+                       for n, p in state.net.named_parameters()},
+                      {k: float(v) for k, v in m._asdict().items()})
+        (pg, mg), (pc, mc) = out[dev], out["cpu"]
+        err = max(float((pg[n] - pc[n]).abs().max()) for n in pc)
+        bad = {k: (mg[k], mc[k]) for k in mc if not abs(mg[k] - mc[k])
+               <= METRIC_ATOL + METRIC_RTOL * abs(mc[k])}
+        _line("new_learn_card_vs_cpu", config=name, dtype="float32",
+              tf32=False, learn_batch=B, learn_param_max_abs_diff=err,
+              metrics_card=mg, metrics_cpu=mc)
+        if not err <= PARAM_ATOL or bad:
+            raise SystemExit(f"{name}: learn step card vs CPU: parameters "
+                             f"{err} (atol {PARAM_ATOL}), metrics {bad}")
+
+        # the JCT table on held-out windows, with the trained policy
+        held = dataclasses.replace(cfg, seed=cfg.seed + 1000,
+                                   n_envs=NEW_EVAL_WINDOWS, source_jobs=None)
+        windows = make_env_windows(held, validate_trace(
+            exp.env_params.sim, load_source_trace(held), clamp=True))
+        report = jct_report(exp, windows=windows, backend="native")
+        print(format_report(report), file=sys.stderr, flush=True)
+        rows = {k: report[k] for k in ROWS}
+        _line("new_eval", config=name, windows=len(windows),
+              weights=f"after {TRAIN_TIMED + 1} PPO iterations (bf16)",
+              rows=rows, policy_completion=report["policy_completion"],
+              vs_tiresias=report["vs_tiresias"],
+              stall_guard=report.get("stall_guard"),
+              policy_steps=report["policy_steps"], wall_s=report["wall_s"])
+        if not _finite(*rows.values(), report["vs_tiresias"],
+                       report["policy_completion"]):
+            raise SystemExit(f"{name}: non-finite JCT table {report}")
+        if (report.get("stall_guard") is True) != bool(cfg.preempt_len):
+            raise SystemExit(f"{name}: stall_guard marker "
+                             f"{report.get('stall_guard')}")
+        del exp
+
+    lines, err, wall = _run_cli(
+        "rlgpuschedule_tpu_torch.evaluate",
+        ["--config", "gnn-gang-place", "--percentiles"])
+    (line,) = lines
+    _line("new_evaluate_cli", wall_s=wall, report=line)
+    if not (line["device"].startswith("cuda") and
+            _finite(line["policy"], line["vs_tiresias"],
+                    line["policy_completion"])):
+        raise SystemExit(f"evaluate CLI (gnn-gang-place): {line}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -909,6 +1213,8 @@ def main() -> int:
     del trained
     timed(eval_compare_phase, held_out)
     timed(entry_point_phase)
+    timed(action_space_phase)
+    timed(preset_train_eval_phase)
     _line("done", total_s=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

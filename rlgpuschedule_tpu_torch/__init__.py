@@ -1,5 +1,5 @@
-"""PyTorch/CUDA port of ``rlgpuschedule_tpu``: greedy policy serving
-and PPO training.
+"""PyTorch/CUDA port of ``rlgpuschedule_tpu``: greedy policy serving,
+PPO training and the JCT evaluation.
 
 It serves a scheduling policy greedily on an NVIDIA GPU through the
 same two entry points as the JAX package's serving layer:
@@ -20,10 +20,12 @@ over a leading cluster axis ``E`` and takes an explicit device; the
 default device is ``cuda`` (:mod:`.device`). The port imports neither
 JAX nor the JAX package.
 
-The simulator subset is the one configs 1 and 2 need: no faults, no
-domain randomization, pack-only placement, non-preemptive actions.
-Anything outside it raises ``NotImplementedError`` naming the slice
-that will bring it.
+The simulator has the JAX package's pack and pack|spread placement and
+its preemptive action space (the stall guard included), and the
+observations its flat, grid and topology-graph forms, for configs 1, 2
+and 4 and ``ppo-mlp-preempt``. Faults, domain randomization, the
+hierarchical env and A2C raise ``NotImplementedError`` naming the slice
+that will bring them.
 """
 from .device import resolve_device
 

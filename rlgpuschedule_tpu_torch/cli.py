@@ -20,8 +20,8 @@ def add_config_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--horizon", type=int, default=None)
     p.add_argument("--obs-kind", default=None,
                    choices=["flat", "grid", "graph"],
-                   help="observation/encoder family ('graph' waits for "
-                        "the config-4 slice)")
+                   help="observation/encoder family: flat (MLP), grid "
+                        "(CNN) or graph (GNN over the topology graph)")
     p.add_argument("--trace", default=None,
                    choices=["synthetic", "philly", "pai", "philly-proxy",
                             "pai-proxy"],

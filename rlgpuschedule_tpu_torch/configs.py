@@ -2,8 +2,7 @@
 
 The port's copy of the JAX package's ``configs.py``. The ``a2c``
 optimizer fields, window streaming, the drain curriculum, fault and
-domain regimes, the preemption charge, graph topology and the
-mode-refusal table wait for their slices.
+domain regimes and the mode-refusal table wait for their slices.
 The presets keep their names and the values of the fields kept here, so
 a config name means the same run in both packages; the presets this
 port cannot run are refused by :func:`..experiment.build_env_params`
@@ -47,10 +46,15 @@ class ExperimentConfig:
     obs_kind: Literal["flat", "grid", "graph"] = "flat"
     reward_kind: Literal["jct", "fair"] = "jct"
     n_tenants: int = 1
+    nodes_per_rack: int | None = None   # graph topology granularity
     horizon: int = 512
     time_scale: float = 600.0
     reward_scale: float = 10_000.0
     place_bonus: float = 0.05
+    # preemptive configs: the reward's charge per preemption and per
+    # re-placement (env/rewards.py::preempt_charge); exactly -0.0 on a
+    # non-preemptive action space
+    preempt_cost: float = 0.25
     # training
     ppo: PPOConfig = PPOConfig()
     iterations: int = 100
@@ -102,7 +106,7 @@ A2C_PAI_FAIR = _register(ExperimentConfig(
 GNN_GANG_PLACE = _register(ExperimentConfig(
     name="gnn-gang-place", n_nodes=16, gpus_per_node=8,
     trace="synthetic", n_envs=4, obs_kind="graph", n_placements=2,
-    window_jobs=64))
+    nodes_per_rack=4, window_jobs=64))
 
 # Preemptive variant of config 1.
 PPO_MLP_PREEMPT = _register(ExperimentConfig(

@@ -1,15 +1,48 @@
-"""The greedy decision rule shared by replay and serving.
+"""The greedy decision rule shared by replay and serving, and the
+preempt stall gate.
 
-Counterpart of ``greedy_actions`` and ``policy_decision`` in the JAX
-package's ``decision.py``: :func:`..eval.replay` and
+Counterpart of ``preempt_slice``, ``stall_threshold``, ``gate_stalled``,
+``greedy_actions`` and ``policy_decision`` in the JAX package's
+``decision.py``: :func:`..eval.replay` and
 :class:`..serve.engine.InferenceEngine` both decide through
-:func:`policy_decision`, so a served action is the action replay would
-take on the same observation. The preempt stall gate waits for the
-preemption slice (there are no preempt actions to gate here)."""
+:func:`policy_decision` and gate through :func:`gate_stalled`, so a
+served action is the action replay would take on the same observation
+and stall count."""
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+
+def preempt_slice(env_params, device: "torch.device | str | None" = None,
+                  ) -> torch.Tensor | None:
+    """``bool[n_actions]`` on ``device`` marking the preempt actions, or
+    None if the action space has none (the stall gate is then a no-op).
+    Built once by the caller, never per step."""
+    sim = env_params.sim
+    if not sim.preempt_len:
+        return None
+    kp = sim.queue_len * sim.n_placements
+    pre = torch.zeros(sim.n_actions, dtype=torch.bool, device=device)
+    pre[kp:kp + sim.preempt_len] = True
+    return pre
+
+
+def stall_threshold(env_params) -> int:
+    """Upper bound on legitimate consecutive zero-dt decision steps: at
+    one instant a policy can place at most ``queue_len`` distinct
+    pending jobs and rearrange at most ``preempt_len`` running ones;
+    more than that is a place<->preempt cycle. The +4 is slack."""
+    sim = env_params.sim
+    return sim.queue_len + sim.preempt_len + 4
+
+
+def gate_stalled(mask: torch.Tensor, stall: torch.Tensor, thresh: int,
+                 pre: torch.Tensor) -> torch.Tensor:
+    """Mask the preempt actions (``pre``, :func:`preempt_slice`) of every
+    row whose count of consecutive zero-dt steps ``stall`` (``i32[E]``)
+    has reached ``thresh``; ``mask`` is ``bool[E, A]``."""
+    return mask & ~((stall >= thresh)[:, None] & pre)
 
 
 def greedy_actions(logits: torch.Tensor) -> torch.Tensor:

@@ -26,19 +26,17 @@ from . import rewards as reward_lib
 class EnvParams:
     """Static env configuration."""
     sim: SimParams
-    obs_kind: Literal["flat", "grid"] = "flat"
+    obs_kind: Literal["flat", "grid", "graph"] = "flat"
     reward_kind: Literal["jct"] = "jct"
     time_scale: float = 600.0     # normalizes times in observations
     reward_scale: float = 1000.0  # divides reward magnitudes
     place_bonus: float = 0.0      # potential-based shaping (rewards.py)
+    preempt_cost: float = 0.0     # anti-stall preemption charge (rewards.py)
     horizon: int = 512            # max decision steps per episode
 
     def __post_init__(self):
-        if self.obs_kind not in ("flat", "grid"):
-            raise NotImplementedError(
-                f"obs_kind={self.obs_kind!r}: the topology-graph "
-                f"observation (gnn-gang-place) waits for the config-4 "
-                f"slice")
+        if self.obs_kind not in ("flat", "grid", "graph"):
+            raise ValueError(f"unknown obs_kind {self.obs_kind!r}")
         if self.reward_kind != "jct":
             raise NotImplementedError(
                 f"reward_kind={self.reward_kind!r}: the multi-tenant "
@@ -51,10 +49,12 @@ class EnvParams:
 
     def obs_shape(self) -> tuple[int, ...]:
         """Per-cluster observation shape (no leading E)."""
-        s = self.sim
+        s, k, r = self.sim, self.sim.queue_len, self.sim.preempt_len
         if self.obs_kind == "flat":
-            return (s.n_nodes + 4 * s.queue_len + 2,)
-        return (s.n_nodes + s.queue_len, s.gpus_per_node, 2)
+            return (s.n_nodes + 4 * k + 4 * r + 2,)
+        if self.obs_kind == "grid":
+            return (s.n_nodes + k + r, s.gpus_per_node, 2)
+        return (s.n_nodes + k + r, obs_lib.GRAPH_FEATURES)
 
 
 class EnvState(NamedTuple):
@@ -70,18 +70,26 @@ class TimeStep(NamedTuple):
     info: StepInfo
 
 
+_OBS = {"flat": obs_lib.flat_obs, "grid": obs_lib.grid_obs,
+        "graph": obs_lib.graph_obs}
+
+
 def build_obs(params: EnvParams, sim: SimState, trace: Trace,
-              queue: torch.Tensor | None = None) -> torch.Tensor:
-    fn = obs_lib.flat_obs if params.obs_kind == "flat" else obs_lib.grid_obs
-    return fn(params.sim, sim, trace, params.time_scale, queue)
+              queue: torch.Tensor | None = None,
+              run_queue: torch.Tensor | None = None) -> torch.Tensor:
+    return _OBS[params.obs_kind](params.sim, sim, trace, params.time_scale,
+                                 queue, run_queue)
 
 
 def _observe(params: EnvParams, sim: SimState, trace: Trace,
              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(obs, action_mask), sharing one pending queue between the two."""
+    """(obs, action_mask), sharing one pending queue (and, for
+    preemptive configs, one running queue) between the two."""
     queue = core.pending_queue(params.sim, sim)
-    return (build_obs(params, sim, trace, queue),
-            core.action_mask(params.sim, sim, trace, queue))
+    run_queue = (core.running_queue(params.sim, sim, trace)
+                 if params.sim.preempt_len else None)
+    return (build_obs(params, sim, trace, queue, run_queue),
+            core.action_mask(params.sim, sim, trace, queue, run_queue))
 
 
 def reset(params: EnvParams, trace: Trace) -> tuple[EnvState, TimeStep]:
@@ -110,6 +118,13 @@ def step(params: EnvParams, state: EnvState, trace: Trace,
     sim, info = core.rl_step(params.sim, state.sim, trace, action)
     reward = reward_lib.reward_jct(info, params.reward_scale,
                                    params.place_bonus)
+    # the anti-stall charge belongs to the action space, not to one
+    # reward function: applied after the reward. Without preempt slots
+    # it is exactly -0.0 and leaves the reward's bits as they are, so it
+    # is not computed there (JAX computes it and XLA folds it away)
+    if params.preempt_cost and params.sim.preempt_len:
+        reward = reward + reward_lib.preempt_charge(info,
+                                                    params.preempt_cost)
     t = state.t + 1
     done = info.done | (t >= params.horizon)
     obs, mask = _observe(params, sim, trace)

@@ -1,14 +1,26 @@
-"""Reward functions (L2) of the port: the JCT reward.
+"""Reward functions (L2) of the port: the JCT reward and the anti-stall
+preemption charge.
 
-Counterpart of the JAX package's ``env/rewards.py``. The multi-tenant
-fairness reward waits for the config-3 slice; the anti-stall preemption
-charge waits for the preemption slice (it is zero on a non-preemptive
-action space, where no job is ever placed twice)."""
+Counterpart of ``reward_jct`` and ``preempt_charge`` in the JAX
+package's ``env/rewards.py``. The multi-tenant fairness reward waits
+for the config-3 slice."""
 from __future__ import annotations
 
 import torch
 
 from ..sim.core import StepInfo
+
+
+def preempt_charge(info: StepInfo, preempt_cost: float) -> torch.Tensor:
+    """-``preempt_cost`` per preemption and per re-placement (a placement
+    of a job that ran before, possible only after a preemption). Both
+    legs of a place<->preempt cycle cost no simulated time, so without
+    the charge stalling the clock in such a cycle escapes the backlog
+    penalty forever. First placements are never charged. On a
+    non-preemptive action space no job is placed twice and the charge is
+    exactly -0.0, which leaves any reward's bits unchanged."""
+    replaced = info.placed & ~info.first_placed
+    return -preempt_cost * (info.preempted | replaced).to(torch.float32)
 
 
 def reward_jct(info: StepInfo, reward_scale: float,

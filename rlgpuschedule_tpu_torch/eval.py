@@ -11,15 +11,15 @@ nothing).
 
 The policy side plays greedily (argmax over the masked logits) or as
 the masked-uniform random control, optionally gated to
-FIFO-with-backfill while the backlog is shallow (``backlog_gate``). The
-baseline side replays the same windows on the host through
-:mod:`.sim.schedulers` (the native engine unless no compiler is
-present), so the table compares like with like.
+FIFO-with-backfill while the backlog is shallow (``backlog_gate``); on
+a preemptive action space the greedy replay runs the stall guard
+(``stall_guard``). The baseline side replays the same windows on the
+host through :mod:`.sim.schedulers` (the native engine unless no
+compiler is present), so the table compares like with like.
 
-Not here: the stall guard (it only ever masks preempt actions, and the
-port refuses preemptive configs at build), fault replay, the
-hierarchical env, and the fairness, chaos, matrix and full-trace
-reports; they come with their slices (``ROADMAP.md`` queue 1).
+Not here: fault replay, the hierarchical env, and the fairness, chaos,
+matrix and full-trace reports; they come with their slices
+(``ROADMAP.md`` queue 1).
 """
 from __future__ import annotations
 
@@ -31,7 +31,8 @@ import torch
 from torch import nn
 
 from .algos import action_dist
-from .decision import greedy_actions
+from .decision import (gate_stalled, greedy_actions, preempt_slice,
+                       stall_threshold)
 from .env import env as env_lib
 from .env.env import EnvParams, stack_traces
 from .sim import core
@@ -61,6 +62,7 @@ class ReplayRecord(NamedTuple):
     Steps at and after a cluster's ``steps`` act on its frozen state."""
     actions: torch.Tensor   # the action taken (after any backlog gate)
     margin: torch.Tensor    # f32 top-1 minus top-2 of the deciding logits
+    gated: torch.Tensor     # bool: the stall guard masked a legal preempt
 
 
 def _random_actions(generator: torch.Generator,
@@ -107,7 +109,8 @@ def replay(net: "nn.Module | None", env_params: EnvParams,
            traces: core.Trace, max_steps: int | None = None,
            record: bool = False, policy: str = "greedy",
            generator: torch.Generator | None = None,
-           return_states: bool = False, backlog_gate: int = 0):
+           return_states: bool = False, backlog_gate: int = 0,
+           stall_guard: bool = True):
     """Replay the batched trace windows under the policy ``net`` on the
     traces' device. Each cluster runs its window to completion (or
     ``max_steps``, default the horizon) and is then frozen while the
@@ -118,6 +121,15 @@ def replay(net: "nn.Module | None", env_params: EnvParams,
     ``generator``, default one seeded 0 on the traces' device; ``net``
     is not called). ``backlog_gate > 0`` replays the backlog-gated
     hybrid (:func:`_gate_to_fifo`) of the greedy policy.
+
+    ``stall_guard`` (preemptive action spaces, greedy replay only)
+    breaks the place<->preempt argmax cycle, which costs no simulated
+    time and so never ends: each cluster counts its consecutive zero-dt
+    steps, and past :func:`..decision.stall_threshold` its preempt
+    actions are masked until the clock moves (or the cluster is done).
+    With preempts held a zero-dt run is finite; below the threshold the
+    replay is the unguarded one. The count lives on the device and adds
+    no host sync.
 
     Returns the :class:`EvalResult`, followed by the final ``EnvState``
     with ``return_states`` and the per-step :class:`ReplayRecord` with
@@ -139,13 +151,22 @@ def replay(net: "nn.Module | None", env_params: EnvParams,
     if policy == "random" and generator is None:
         generator = torch.Generator(dev).manual_seed(0)
     prefs = _fifo_preferences(env_params, dev) if backlog_gate else None
-    acts, margins = [], []
+    pre = (preempt_slice(env_params, dev)
+           if stall_guard and policy == "greedy" else None)
+    thresh = stall_threshold(env_params) if pre is not None else 0
+    acts, margins, gated = [], [], []
     with torch.inference_mode():
         state, ts = env_lib.reset(env_params, traces)
         obs, mask = ts.obs, ts.action_mask
         done = torch.zeros_like(ts.done)
         busy_time = torch.zeros_like(ts.reward)
+        stall = torch.zeros_like(done, dtype=torch.int32)
         for i in range(max_steps):
+            if pre is not None:
+                ungated = mask
+                mask = gate_stalled(mask, stall, thresh, pre)
+                if record:
+                    gated.append((ungated != mask).any(-1))
             if policy == "random":
                 actions, logits = _random_actions(generator, mask)
             else:
@@ -163,6 +184,9 @@ def replay(net: "nn.Module | None", env_params: EnvParams,
             dt = torch.where(done, 0.0, new_ts.info.dt)
             busy = state.sim.alloc.sum((1, 2), dtype=torch.int32)
             busy_time = busy_time + busy.to(torch.float32) * dt
+            if pre is not None:
+                stall = torch.where(done | (new_ts.info.dt > 0.0), 0,
+                                    stall + 1)
             # freeze finished clusters: keep their old state, obs, mask
             state = core.select(done, state, new_state)
             obs = core.select(done, obs, new_ts.obs)
@@ -182,7 +206,10 @@ def replay(net: "nn.Module | None", env_params: EnvParams,
     if return_states:
         out += (state,)
     if record:
-        out += (ReplayRecord(torch.stack(acts), torch.stack(margins)),)
+        actions = torch.stack(acts)
+        out += (ReplayRecord(actions, torch.stack(margins),
+                             torch.stack(gated) if gated else
+                             torch.zeros_like(actions, dtype=torch.bool)),)
     return out if len(out) > 1 else result
 
 
@@ -245,7 +272,7 @@ def jct_report(exp, windows: list[ArrayTrace] | None = None,
                include_random: bool = True,
                percentiles: tuple[float, ...] | None = None,
                backlog_gate: int = 0, backend: str = "auto",
-               ) -> dict[str, Any]:
+               stall_guard: bool = True) -> dict[str, Any]:
     """The comparison table for an assembled :class:`..experiment
     .Experiment`: the policy's greedy replay (on the experiment's
     device) against the baselines (on the host) on identical windows
@@ -261,7 +288,10 @@ def jct_report(exp, windows: list[ArrayTrace] | None = None,
     records ``baseline_backend`` (``native`` or ``python``),
     ``policy_steps`` (decision steps, summed over windows) and
     ``wall_s``, the wall time of each part with the device synchronized
-    around it (not counting a first-use build of the native engine)."""
+    around it (not counting a first-use build of the native engine).
+    Wherever the stall guard can engage (a preemptive action space) the
+    report records ``stall_guard``: guarded and unguarded rows come from
+    different schedulers."""
     dev = exp.device
     if windows is None:
         windows, traces = exp.windows, exp.traces
@@ -272,11 +302,14 @@ def jct_report(exp, windows: list[ArrayTrace] | None = None,
     wall: dict[str, float] = {}
     if backlog_gate:
         report["backlog_gate"] = int(backlog_gate)
+    if exp.env_params.sim.preempt_len:
+        report["stall_guard"] = bool(stall_guard)
     t0 = _clock(dev)
     # the gate is part of the scheduler under evaluation (policy + FIFO
     # hybrid); the random control row stays pure random
     res, states = replay(exp.net, exp.env_params, traces, max_steps,
-                         return_states=True, backlog_gate=backlog_gate)
+                         return_states=True, backlog_gate=backlog_gate,
+                         stall_guard=stall_guard)
     report["policy"], report["policy_completion"] = pooled_avg_jct(res)
     report["policy_utilization"] = float(np.mean(res.utilization.cpu()
                                                  .numpy()))

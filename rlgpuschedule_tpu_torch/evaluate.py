@@ -44,7 +44,7 @@ from .sim.core import validate_trace
 PERCENTILES = (50, 90, 99)
 
 _Q1 = "ROADMAP.md queue 1"
-_FULL_TRACE = f"the full-trace stitched replay ({_Q1}, next 2)"
+_FULL_TRACE = f"the full-trace stitched replay ({_Q1}, next 3)"
 # the JAX CLI's flags that this port does not take, and what they wait for
 UNPORTED_FLAGS: dict[str, str] = {
     **dict.fromkeys(("--ckpt-dir", "--ckpt-step"),
@@ -62,10 +62,12 @@ UNPORTED_FLAGS: dict[str, str] = {
                     f"the hierarchical/PBT slice ({_Q1}, item 19)"),
     "--drain-frac": f"window streaming and the drain curriculum ({_Q1}, "
                     f"item 13)",
-    **dict.fromkeys(("--stall-guard", "--no-stall-guard"),
-                    f"the preemption slice ({_Q1}, item 14)"),
     **dict.fromkeys(("--obs-dir", "--trace-spans", "--alarms"),
                     f"the observability slice ({_Q1}, item 24)"),
+    # a no-op switch here: the guard is on unless --no-stall-guard
+    "--stall-guard": f"the PolicyServer slice ({_Q1}, next 2), with the "
+                     f"JAX signatures' other stall switches; the guard is "
+                     f"on by default",
 }
 
 
@@ -93,6 +95,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="evaluate the backlog-gated hybrid: while fewer "
                         "than N jobs are pending, play FIFO-with-backfill "
                         "instead of the policy (policy row only)")
+    p.add_argument("--no-stall-guard", dest="stall_guard",
+                   action="store_false",
+                   help="turn off the stall guard, which masks a "
+                        "preemptive policy's preempt actions past the "
+                        "legitimate zero-dt activity bound, and replay "
+                        "the raw argmax (it may then cycle place<->"
+                        "preempt without end, short of completion)")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda)")
     return p
@@ -118,6 +127,12 @@ def main(argv: "list[str] | None" = None) -> dict:
     if args.backlog_gate and args.baselines_only:
         sys.exit("--backlog-gate gates the policy row; --baselines-only "
                  "has none")
+    if not args.stall_guard and (args.baselines_only
+                                 or cfg.preempt_len == 0):
+        sys.exit("--no-stall-guard applies to the policy row of a "
+                 "preemptive config: the guard only ever masks preempt "
+                 "actions, so it is a no-op elsewhere (refusing beats "
+                 "silently changing nothing)")
     dev = resolve_device(args.device)
     repro = repro_tuple(cfg)
 
@@ -144,7 +159,8 @@ def main(argv: "list[str] | None" = None) -> dict:
                         include_random=not args.no_random,
                         percentiles=PERCENTILES if args.percentiles
                         else None,
-                        backlog_gate=args.backlog_gate)
+                        backlog_gate=args.backlog_gate,
+                        stall_guard=args.stall_guard)
     print(format_report(report), file=sys.stderr)
     out = numeric_rows(report)
     if "percentiles" in report:

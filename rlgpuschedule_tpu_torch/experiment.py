@@ -6,8 +6,8 @@ Counterparts of ``build_env_params``, ``load_source_trace``,
 single-run ``Experiment`` (``build``, ``run`` with its eval hook,
 ``steps_per_iteration``) in the JAX package's ``experiment.py``.
 Checkpoints, window streaming, ``run_fused``, meshes, faults and
-domains are not ported; configs outside the port's simulator subset,
-and A2C, are refused here with ``NotImplementedError``.
+domains are not ported; the hierarchical config and A2C are refused
+here with ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -25,7 +25,8 @@ from .algos.update import validate_update_geometry
 from .configs import ExperimentConfig
 from .device import resolve_device
 from .env.env import EnvParams, stack_traces
-from .models import ActorCritic, make_policy
+from .env.obs import build_adjacency
+from .models import ActorCritic, GNNActorCritic, make_policy
 from .sim.core import SimParams, Trace, validate_trace
 from .traces import (ArrayTrace, gen_pai_proxy_trace, gen_philly_proxy_trace,
                      gen_poisson_trace, load_pai, load_philly)
@@ -45,7 +46,8 @@ def build_env_params(cfg: ExperimentConfig) -> EnvParams:
                      reward_kind=cfg.reward_kind,
                      time_scale=cfg.time_scale,
                      reward_scale=cfg.reward_scale,
-                     place_bonus=cfg.place_bonus, horizon=cfg.horizon)
+                     place_bonus=cfg.place_bonus,
+                     preempt_cost=cfg.preempt_cost, horizon=cfg.horizon)
 
 
 def load_source_trace(cfg: ExperimentConfig) -> ArrayTrace:
@@ -100,19 +102,39 @@ def make_env_windows(cfg: ExperimentConfig, source: ArrayTrace,
     return windows
 
 
+def build_policy(cfg: ExperimentConfig, env_params: EnvParams, *,
+                 dtype: torch.dtype = torch.bfloat16,
+                 device: "torch.device | str | None" = None,
+                 ) -> "ActorCritic | GNNActorCritic":
+    """The config's actor-critic, seeded ``cfg.seed``, on ``device``; a
+    graph config's holds the adjacency of ``build_adjacency(n_nodes,
+    queue_len, nodes_per_rack, preempt_len)``."""
+    kw = {}
+    if cfg.obs_kind == "graph":
+        kw = dict(adjacency=build_adjacency(cfg.n_nodes, cfg.queue_len,
+                                            cfg.nodes_per_rack,
+                                            cfg.preempt_len),
+                  n_cluster_nodes=cfg.n_nodes, queue_len=cfg.queue_len,
+                  n_placements=cfg.n_placements,
+                  preempt_len=cfg.preempt_len)
+    return make_policy(cfg.obs_kind, env_params.n_actions,
+                       env_params.obs_shape(), dtype=dtype, seed=cfg.seed,
+                       device=device, **kw)
+
+
 def build_stack(cfg: ExperimentConfig,
                 device: "torch.device | str | None" = None):
-    """Trace load/validate/window/stack and the policy for a flat or grid
-    config, on ``device`` (default ``cuda``). Returns ``(env_params,
-    windows, traces [E, ...], net, source)``; ``net(obs, mask)`` is the
-    apply function and ``source`` the full validated source trace."""
+    """Trace load/validate/window/stack and the policy, on ``device``
+    (default ``cuda``). Returns ``(env_params, windows, traces [E, ...],
+    net, source)``; ``net(obs, mask)`` is the apply function (a graph
+    policy holds its adjacency) and ``source`` the full validated source
+    trace."""
     env_params = build_env_params(cfg)
     source = validate_trace(env_params.sim, load_source_trace(cfg),
                             clamp=True)
     windows = make_env_windows(cfg, source)
     traces = stack_traces(windows, env_params, device)
-    net = make_policy(cfg.obs_kind, env_params.n_actions,
-                      env_params.obs_shape(), seed=cfg.seed, device=device)
+    net = build_policy(cfg, env_params, device=device)
     return env_params, windows, traces, net, source
 
 
@@ -131,7 +153,7 @@ class Experiment:
     device: torch.device
 
     @property
-    def net(self) -> ActorCritic:
+    def net(self) -> "ActorCritic | GNNActorCritic":
         return self.train_state.net
 
     @staticmethod

@@ -1,8 +1,9 @@
 """L3 policy networks of the port."""
-from .actor_critic import NEG_INF, ActorCritic, make_policy, mask_logits
+from .actor_critic import (NEG_INF, ActorCritic, GNNActorCritic, make_policy,
+                           mask_logits)
 from .convert import load_npz, opt_state_from_jax, params_from_jax
-from .encoders import CNNEncoder, MLPEncoder
+from .encoders import CNNEncoder, GNNEncoder, MLPEncoder
 
-__all__ = ["ActorCritic", "MLPEncoder", "CNNEncoder", "make_policy",
-           "mask_logits", "NEG_INF", "params_from_jax", "load_npz",
-           "opt_state_from_jax"]
+__all__ = ["ActorCritic", "GNNActorCritic", "MLPEncoder", "CNNEncoder",
+           "GNNEncoder", "make_policy", "mask_logits", "NEG_INF",
+           "params_from_jax", "load_npz", "opt_state_from_jax"]

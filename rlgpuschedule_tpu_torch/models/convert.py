@@ -14,8 +14,12 @@ The mapping, leaf by leaf (Flax scope -> port module):
 - ``.../Dense_i/kernel`` ``[in, out]`` -> ``.weight`` ``[out, in]``;
 - ``.../Conv_i/kernel`` HWIO -> ``.weight`` OIHW;
 - ``.../LayerNorm_i/scale`` -> ``.weight``;
-- ``policy``/``value`` ``kernel`` -> ``.weight`` (transposed);
+- the heads' ``kernel`` -> ``.weight`` (transposed): ``policy`` and
+  ``value``, and for the GNN ``slot_policy``, ``preempt_policy``,
+  ``noop_policy`` and ``value``;
 - every ``bias`` -> ``.bias``.
+
+The GNN's adjacency is not a parameter on either side.
 """
 from __future__ import annotations
 
@@ -25,10 +29,11 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-_DENSE = re.compile(r"(encoder/Dense_\d+|policy|value)/kernel")
+_HEADS = "policy|value|slot_policy|preempt_policy|noop_policy"
+_DENSE = re.compile(rf"(encoder/Dense_\d+|{_HEADS})/kernel")
 _CONV = re.compile(r"encoder/Conv_\d+/kernel")
 _SCALE = re.compile(r"encoder/LayerNorm_\d+/scale")
-_BIAS = re.compile(r"(encoder/(Dense|Conv|LayerNorm)_\d+|policy|value)/bias")
+_BIAS = re.compile(rf"(encoder/(Dense|Conv|LayerNorm)_\d+|{_HEADS})/bias")
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> dict[str, Any]:
@@ -61,8 +66,8 @@ def params_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
         else:
             raise ValueError(
                 f"no port counterpart for Flax parameter {path!r} "
-                f"(shape {a.shape}); this slice maps the MLP and CNN "
-                f"actor-critics only")
+                f"(shape {a.shape}); the port maps the MLP, CNN and GNN "
+                f"actor-critics")
         out[name.replace("/", ".")] = torch.from_numpy(
             np.ascontiguousarray(a))
     return out

@@ -1,7 +1,7 @@
-"""Cluster-state encoders (L3) of the port: MLP and CNN.
+"""Cluster-state encoders (L3) of the port: MLP, CNN and GNN.
 
-Counterparts of ``MLPEncoder`` and ``CNNEncoder`` in the JAX package's
-``models/encoders.py``. Numerics follow Flax, layer by layer, with
+Counterparts of ``MLPEncoder``, ``CNNEncoder`` and ``GNNEncoder`` in the
+JAX package's ``models/encoders.py``. Numerics follow Flax, layer by layer, with
 explicit casts rather than ``torch.autocast`` (whose per-op choices
 differ, most of all on the CPU):
 
@@ -15,14 +15,15 @@ differ, most of all on the CPU):
   asymmetric (lo = total // 2), which ``padding="same"`` cannot express.
 
 Weights are laid out the PyTorch way (``[out, in]``, OIHW); module
-names follow the Flax scopes (``Dense_0``, ``LayerNorm_0``, ``Conv_0``)
-so that :mod:`.convert` maps one onto the other name for name.
+names follow the Flax scopes (``Dense_0``, ``LayerNorm_0``, ``Conv_0``,
+numbered in the order the Flax module creates them) so that :mod:`.convert` maps one onto the other name for name.
 """
 from __future__ import annotations
 
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -42,23 +43,25 @@ def lecun_normal_(w: torch.Tensor, fan_in: int,
 
 class Dense(nn.Module):
     """``y = x @ W.T + b`` in ``dtype``; the matmul and the bias add are
-    separate ops, each rounded to ``dtype``, as in Flax."""
+    separate ops, each rounded to ``dtype``, as in Flax. ``bias=False``
+    is Flax's ``use_bias=False`` (no bias parameter at all)."""
 
     def __init__(self, in_features: int, out_features: int,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, bias: bool = True):
         super().__init__()
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
-        self.bias = nn.Parameter(torch.zeros(out_features))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
 
     def reset_parameters(self, generator: torch.Generator | None) -> None:
         lecun_normal_(self.weight, self.weight.shape[1], generator)
-        with torch.no_grad():
-            self.bias.zero_()
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = torch.matmul(x.to(self.dtype), self.weight.to(self.dtype).t())
-        return y + self.bias.to(self.dtype)
+        return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -174,3 +177,51 @@ class CNNEncoder(nn.Module):
         x = self.Dense_0(x)
         x = getattr(self, f"LayerNorm_{self.n_layers}")(x)
         return F.silu(x)
+
+
+def normalize_adjacency(adjacency: np.ndarray) -> torch.Tensor:
+    """``A_hat = adj / max(deg, 1)`` of a static 0/1 adjacency ``[V, V]``,
+    in f32 on the CPU, as the JAX encoder computes it on every call. The
+    degrees are exact integers and the division is correctly rounded, so
+    the bits are the same on every device; compute it once per topology
+    and cast it to the trunk dtype."""
+    adj = torch.as_tensor(np.asarray(adjacency, np.float32))
+    return adj / torch.clamp_min(adj.sum(-1, keepdim=True), 1.0)
+
+
+class GNNEncoder(nn.Module):
+    """Dense message passing over the cluster-topology graph (config 4):
+    per-node embeddings ``[E, V, D]`` from node features ``[E, V, F]``
+    and the static normalized adjacency ``A_hat``
+    (:func:`normalize_adjacency`).
+
+    Each layer is ``silu(LN(A_hat (h W_msg + b) + h W_self))`` with
+    ``A_hat`` cast to ``dtype`` before the product, as Flax casts it.
+    Module names follow Flax's call order: per layer
+    the message ``Dense_{2i}`` (with a bias), the self ``Dense_{2i+1}``
+    (without) and ``LayerNorm_i``."""
+
+    def __init__(self, in_features: int,
+                 features: Sequence[int] = (128, 128, 128),
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.n_layers = len(features)
+        self.out_features = features[-1]
+        d = in_features
+        for i, f in enumerate(features):
+            self.add_module(f"Dense_{2 * i}", Dense(d, f, dtype))
+            self.add_module(f"Dense_{2 * i + 1}",
+                            Dense(d, f, dtype, bias=False))
+            self.add_module(f"LayerNorm_{i}", LayerNorm(f, dtype))
+            d = f
+
+    def forward(self, x: torch.Tensor, a_norm: torch.Tensor) -> torch.Tensor:
+        a_norm = a_norm.to(self.dtype)              # no-op when held cast
+        h = x.to(self.dtype)
+        for i in range(self.n_layers):
+            msg = getattr(self, f"Dense_{2 * i}")(h)
+            agg = torch.matmul(a_norm, msg)                  # [E, V, D]
+            self_h = getattr(self, f"Dense_{2 * i + 1}")(h)
+            h = F.silu(getattr(self, f"LayerNorm_{i}")(agg + self_h))
+        return h

@@ -27,8 +27,8 @@ import torch
 
 from ..configs import CONFIGS
 from ..device import resolve_device
-from ..experiment import build_env_params
-from ..models import load_npz, make_policy
+from ..experiment import build_env_params, build_policy
+from ..models import load_npz
 from .fleet import fleet_replay, fleet_windows
 
 
@@ -70,8 +70,7 @@ def main(argv: "list[str] | None" = None) -> dict:
     dev = resolve_device(args.device)
     env_params = build_env_params(cfg)
     _, traces = fleet_windows(cfg, args.fleet, device=dev)
-    policy = make_policy(cfg.obs_kind, env_params.n_actions,
-                         env_params.obs_shape(), seed=cfg.seed, device=dev)
+    policy = build_policy(cfg, env_params, device=dev)
     if args.weights:
         policy.load_state_dict(load_npz(args.weights))
         print(f"policy weights from {args.weights}", file=sys.stderr)

@@ -12,12 +12,17 @@ when the engine serves a CUDA device, and uploads are
 waits for the decision, and with it for the upload, so a buffer is
 free again when ``decide`` returns.
 
+On a preemptive action space, an engine given ``env_params`` applies
+the stall gate (:func:`..decision.gate_stalled`) on the device: each
+request carries its cluster's count of consecutive zero-dt steps, and
+past the threshold its preempt actions are masked, as replay masks
+them.
+
 The JAX engine's per-bucket compile accounting and its recompile and
 implicit-transfer sentinels police XLA's jit cache and
 ``jax.transfer_guard``; the port compiles nothing, and their torch
 counterparts (a CUDA-graph capture per bucket, a host-sync guard) wait
-for a later slice. So do the capture mode and the preempt stall gate
-(this slice has no preempt actions to gate).
+for a later slice. So does the capture mode.
 """
 from __future__ import annotations
 
@@ -25,7 +30,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..decision import policy_decision
+from ..decision import (gate_stalled, policy_decision, preempt_slice,
+                        stall_threshold)
 from ..device import resolve_device
 from .batching import next_bucket, pad_batch
 
@@ -34,7 +40,8 @@ class InferenceEngine:
     """Bucketed greedy policy inference on one device."""
 
     def __init__(self, policy: nn.Module, max_bucket: int = 256,
-                 device: "torch.device | str | None" = None):
+                 device: "torch.device | str | None" = None,
+                 env_params=None):
         if max_bucket <= 0 or (max_bucket & (max_bucket - 1)):
             raise ValueError(f"max_bucket must be a positive power of "
                              f"two, got {max_bucket}")
@@ -47,7 +54,12 @@ class InferenceEngine:
         self.policy = policy
         self.max_bucket = max_bucket
         self._pin = self.device.type == "cuda"
-        self._staging: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
+        # the gate's preempt slice, built once on the serving device
+        self._pre = (preempt_slice(env_params, self.device)
+                     if env_params is not None else None)
+        self._thresh = (stall_threshold(env_params)
+                        if self._pre is not None else 0)
+        self._staging: dict[tuple, tuple[torch.Tensor, ...]] = {}
         self._warmed: set[int] = set()
 
     @property
@@ -76,35 +88,45 @@ class InferenceEngine:
                     f"instead")
         self.policy.load_state_dict(state_dict)
 
-    def _buffers(self, bucket: int, obs: np.ndarray, mask: np.ndarray,
-                 ) -> tuple[torch.Tensor, torch.Tensor]:
-        key = (bucket, obs.shape[1:], obs.dtype, mask.shape[1:])
+    def _buffers(self, bucket: int, arrays: "tuple[np.ndarray, ...]",
+                 ) -> "tuple[torch.Tensor, ...]":
+        key = (bucket,) + tuple((x.shape[1:], x.dtype) for x in arrays)
         bufs = self._staging.get(key)
         if bufs is None:
             bufs = tuple(
                 torch.empty((bucket,) + x.shape[1:],
                             dtype=torch.from_numpy(x[:0]).dtype,
                             pin_memory=self._pin)
-                for x in (obs, mask))
+                for x in arrays)
             self._staging[key] = bufs
         return bufs
 
     def decide(self, obs: np.ndarray, mask: np.ndarray,
+               stall: "np.ndarray | None" = None,
                ) -> "tuple[np.ndarray, int]":
         """Decide one request batch: ``obs``/``mask`` are host arrays with
-        a leading request axis. Returns ``(actions[:n] on the host,
-        bucket)``."""
+        a leading request axis; ``stall`` is ``i32[n]`` consecutive
+        zero-dt steps per request (zeros if None; ignored unless the
+        action space has preempt actions to gate). Returns
+        ``(actions[:n] on the host, bucket)``."""
         n = int(obs.shape[0])
         bucket = self.bucket_for(n)
-        obs_p = pad_batch(obs, bucket)
-        mask_p = pad_batch(mask, bucket, fill_mask_true=True)
-        obs_h, mask_h = self._buffers(bucket, obs_p, mask_p)
-        obs_h.copy_(torch.from_numpy(obs_p))
-        mask_h.copy_(torch.from_numpy(mask_p))
-        obs_d = obs_h.to(self.device, non_blocking=True)
-        mask_d = mask_h.to(self.device, non_blocking=True)
+        arrays = (pad_batch(obs, bucket),
+                  pad_batch(mask, bucket, fill_mask_true=True))
+        if self._pre is not None:
+            if stall is None:
+                stall = np.zeros(n, np.int32)
+            arrays += (pad_batch(np.asarray(stall, np.int32), bucket),)
+        dev = []
+        for host, x in zip(self._buffers(bucket, arrays), arrays):
+            host.copy_(torch.from_numpy(x))
+            dev.append(host.to(self.device, non_blocking=True))
         with torch.inference_mode():
-            actions = policy_decision(self.policy, obs_d, mask_d)
+            mask_d = dev[1]
+            if self._pre is not None:
+                mask_d = gate_stalled(mask_d, dev[2], self._thresh,
+                                      self._pre)
+            actions = policy_decision(self.policy, dev[0], mask_d)
         self._warmed.add(bucket)
         # i32 on the host, as the JAX engine returns them
         return actions.to("cpu").numpy()[:n].astype(np.int32), bucket

@@ -46,7 +46,9 @@ def fleet_replay(policy: nn.Module, env_params: EnvParams, traces: Trace,
     and report the pooled fleet table: ``mean_jct``
     (completion-weighted across clusters), ``completion``,
     ``decisions`` (policy decisions taken), ``decisions_per_s`` over the
-    measured wall time, and the ``per_cluster`` arrays behind them."""
+    measured wall time, and the ``per_cluster`` arrays behind them.
+    Preemptive configs replay with :func:`..eval.replay`'s stall guard
+    on."""
     dev = resolve_device(device)
     for what, t in (("traces", traces.submit),
                     ("policy", next(policy.parameters()))):

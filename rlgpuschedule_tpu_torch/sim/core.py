@@ -14,10 +14,12 @@ dtypes are the JAX package's: i32 for counts and codes, f32 for time.
 On integer-valued traces the state after every step is bit-identical
 to the JAX package's (``tests/test_torch_sim.py``).
 
-The subset is the one configs 1 and 2 need: no faults, no domain
-randomization, pack-only placement (``n_placements == 1``) and a
-non-preemptive action space (``preempt_len == 0``). :class:`SimParams`
-refuses anything else.
+The action space is the JAX package's ``[K*P placements][R
+preemptions][no-op]``: pack or pack|spread placement (``n_placements``
+1 or 2) and an optional preempt block (``preempt_len``). With
+``n_placements == 1`` and ``preempt_len == 0`` the step computes no
+spread placement and no preemption, as JAX drops them at trace time.
+Faults and domain randomization wait for their slice.
 """
 from __future__ import annotations
 
@@ -29,9 +31,8 @@ import torch
 
 from ..device import resolve_device
 from ..traces.records import ArrayTrace
-
-# Job status codes (the JAX package's sim/oracle.py).
-NOT_ARRIVED, PENDING, RUNNING, DONE = 0, 1, 2, 3
+# job status codes and placement modes, shared with the oracle
+from .oracle import DONE, NOT_ARRIVED, PACK, PENDING, RUNNING, SPREAD
 
 INF = float("inf")
 _EPS = 1e-5  # completion tolerance in float32 virtual time
@@ -44,20 +45,8 @@ class SimParams:
     gpus_per_node: int
     max_jobs: int          # J: rows in the (padded) job table
     queue_len: int = 16    # K: pending-queue slots visible to the agent
-    n_placements: int = 1  # P: 1 = pack only
-    preempt_len: int = 0   # R: 0 = non-preemptive action space
-
-    def __post_init__(self):
-        if self.n_placements != 1:
-            raise NotImplementedError(
-                f"n_placements={self.n_placements}: spread placement (the "
-                f"pack|spread action space of gnn-gang-place) waits for "
-                f"the preemption-and-spread slice of sim/core")
-        if self.preempt_len:
-            raise NotImplementedError(
-                f"preempt_len={self.preempt_len}: the preemptive action "
-                f"space (ppo-mlp-preempt) waits for the preemption-and-"
-                f"spread slice of sim/core")
+    n_placements: int = 1  # P: 1 = pack only; 2 = pack|spread
+    preempt_len: int = 0   # R: running-job slots the agent may preempt
 
     @property
     def capacity(self) -> int:
@@ -65,7 +54,8 @@ class SimParams:
 
     @property
     def n_actions(self) -> int:
-        return self.queue_len + 1   # [K placements][no-op]
+        # [K*P placements][R preemptions][no-op]; see rl_step
+        return self.queue_len * self.n_placements + self.preempt_len + 1
 
 
 def validate_trace(params: SimParams, tr: ArrayTrace,
@@ -127,7 +117,7 @@ class StepInfo(NamedTuple):
     dt: torch.Tensor                # f32: simulated time advanced
     in_system_before: torch.Tensor  # i32: arrived-not-done during [t, t+dt)
     done: torch.Tensor              # bool: all valid jobs DONE
-    preempted: torch.Tensor         # bool: always False in this subset
+    preempted: torch.Tensor         # bool: a running job was preempted
     first_placed: torch.Tensor      # bool: placed a job that never ran
 
 
@@ -241,18 +231,62 @@ def pack_placement(free: torch.Tensor, demand: torch.Tensor,
     return torch.where(feasible[:, None], alloc, 0), feasible
 
 
+def spread_placement(free: torch.Tensor, demand: torch.Tensor,
+                     gpus_per_node: int,
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Water-filling: the smallest level ``t`` with sum(min(free, t)) >=
+    demand; the excess is trimmed from the highest node ids allocated
+    exactly ``t``. Shapes as :func:`pack_placement`."""
+    feasible = demand <= free.sum(1, dtype=torch.int32)
+    levels = torch.arange(gpus_per_node + 1, dtype=torch.int32,
+                          device=free.device)                      # [G+1]
+    supply = torch.minimum(free[:, None, :], levels[None, :, None]
+                           ).sum(2, dtype=torch.int32)             # [E, G+1]
+    # the first level that suffices; argmax over an integer cast, since
+    # torch's argmax does not take bool everywhere
+    t = torch.argmax((supply >= demand[:, None]).to(torch.int32), dim=1
+                     ).to(torch.int32)
+    alloc = torch.minimum(free, t[:, None])
+    excess = alloc.sum(1, dtype=torch.int32) - demand
+    at_t = alloc == t[:, None]
+    # rank 1.. from the highest node id among the nodes at level t
+    rank_from_top = torch.flip(torch.cumsum(
+        torch.flip(at_t, [1]).to(torch.int32), 1, dtype=torch.int32), [1])
+    trim = at_t & (rank_from_top <= excess[:, None])
+    alloc = torch.where(trim, alloc - 1, alloc)
+    return torch.where(feasible[:, None], alloc, 0), feasible
+
+
+def placement(free: torch.Tensor, demand: torch.Tensor,
+              mode: torch.Tensor | None, gpus_per_node: int,
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pack (mode 0) or spread (mode 1) per cluster; ``mode=None`` packs
+    every cluster and computes no spread placement at all (the
+    pack-only action space, and the forced placement of the queue
+    head)."""
+    pa, pf = pack_placement(free, demand)
+    if mode is None:
+        return pa, pf
+    sa, sf = spread_placement(free, demand, gpus_per_node)
+    spread = mode == SPREAD
+    return torch.where(spread[:, None], sa, pa), torch.where(spread, sf, pf)
+
+
 # ---- scheduling actions -----------------------------------------------------
 
 def try_place(params: SimParams, state: SimState, trace: Trace,
-              j: torch.Tensor) -> tuple[SimState, torch.Tensor]:
-    """Gang-place job row ``j[e]`` in each cluster (-1 = none). Returns
-    (state', success[E]). All or nothing: where it does not fit, that
-    cluster's state is unchanged."""
+              j: torch.Tensor, mode: torch.Tensor | None,
+              ) -> tuple[SimState, torch.Tensor]:
+    """Gang-place job row ``j[e]`` in each cluster (-1 = none) with
+    placement ``mode[e]`` (``None``: pack). Returns (state',
+    success[E]). All or nothing: where it does not fit, that cluster's
+    state is unchanged."""
     J = params.max_jobs
     jc = j.clamp(0, J - 1)
     pending = (j >= 0) & (_take(state.status, jc) == PENDING)
     demand = _take(trace.gpus, jc)
-    alloc, feasible = pack_placement(state.free, demand)
+    alloc, feasible = placement(state.free, demand, mode,
+                                params.gpus_per_node)
     ok = pending & feasible
     allocd = torch.where(ok[:, None], alloc, 0)
     rows = torch.arange(J, device=j.device)
@@ -268,6 +302,22 @@ def try_place(params: SimParams, state: SimState, trace: Trace,
         alloc=state.alloc + row[:, :, None].to(torch.int32)
         * allocd[:, None, :],
         free=state.free - allocd,
+    ), ok
+
+
+def preempt(state: SimState, j: torch.Tensor, max_jobs: int,
+            ) -> tuple[SimState, torch.Tensor]:
+    """RUNNING -> PENDING for job row ``j[e]`` (-1 = none); the attained
+    service is kept. Returns (state', success[E])."""
+    jc = j.clamp(0, max_jobs - 1)
+    ok = (j >= 0) & (_take(state.status, jc) == RUNNING)
+    rows = torch.arange(max_jobs, device=j.device)
+    row = (rows[None, :] == jc[:, None]) & ok[:, None]          # [E, J]
+    released = (state.alloc * row[:, :, None]).sum(1, dtype=torch.int32)
+    return state._replace(
+        status=torch.where(row, PENDING, state.status),
+        alloc=torch.where(row[:, :, None], 0, state.alloc),
+        free=state.free + released,
     ), ok
 
 
@@ -291,6 +341,21 @@ def pending_queue(params: SimParams, state: SimState) -> torch.Tensor:
     return out.scatter_(1, target, src)[:, :K]
 
 
+def running_queue(params: SimParams, state: SimState, trace: Trace,
+                  ) -> torch.Tensor:
+    """Row indices of the R running jobs with the most attained
+    GPU-service (ties to the lower row), -1 padded: ``i32[E, R]``, the
+    slots the preempt actions index. The sort key is f32, where the
+    oracle sorts in f64, so the two agree on integer-valued traces
+    (exact in f32), not on every float trace."""
+    R = params.preempt_len
+    running = state.status == RUNNING
+    key = torch.where(running, attained_service(state, trace), -INF)
+    order = torch.argsort(-key, dim=1, stable=True)
+    rows = order[:, :R].to(torch.int32)
+    return torch.where(_take(running, rows), rows, -1)
+
+
 def in_system(state: SimState) -> torch.Tensor:
     return ((state.status == PENDING)
             | (state.status == RUNNING)).sum(1, dtype=torch.int32)
@@ -300,19 +365,35 @@ def all_done(state: SimState, trace: Trace) -> torch.Tensor:
     return torch.where(trace.valid, state.status == DONE, True).all(1)
 
 
+def attained_service(state: SimState, trace: Trace) -> torch.Tensor:
+    """Per-job attained GPU-seconds ``f32[E, J]`` (Tiresias' key)."""
+    return (trace.duration - state.remaining) * trace.gpus.to(torch.float32)
+
+
 def action_mask(params: SimParams, state: SimState, trace: Trace,
-                queue: torch.Tensor | None = None) -> torch.Tensor:
-    """``bool[E, n_actions]``: a queue slot is valid iff it holds a
-    pending job whose gang fits in the free GPUs; no-op is always valid.
-    Pass a precomputed :func:`pending_queue` to share it with the
-    observation builder."""
+                queue: torch.Tensor | None = None,
+                run_queue: torch.Tensor | None = None) -> torch.Tensor:
+    """``bool[E, n_actions]``: a queue slot's placements are valid iff
+    it holds a pending job whose gang fits in the free GPUs (pack and
+    spread share feasibility); a preempt slot iff it holds a running
+    job; no-op always. Pass a precomputed :func:`pending_queue` and
+    :func:`running_queue` to share them with the observation builder."""
     if queue is None:
         queue = pending_queue(params, state)                   # [E, K]
     demand = _take(trace.gpus, queue.clamp(0, params.max_jobs - 1))
     ok = (queue >= 0) & (demand <= state.free.sum(1, dtype=torch.int32
                                                   )[:, None])
-    noop = torch.ones(ok.shape[0], 1, dtype=torch.bool, device=ok.device)
-    return torch.cat([ok, noop], 1)
+    if params.n_placements > 1:
+        # each slot's flag once per placement, as jnp.repeat repeats
+        ok = torch.repeat_interleave(ok, params.n_placements, dim=1)
+    parts = [ok]
+    if params.preempt_len:
+        if run_queue is None:
+            run_queue = running_queue(params, state, trace)    # [E, R]
+        parts.append(run_queue >= 0)
+    parts.append(torch.ones(ok.shape[0], 1, dtype=torch.bool,
+                            device=ok.device))
+    return torch.cat(parts, 1)
 
 
 # ---- the RL decision-point step --------------------------------------------
@@ -320,38 +401,56 @@ def action_mask(params: SimParams, state: SimState, trace: Trace,
 def rl_step(params: SimParams, state: SimState, trace: Trace,
             action: torch.Tensor) -> tuple[SimState, StepInfo]:
     """One decision-point step of every cluster; the batched counterpart
-    of the JAX package's ``rl_step``. Action layout: ``[K placements]
-    [no-op]``. A placement costs no simulated time; a no-op (or a failed
-    placement) advances to the next event, or, when no event is left,
-    force-places the queue head. Every outcome is computed and the
-    right one selected per cluster."""
-    K = params.queue_len
+    of the JAX package's ``rl_step``. Action layout: ``[K*P placements]
+    [R preemptions][no-op]``; placement ``a`` takes queue slot ``a // P``
+    with mode ``a % P``, preemption ``K*P + r`` running slot ``r``. A
+    placement or a preemption costs no simulated time; a no-op (or one
+    that fails) advances to the next event, or, when no event is left,
+    force-places the queue head (pack). Every outcome is computed and
+    the right one selected per cluster."""
+    K, P, R, J = (params.queue_len, params.n_placements,
+                  params.preempt_len, params.max_jobs)
+    n_place = K * P
     queue = pending_queue(params, state)
-    is_place = action < K
-    k = action.clamp(0, K - 1)
+    is_place = action < n_place
+    if P == 1:
+        k, mode = action.clamp(0, K - 1), None
+    else:
+        k, mode = (action // P).clamp(0, K - 1), action % P
     j = torch.where(is_place, _take(queue, k), -1)
 
-    placed_state, placed = try_place(params, state, trace, j)
+    placed_state, placed = try_place(params, state, trace, j, mode)
+    progress = placed
+    if R:
+        run_q = running_queue(params, state, trace)
+        is_pre = ~is_place & (action < n_place + R)
+        r = (action - n_place).clamp(0, R - 1)
+        pre_state, preempted = preempt(
+            state, torch.where(is_pre, _take(run_q, r), -1), J)
+        progress = placed | preempted
 
     t_next = next_event_time(state, trace)
     has_event = torch.isfinite(t_next)
     n_before = in_system(state)
     advanced_state = advance_to(state, trace, t_next)
-    forced_state, forced_ok = try_place(params, state, trace, queue[:, 0])
+    forced_state, forced_ok = try_place(params, state, trace, queue[:, 0],
+                                        None)
 
-    new_state = select(placed, placed_state,
-                       select(has_event, advanced_state, forced_state))
-    dt = torch.where(placed | ~has_event, 0.0, t_next - state.clock)
-    # "first" = the job had never run before this step (start still +inf)
+    waited = select(has_event, advanced_state, forced_state)
+    if R:
+        waited = select(preempted, pre_state, waited)
+    new_state = select(placed, placed_state, waited)
+    dt = torch.where(progress | ~has_event, 0.0, t_next - state.clock)
+    # "first" = the job had never run before this step (start still +inf;
+    # a re-placement keeps the first start)
     never_ran = ~torch.isfinite(state.start)
-    J = params.max_jobs
     first_sel = _take(never_ran, j.clamp(0, J - 1))
     first_head = _take(never_ran, queue[:, 0].clamp(0, J - 1))
-    forced_fire = ~placed & ~has_event & forced_ok
+    forced_fire = ~progress & ~has_event & forced_ok
     info = StepInfo(placed=placed | forced_fire,
                     dt=dt, in_system_before=n_before,
                     done=all_done(new_state, trace),
-                    preempted=torch.zeros_like(placed),
+                    preempted=preempted if R else torch.zeros_like(placed),
                     first_placed=(placed & first_sel)
                     | (forced_fire & first_head))
     return new_state, info

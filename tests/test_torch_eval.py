@@ -295,3 +295,134 @@ def test_random_actions_are_uniform_over_the_legal_set():
         mean, sd = n / k, (n * (1 / k) * (1 - 1 / k)) ** 0.5
         got = counts[r][masks[r]].double()
         assert float((got - mean).abs().max()) <= 5 * sd + 1e-9, (r, got)
+
+
+# ---- the preemptive and graph presets ----------------------------------------
+
+NEW = {
+    # a cycling policy spends up to stall_threshold (12) zero-dt steps
+    # between events: about 1,300 steps for 32 jobs
+    "ppo-mlp-preempt": dict(n_nodes=4, gpus_per_node=4, window_jobs=32,
+                            queue_len=4, horizon=2048),
+    "gnn-gang-place": dict(n_nodes=8, gpus_per_node=4, window_jobs=32,
+                           queue_len=4, horizon=256),
+}
+GUARD_E = 4
+F32_TOL = 1e-5    # f32 logits agree this closely (tests/test_torch_gnn.py)
+
+
+def _new_pair(name):
+    """The preset's small windows and one JAX-initialised f32 policy in
+    both packages, the policy heads scaled by 100 (as in
+    ``tests/test_torch_models.py``). The preemptive policy is also made
+    to cycle: a bias of +20 on preempting running slot 0 and +10 on
+    placing queue slot 0 make place<->preempt its argmax whenever both
+    are legal, so the stall guard has to engage."""
+    from rlgpuschedule_tpu.env.obs import build_adjacency as jadj
+    from rlgpuschedule_tpu.serve.fleet import fleet_windows as jfleet
+    from rlgpuschedule_tpu_torch.experiment import build_env_params as \
+        texp_build_env_params
+    from rlgpuschedule_tpu_torch.experiment import build_policy
+    from rlgpuschedule_tpu_torch.serve.fleet import fleet_windows
+    cfg_j = dataclasses.replace(jconfigs.CONFIGS[name], **NEW[name])
+    cfg_t = dataclasses.replace(tconfigs.CONFIGS[name], **NEW[name])
+    _, jtraces = jfleet(cfg_j, GUARD_E)
+    _, ttraces = fleet_windows(cfg_t, GUARD_E, device="cpu")
+    jp = jexp.build_env_params(cfg_j)
+    _, ts0 = jax.jit(lambda tr: jenv.vec_reset(jp, tr))(jtraces)
+    net = jmake_policy(cfg_j.obs_kind, jp.n_actions,
+                       n_cluster_nodes=cfg_j.n_nodes,
+                       queue_len=cfg_j.queue_len,
+                       n_placements=cfg_j.n_placements,
+                       preempt_len=cfg_j.preempt_len, dtype=jnp.float32)
+    if cfg_j.obs_kind == "graph":
+        adj = jnp.asarray(jadj(cfg_j.n_nodes, cfg_j.queue_len,
+                               cfg_j.nodes_per_rack, cfg_j.preempt_len))
+        apply_fn = lambda p, o, m: net.apply(p, o, adj, m)
+        init = jax.jit(lambda k, o, m: net.init(k, o, adj, m))
+    else:
+        apply_fn = lambda p, o, m: net.apply(p, o, m)
+        init = jax.jit(net.init)
+    params = jax.device_get(init(jax.random.PRNGKey(0), ts0.obs,
+                                 ts0.action_mask))
+    tree = params["params"]
+    for h in ("policy", "slot_policy", "preempt_policy", "noop_policy"):
+        if h in tree:
+            tree[h]["kernel"] = np.asarray(tree[h]["kernel"]) * 100.0
+    if cfg_j.preempt_len:
+        kp = cfg_j.queue_len * cfg_j.n_placements
+        bias = np.array(tree["policy"]["bias"])
+        bias[kp], bias[0] = 20.0, 10.0
+        tree["policy"]["bias"] = bias
+    tp = texp_build_env_params(cfg_t)
+    policy = build_policy(cfg_t, tp, dtype=torch.float32, device="cpu")
+    policy.load_state_dict(params_from_jax(params))
+    return (apply_fn, params, jp, jtraces), (policy, tp, ttraces)
+
+
+def _job_jcts(finish, submit, valid):
+    finish = np.asarray(finish, np.float64)
+    done = np.asarray(valid) & np.isfinite(finish)
+    return np.where(done, finish - np.asarray(submit, np.float64), np.nan)
+
+
+@pytest.mark.parametrize("name", sorted(NEW))
+def test_guarded_greedy_replay_matches_jax_job_for_job(name):
+    """Greedy replay with the stall guard on, f32, the same weights: per
+    cluster ``steps`` and ``n_done`` equal and every per-job JCT equal
+    to JAX's. The port's top-two logit margin is checked at every step a
+    cluster takes: where it exceeds twice the f32 logit tolerance the
+    two packages cannot choose differently. A cluster with a narrower
+    margin somewhere is compared no further (the margin rule of
+    ``tests/test_torch_replay.py``); at least half must run in step to
+    the end. On the preemptive preset the guard must have engaged and
+    every job must finish."""
+    (apply_fn, params, jp, jtraces), (policy, tp, ttraces) = _new_pair(name)
+    max_steps = 2048
+    jres, jstate = jeval.replay(apply_fn, params, jp, jtraces, max_steps,
+                                return_states=True, stall_guard=True)
+    tres, tstate, rec = teval.replay(policy, tp, ttraces, max_steps,
+                                     record=True, return_states=True)
+    steps = tres.steps.numpy()
+    margin = rec.margin.numpy()
+    clear = [e for e in range(GUARD_E)
+             if (margin[:steps[e], e] > 2 * F32_TOL).all()]
+    assert len(clear) >= GUARD_E // 2, f"only clusters {clear} clear"
+    for k in ("steps", "n_done", "n_valid"):
+        np.testing.assert_array_equal(np.asarray(getattr(jres, k))[clear],
+                                      getattr(tres, k).numpy()[clear],
+                                      err_msg=k)
+    want = _job_jcts(jstate.sim.finish, jtraces.submit, jtraces.valid)
+    got = _job_jcts(tstate.sim.finish.numpy(), ttraces.submit.numpy(),
+                    ttraces.valid.numpy())
+    np.testing.assert_array_equal(got[clear], want[clear])
+    assert (tres.n_done == tres.n_valid).all()
+    if tp.sim.preempt_len:
+        assert int(rec.gated.sum()) > 0, "the stall guard never engaged"
+        # unguarded, the first place<->preempt cycle never ends
+        unguarded = teval.replay(policy, tp, ttraces, 512,
+                                 stall_guard=False)
+        assert int(unguarded.n_done.sum()) < int(unguarded.n_valid.sum())
+    else:
+        assert not rec.gated.any()
+
+
+def test_jct_report_records_the_stall_guard_where_it_can_engage():
+    """``stall_guard`` is in the report of a preemptive config (guarded
+    and unguarded rows come from different schedulers) and absent
+    elsewhere, as in JAX."""
+    cut = dict(n_envs=2, n_nodes=4, gpus_per_node=4, window_jobs=12,
+               queue_len=4, horizon=96)
+    got = {}
+    for name in ("ppo-mlp-preempt", "ppo-mlp-synth64"):
+        cfg = dataclasses.replace(tconfigs.CONFIGS[name], **cut)
+        exp = Experiment.build(cfg, device="cpu")
+        for guard in (True, False):
+            got[name, guard] = teval.jct_report(
+                exp, include_random=False, baselines=("fifo",),
+                stall_guard=guard)
+    assert got["ppo-mlp-preempt", True]["stall_guard"] is True
+    assert got["ppo-mlp-preempt", False]["stall_guard"] is False
+    assert "stall_guard" not in got["ppo-mlp-synth64", True]
+    assert got["ppo-mlp-synth64", True]["policy"] == \
+        got["ppo-mlp-synth64", False]["policy"]

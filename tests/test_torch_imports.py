@@ -69,6 +69,35 @@ def test_importing_the_evaluation_path_leaves_jax_out():
                      "native", "traces.philly", "traces.pai"))
 
 
+def test_importing_the_preemptive_and_graph_path_leaves_jax_out():
+    _leaves_jax_out(("decision", "sim.core", "env.obs", "env.rewards",
+                     "models.actor_critic", "models.encoders",
+                     "models.convert", "serve.engine"))
+
+
+def test_the_preemptive_and_graph_slice_has_its_pieces():
+    """The modules this slice extends carry the pieces it ports, each
+    defined in the port itself (not re-exported from elsewhere)."""
+    import importlib
+    sys.path.insert(0, ROOT)
+    try:
+        for mod, names in {
+                "sim.core": ("spread_placement", "placement", "preempt",
+                             "running_queue", "attained_service"),
+                "env.obs": ("run_features", "build_adjacency",
+                            "graph_obs"),
+                "env.rewards": ("preempt_charge",),
+                "models.encoders": ("GNNEncoder",),
+                "models.actor_critic": ("GNNActorCritic",),
+                "decision": ("preempt_slice", "stall_threshold",
+                             "gate_stalled")}.items():
+            m = importlib.import_module(f"rlgpuschedule_tpu_torch.{mod}")
+            for n in names:
+                assert getattr(m, n).__module__ == m.__name__, (mod, n)
+    finally:
+        sys.path.remove(ROOT)
+
+
 def test_the_evaluation_slice_has_its_files():
     names = {os.path.relpath(p, ROOT) for p in _port_files()}
     for f in ("evaluate.py", "cli.py", "eval.py", "sim/oracle.py",

@@ -119,9 +119,10 @@ def test_init_draws_from_the_flax_distributions(key):
 
 def test_convert_refuses_unmapped_leaves():
     _, params, _, _, _ = _pair("flat", jnp.float32, torch.float32)
+    # the hierarchical actor-critic's router head has no port counterpart
     params = {"params": dict(params["params"],
-                             slot_policy={"kernel": np.zeros((4, 1))})}
-    with pytest.raises(ValueError, match="slot_policy"):
+                             top_policy={"kernel": np.zeros((4, 1))})}
+    with pytest.raises(ValueError, match="top_policy"):
         params_from_jax(params)
 
 

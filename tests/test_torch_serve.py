@@ -209,8 +209,30 @@ def test_serve_cli_refuses_what_the_slice_lacks():
               "--fleet-regime", "storm"])
     assert p.returncode != 0 and "NotImplementedError" in p.stderr
     p = _run(["-m", "rlgpuschedule_tpu_torch.serve", "--config",
-              "gnn-gang-place", "--fleet", "2", "--device", "cpu"])
+              "hier-pbt-member", "--fleet", "2", "--device", "cpu"])
     assert p.returncode != 0 and "NotImplementedError" in p.stderr
+    assert "hier-pbt-member" in p.stderr
+
+
+@pytest.mark.parametrize("name", ["gnn-gang-place", "ppo-mlp-preempt"])
+def test_serve_cli_serves_the_new_presets_on_the_cpu(name):
+    """``serve --fleet 2`` of each new preset: the report equals a
+    library ``fleet_replay`` of the same seeded policy (the preemptive
+    one with the stall guard on)."""
+    from rlgpuschedule_tpu_torch.configs import CONFIGS
+    from rlgpuschedule_tpu_torch.experiment import (build_env_params,
+                                                    build_policy)
+    p = _run(["-m", "rlgpuschedule_tpu_torch.serve", "--config", name,
+              "--fleet", "2", "--max-steps", "48", "--device", "cpu"])
+    assert p.returncode == 0, p.stderr
+    got = json.loads(p.stdout.strip().splitlines()[-1])
+    assert got["config"] == name
+    cfg = CONFIGS[name]
+    tp = build_env_params(cfg)
+    _, traces = fleet_windows(cfg, 2, device="cpu")
+    want = fleet_replay(build_policy(cfg, tp, device="cpu"), tp, traces,
+                        max_steps=48, device="cpu")
+    assert got["fleet"]["per_cluster"] == want["per_cluster"]
 
 
 def test_chip_smoke_fails_without_a_gpu_and_alone(tmp_path):

@@ -221,13 +221,51 @@ def test_advance_at_philly_clock_does_not_complete_early():
     assert float(out.remaining[0, 0]) == 2.0
 
 
-@pytest.mark.parametrize("name", ["gnn-gang-place", "ppo-mlp-preempt",
-                                  "hier-pbt-member", "a2c-pai-fair"])
+@pytest.mark.parametrize("name", ["hier-pbt-member", "a2c-pai-fair"])
 def test_configs_outside_the_slice_are_refused(name):
     from rlgpuschedule_tpu_torch.configs import CONFIGS
     from rlgpuschedule_tpu_torch.experiment import build_env_params
     with pytest.raises(NotImplementedError, match=f"{name}.*slice"):
         build_env_params(CONFIGS[name])
+
+
+@pytest.mark.parametrize("name", ["gnn-gang-place", "ppo-mlp-preempt"])
+def test_preemptive_and_graph_presets_build_like_jax(name):
+    """The two presets build at their published widths, with the JAX
+    package's action and observation layout, preempt charge and (for
+    the graph) adjacency."""
+    from rlgpuschedule_tpu.configs import CONFIGS as JCONFIGS
+    from rlgpuschedule_tpu.env.obs import build_adjacency
+    from rlgpuschedule_tpu.experiment import build_env_params as jbuild
+    from rlgpuschedule_tpu_torch.configs import CONFIGS
+    from rlgpuschedule_tpu_torch.experiment import (build_env_params,
+                                                    build_policy)
+    cfg, ref = CONFIGS[name], JCONFIGS[name]
+    for f in ("n_nodes", "gpus_per_node", "queue_len", "n_placements",
+              "preempt_len", "obs_kind", "window_jobs", "nodes_per_rack",
+              "preempt_cost", "horizon", "n_envs"):
+        assert getattr(cfg, f) == getattr(ref, f), f
+    tp, jp = build_env_params(cfg), jbuild(ref)
+    assert tp.n_actions == jp.n_actions and tp.obs_shape() == jp.obs_shape()
+    assert (tp.preempt_cost, tp.sim) == (jp.preempt_cost, tcore.SimParams(
+        **dataclasses.asdict(jp.sim)))
+    net = build_policy(cfg, tp, device="cpu")
+    if cfg.obs_kind == "graph":
+        adj = build_adjacency(cfg.n_nodes, cfg.queue_len,
+                              cfg.nodes_per_rack,
+                              cfg.preempt_len).astype(np.float32)
+        a_norm = adj / np.maximum(adj.sum(-1, keepdims=True), 1.0)
+        # held in the trunk dtype, rounded once from f32 as Flax rounds it
+        assert torch.equal(net.a_norm,
+                           torch.from_numpy(a_norm).to(net.a_norm.dtype))
+    from rlgpuschedule_tpu_torch.serve.fleet import fleet_windows
+    _, traces = fleet_windows(cfg, 2, device="cpu")
+    _, ts = tenv.reset(tp, traces)
+    assert tuple(ts.obs.shape) == (2,) + tp.obs_shape()
+    with torch.no_grad():
+        logits, value = net(ts.obs, ts.action_mask)
+    assert tuple(logits.shape) == (2, tp.n_actions)
+    assert torch.isfinite(value).all()
 
 
 def test_trace_upload_defaults_to_cuda_and_refuses_without_it():

@@ -83,6 +83,7 @@ class World:
     def __init__(self, kind, dtype="float32"):
         self.kind = kind
         self.dtype = dtype
+        self.shape, self.n_actions = SHAPES[kind], A
         self.cfg = jppo.PPOConfig(**GEOMETRY)
         self.net = jmake_policy(kind, A, dtype=getattr(jnp, dtype))
         self.apply_fn = lambda p, o, m: self.net.apply(p, o, m)
@@ -98,6 +99,62 @@ class World:
         self.learn = jax.jit(jppo.make_learn_step(self.apply_fn, self.cfg))
         self.apply = jax.jit(self.net.apply)
 
+    def torch_net(self):
+        return make_policy(self.kind, A, SHAPES[self.kind],
+                           dtype=getattr(torch, self.dtype), device="cpu")
+
+
+class PresetWorld(World):
+    """The JAX side of a preset's policy at this module's small cluster:
+    ``ppo-mlp-preempt`` (flat, R = 2 preempt slots) or
+    ``gnn-gang-place`` (the GNN over a racked topology, P = 2). f32."""
+
+    R = 2
+
+    def __init__(self, name):
+        from rlgpuschedule_tpu.env.obs import build_adjacency as jadj
+        from rlgpuschedule_tpu_torch.env.obs import build_adjacency
+        self.kind, self.dtype = name, "float32"
+        self.cfg = jppo.PPOConfig(**GEOMETRY)
+        self.adj = None
+        if name == "gnn-gang-place":
+            self.P, self.Rs = 2, 0
+            self.shape = (N + K, 5)
+            self.adj = build_adjacency(N, K, 2)
+            self.n_actions = K * self.P + 1
+            self.net = jmake_policy("graph", self.n_actions,
+                                    n_cluster_nodes=N, queue_len=K,
+                                    n_placements=self.P,
+                                    dtype=jnp.float32)
+            adj = jnp.asarray(jadj(N, K, 2))
+            self.apply_fn = lambda p, o, m: self.net.apply(p, o, adj, m)
+            init = jax.jit(lambda k, o, m: self.net.init(k, o, adj, m))
+        else:
+            self.P, self.Rs = 1, self.R
+            self.shape = (N + 4 * K + 4 * self.R + 2,)
+            self.n_actions = K + self.R + 1
+            self.net = jmake_policy("flat", self.n_actions,
+                                    dtype=jnp.float32)
+            self.apply_fn = lambda p, o, m: self.net.apply(p, o, m)
+            init = jax.jit(self.net.init)
+        ex_obs = np.zeros((1,) + self.shape, np.float32)
+        ex_mask = np.ones((1, self.n_actions), bool)
+        self.state = TrainState.create(
+            apply_fn=self.apply_fn,
+            params=init(jax.random.PRNGKey(0), ex_obs, ex_mask),
+            tx=jppo.make_optimizer(self.cfg))
+        self.learn = jax.jit(jppo.make_learn_step(self.apply_fn, self.cfg))
+        self.apply = jax.jit(self.apply_fn)
+
+    def torch_net(self):
+        kw = {}
+        if self.adj is not None:
+            kw = dict(adjacency=self.adj, n_cluster_nodes=N, queue_len=K,
+                      n_placements=self.P)
+        return make_policy("graph" if kw else "flat", self.n_actions,
+                           self.shape, dtype=torch.float32, device="cpu",
+                           **kw)
+
 
 @pytest.fixture(scope="module")
 def worlds():
@@ -106,15 +163,16 @@ def worlds():
 
 def _world(worlds, kind, dtype="float32"):
     if (kind, dtype) not in worlds:
-        worlds[kind, dtype] = World(kind, dtype)
+        worlds[kind, dtype] = (World(kind, dtype) if kind in SHAPES
+                               else PresetWorld(kind))
     return worlds[kind, dtype]
 
 
 def _batch(world, params, rng):
     """A numpy Transition [T, E, ...] with legal actions and behaviour
     log-probs near the policy's (so some ratios clip)."""
-    obs = rng.random((T, E) + SHAPES[world.kind], dtype=np.float32)
-    mask = rng.random((T, E, A)) < 0.6
+    obs = rng.random((T, E) + world.shape, dtype=np.float32)
+    mask = rng.random((T, E, world.n_actions)) < 0.6
     mask[..., -1] = True
     action = np.array([[rng.choice(np.flatnonzero(m)) for m in row]
                        for row in mask], np.int32)
@@ -147,8 +205,7 @@ def _adam(opt_state):
 def _port_state(world, jstate):
     """The port's TrainState carrying a JAX TrainState's weights and
     Adam state."""
-    net = make_policy(world.kind, A, SHAPES[world.kind],
-                      dtype=getattr(torch, world.dtype), device="cpu")
+    net = world.torch_net()
     net.load_state_dict(params_from_jax(jax.device_get(jstate.params)))
     state = tppo.make_train_state(net, tppo.PPOConfig(**GEOMETRY))
     adam = jax.device_get(_adam(jstate.opt_state))
@@ -254,6 +311,30 @@ def test_learn_step_matches_jax_from_a_mid_run_state(
         assert moments["exp_avg_sq"].dtype == torch.float32
 
 
+@pytest.mark.parametrize("name", ["ppo-mlp-preempt", "gnn-gang-place"])
+def test_learn_step_matches_jax_for_the_preemptive_and_graph_presets(
+        worlds, name):
+    """The mid-run learn step of the f32 cases above for the two new
+    presets' policies (the MLP over the preempt block, the GNN with its
+    factored pack|spread heads): parameters within atol 1e-5, metrics
+    within rtol 1e-4 / atol 1e-6, the Adam state carried from JAX."""
+    w = _world(worlds, name)
+    rng = np.random.default_rng(2)
+    tr_a = _batch(w, w.state.params, rng)
+    state1, _ = w.learn(w.state, tr_a, rng.normal(size=E).astype(np.float32),
+                        jax.random.PRNGKey(1))
+    tr_b = _batch(w, state1.params, rng)
+    last = rng.normal(size=E).astype(np.float32)
+    key = jax.random.PRNGKey(2)
+    state2, jm = w.learn(state1, tr_b, last, key)
+    state = _port_state(w, state1)
+    learn = tppo.make_learn_step(tppo.PPOConfig(**GEOMETRY))
+    state, m = learn(state, _to_torch(tr_b), torch.tensor(last),
+                     perms=_jax_perms(key, 4, T * E))
+    assert 0.0 < float(m.clip_frac) < 1.0
+    _assert_learned_alike(w, state2, jm, state, m)
+
+
 def _integer_windows():
     out = []
     for s in range(E):
@@ -335,6 +416,23 @@ def test_experiment_trains_and_logs_finite_metrics(name):
     assert any(not torch.equal(a, b.detach())
                for a, b in zip(before, exp.net.parameters()))
     assert exp.carry.obs.shape[0] == 2
+
+
+@pytest.mark.parametrize("obs_kind", ["flat", "grid", "graph"])
+def test_preemptive_action_space_trains_for_every_encoder(obs_kind):
+    """``tests/test_experiment.py``'s case: ``ppo-mlp-preempt`` trains
+    with each encoder family over the ``[K*P][R][no-op]`` layout (the
+    graph one with pack|spread)."""
+    cfg = dataclasses.replace(
+        _cut("ppo-mlp-preempt"), obs_kind=obs_kind, n_nodes=4,
+        gpus_per_node=4, window_jobs=16, queue_len=4,
+        n_placements=2 if obs_kind == "graph" else 1)
+    exp = Experiment.build(cfg, device="cpu")
+    assert exp.env_params.n_actions == \
+        cfg.queue_len * cfg.n_placements + cfg.preempt_len + 1
+    assert exp.carry.mask.shape[-1] == exp.env_params.n_actions
+    out = exp.run(2, log_every=1)
+    assert all(math.isfinite(v) for h in out["history"] for v in h.values())
 
 
 def test_train_cli_prints_finite_metrics_on_the_cpu():
@@ -453,7 +551,7 @@ def test_train_eval_probe_holds_out_seed_plus_1000():
       os.path.join(ROOT, "tests", "fixtures", "philly_small.csv"),
       "--source-jobs", "10"], "silent no-op"),
     (["--source-jobs", "0"], "must be positive"),
-    (["--obs-kind", "graph"], "config-4 slice"),
+    (["--config", "nope"], "unknown config"),
 ])
 def test_train_cli_refuses_what_jax_refuses(argv, match):
     with pytest.raises(SystemExit, match=match):
@@ -521,6 +619,9 @@ def test_evaluate_cli_gate_and_windows_match_the_library(capsys):
     (["--baselines-only", "--eval-windows", "2"], "--eval-windows"),
     (["--baselines-only", "--backlog-gate", "2"], "--backlog-gate"),
     (["--config", "nope"], "unknown config"),
+    (["--no-stall-guard"], "PREEMPTIVE|preemptive"),
+    (["--config", "ppo-mlp-preempt", "--baselines-only",
+      "--no-stall-guard"], "preemptive"),
 ])
 def test_evaluate_cli_refuses_what_jax_refuses(argv, match):
     with pytest.raises(SystemExit, match=match):
@@ -531,7 +632,7 @@ def test_evaluate_cli_refuses_what_jax_refuses(argv, match):
 def test_evaluate_cli_refuses_unported_flags_with_the_slice_named(flag):
     with pytest.raises(SystemExit,
                        match=r"waits for .*ROADMAP.md queue 1, "
-                             r"(item \d+|next 2)"):
+                             r"(item \d+|next [23])"):
         tevaluate.main([flag, "x", "--device", "cpu"])
 
 
@@ -562,3 +663,46 @@ def test_evaluate_cli_runs_as_a_module():
     (line,) = _json_lines(p.stdout)
     assert math.isfinite(line["policy"]) and 0 < line["policy_completion"]
     assert "tiresias" in p.stderr
+
+
+# the two new presets cut as TINY cuts config 1
+TINY_NEW = ["--n-nodes", "4", "--gpus-per-node", "4", "--window-jobs", "12",
+            "--queue-len", "4", "--horizon", "96", "--device", "cpu"]
+
+
+@pytest.mark.parametrize("name", ["ppo-mlp-preempt", "gnn-gang-place"])
+def test_train_cli_trains_and_probes_the_new_presets(name, capsys):
+    """Training of each new preset through the CLI, with the
+    ``--eval-every`` probe (which replays with the stall guard on, as
+    JAX's does) and the ``--report`` table."""
+    summary = ttrain.main(["--config", name] + TINY_NEW + [
+        "--n-envs", "2", "--n-steps", "8", "--n-epochs", "1",
+        "--n-minibatches", "2", "--iterations", "2", "--log-every", "1",
+        "--eval-every", "2", "--report"])
+    lines = _json_lines(capsys.readouterr().out)
+    rows = [r for r in lines if "total_loss" in r]
+    assert [r["iteration"] for r in rows] == [0, 1]
+    assert all(math.isfinite(r["total_loss"]) for r in rows)
+    assert math.isfinite(summary["eval_history"][0]["eval_avg_jct"])
+    rep = summary["jct_report"]
+    assert math.isfinite(rep["policy"]) and rep["policy_completion"] > 0
+    assert rep.get("stall_guard") is (True if name == "ppo-mlp-preempt"
+                                      else None)
+
+
+def test_train_cli_takes_the_graph_observation_for_any_preset(capsys):
+    summary = ttrain.main(TINY_TRAIN + ["--obs-kind", "graph",
+                                        "--iterations", "1"])
+    assert summary["env_steps"] == 16 and summary["env_steps_per_sec"] > 0
+
+
+def test_evaluate_cli_stall_guard_flags_on_a_preemptive_config(capsys):
+    """The stall guard is on by default; ``--no-stall-guard`` replays the
+    raw argmax, and the JSON line says which ran."""
+    argv = ["--config", "ppo-mlp-preempt"] + TINY_NEW + [
+        "--eval-windows", "2", "--no-random"]
+    on = tevaluate.main(argv)
+    off = tevaluate.main(argv + ["--no-stall-guard"])
+    lines = _json_lines(capsys.readouterr().out)
+    assert [x["stall_guard"] for x in lines] == [True, False]
+    assert on["stall_guard"] is True and off["stall_guard"] is False
