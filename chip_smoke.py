@@ -22,7 +22,8 @@ imports nothing of JAX. Phases, each fatal on failure:
    ``n_done`` exactly and on ``avg_jct`` within rtol 1e-6 (an f32 sum
    over the window, whose order differs between the devices).
 4. Requests: a pool of (obs, mask) rows the greedy policy reaches on
-   the config-2 env goes through ``InferenceEngine`` after a warmup up
+   the config-2 env goes through ``InferenceEngine`` (the eager
+   decision, ``eager=True``) after a warmup up
    to bucket 256; three request sizes in each of two buckets. Served
    actions must equal ``policy_decision`` on the same rows (padded to
    the bucket: exactly; unpadded: up to the phase-3 margin rule). Prints
@@ -107,6 +108,33 @@ imports nothing of JAX. Phases, each fatal on failure:
     ``stall_guard`` recorded for ``ppo-mlp-preempt``); and the
     ``evaluate`` CLI for ``gnn-gang-place`` in a subprocess.
 
+13. The continuous-batching policy server of config 2 at full width
+    (bf16, seeded weights) on one CUDA graph per bucket, the request
+    pool phase 4's (64 clusters, 5 steps), each check fatal: (1)
+    ``InferenceEngine(max_bucket=256)`` warms buckets 1-256 with 9
+    captures and 0 recompiles; (2) for phase 4's sizes the replayed
+    actions equal eager ``policy_decision`` on the same padded batch,
+    except rows whose top-two margin is below 1e-4 (their count
+    printed), with the graph's ``decide`` p50/p99 at buckets 16 and 256
+    beside phase 4's eager figures; (3) ``run_bench`` over sizes 5, 7,
+    8, 100, 129, 200, 256 for 48 rounds, 0 recompiles and 0 dispatch
+    errors, p50/p99 and decisions/s printed; (4) the sync guard: a
+    steady-state copy-in and replay under it raises nothing, a
+    deliberate ``.item()`` raises; (5) other seeded weights swapped in
+    and ``rewarm()``: 0 captures, actions equal eager on the new
+    weights; swapped back, step 2's actions bit for bit; (6)
+    ``ppo-mlp-preempt``'s engine with ``env_params``: the graph with the
+    stall vector equals eager ``gate_stalled`` + ``policy_decision``;
+    (7) an 8 s soak at 2,000 requests/s through the dispatcher thread,
+    50 ms deadlines: every request served or shed (the registry's
+    counts agree), 0 recompiles, 0 dispatch errors, shed rate, p99 per
+    half, drift and the rate achieved printed (steps 3 and 7 also print
+    the garbage collector's full collections and longest pause);
+    (8) ``run_host_path``
+    (bucket 256, 300 rounds): the arena arm allocates nothing; (9)
+    ``python -m rlgpuschedule_tpu_torch.serve --config ppo-cnn-philly512
+    --bench --bucket 256`` exits 0 with 0 post-warmup recompiles.
+
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it is the card's name and power limit. Without a CUDA device, or
 without the ``rlgpuschedule_tpu_torch`` package beside it, the script
@@ -144,6 +172,10 @@ FEED_CLUSTERS, FEED_STEPS = 64, 128
 # event: 32-job windows (half the preset's) finish in about 2,000 steps
 CYCLE_CLUSTERS, CYCLE_JOBS, CYCLE_STEPS, UNGUARDED_STEPS = 16, 32, 4096, 128
 NEW_EVAL_WINDOWS = 16
+SERVE_SIZES = (5, 7, 8, 100, 129, 200, 256)   # phase 13's bench
+SERVE_ROUNDS = 48
+SOAK_S, SOAK_RATE, SOAK_DEADLINE_S = 8.0, 2000.0, 0.05
+HOST_ROUNDS = 300
 ROWS = ("policy", "random", "fifo", "sjf", "srtf", "tiresias")
 BASELINES = ("fifo", "sjf", "srtf", "tiresias")
 
@@ -328,7 +360,10 @@ def request_phase(torch, env_params, traces, policy, dev):
     obs = np.concatenate(rows_obs)
     mask = np.concatenate(rows_mask)
 
-    engine = InferenceEngine(policy, max_bucket=256, device=dev)
+    # the eager decision on the card (the plain version phase 13's CUDA
+    # graphs are held against)
+    engine = InferenceEngine(policy, max_bucket=256, device=dev,
+                             eager=True)
     warmed = engine.warmup(obs[0], mask[0])
     latency, loose = {}, 0
     for bucket, sizes in BUCKETS.items():
@@ -368,6 +403,7 @@ def request_phase(torch, env_params, traces, policy, dev):
     _line("requests", pool_rows=int(obs.shape[0]), warmed=list(warmed),
           dtype="bfloat16", decide_latency=latency,
           unpadded_mismatches_below_margin=loose)
+    return latency
 
 
 def _sync(torch):
@@ -1172,6 +1208,292 @@ def preset_train_eval_phase(torch, dev):
         raise SystemExit(f"evaluate CLI (gnn-gang-place): {line}")
 
 
+def _against_eager(torch, engine, obs, mask, stall=None, gate=None):
+    """``engine.decide`` on one request batch against the eager rule on
+    the same padded batch (with ``stall``, gated by ``gate`` = (stall
+    threshold, device preempt slice)): the served actions, the rows that
+    differ and the rows whose top-two margin is below ``MARGIN``. A
+    differing row above the margin is fatal: replaying inside a graph
+    may let cuBLAS pick other algorithms than it does eagerly, so
+    bit-identity is not the rule."""
+    import numpy as np
+
+    from rlgpuschedule_tpu_torch.decision import gate_stalled, greedy_actions
+    from rlgpuschedule_tpu_torch.serve import pad_batch
+
+    n = obs.shape[0]
+    got, b = engine.decide(obs, mask, stall)
+    dev = engine.device
+    with torch.no_grad():
+        o = torch.from_numpy(pad_batch(obs, b)).to(dev)
+        m = torch.from_numpy(pad_batch(mask, b, True)).to(dev)
+        if stall is not None:
+            st = torch.from_numpy(pad_batch(stall.astype(np.int32), b))
+            m = gate_stalled(m, st.to(dev), *gate)
+        logits, _ = engine.policy(o, m)
+        want = greedy_actions(logits).cpu().numpy()[:n]
+        top2 = torch.topk(logits.float(), 2, -1).values.cpu().numpy()[:n]
+    margin = top2[:, 0] - top2[:, 1]
+    off = got != want
+    if (off & (margin >= MARGIN)).any():
+        raise SystemExit(f"{n} requests (bucket {b}): the graph's actions "
+                         f"differ from eager at a margin >= {MARGIN}")
+    return got, int(off.sum()), int((margin < MARGIN).sum())
+
+
+class _GcPauses:
+    """Garbage-collector pauses inside a ``with`` block: the count of
+    full (generation-2) collections and the longest pause of any
+    generation, from ``gc.callbacks``."""
+
+    def __enter__(self):
+        import gc
+        self.full, self.max_s, self._t0 = 0, 0.0, 0.0
+
+        def cb(phase, info):
+            if phase == "start":
+                self._t0 = time.perf_counter()
+                return
+            self.max_s = max(self.max_s, time.perf_counter() - self._t0)
+            self.full += info["generation"] == 2
+        self._cb = cb
+        gc.callbacks.append(cb)
+        return self
+
+    def __exit__(self, *exc):
+        import gc
+        gc.callbacks.remove(self._cb)
+
+    def fields(self) -> dict:
+        return {"gc_full_collections": self.full,
+                "gc_max_pause_ms": self.max_s * 1e3}
+
+
+def policy_server_phase(torch, dev, eager_latency):
+    """Phase 13: the continuous-batching policy server on per-bucket CUDA
+    graphs."""
+    import numpy as np
+
+    from rlgpuschedule_tpu_torch.analysis.sentinels import (
+        CompileCounter, no_implicit_transfers)
+    from rlgpuschedule_tpu_torch.configs import CONFIGS
+    from rlgpuschedule_tpu_torch.decision import (preempt_slice,
+                                                  stall_threshold)
+    from rlgpuschedule_tpu_torch.experiment import (build_env_params,
+                                                    build_policy)
+    from rlgpuschedule_tpu_torch.obs import Registry
+    from rlgpuschedule_tpu_torch.serve import (InferenceEngine,
+                                               PolicyServer,
+                                               build_request_pool,
+                                               run_bench, run_host_path,
+                                               run_soak)
+    from rlgpuschedule_tpu_torch.serve.fleet import fleet_windows
+
+    cfg = CONFIGS[CONFIG]
+    env_params = build_env_params(cfg)
+    policy = build_policy(cfg, env_params, device=dev)
+    _, traces = fleet_windows(cfg, N_CLUSTERS, device=dev)
+    sub = type(traces)(*(x[:64] for x in traces))
+    pool = build_request_pool(policy, env_params, sub, steps=4)
+    del traces, sub
+    obs = np.stack([o for o, _ in pool])
+    mask = np.stack([m for _, m in pool])
+
+    # (1) one capture per bucket
+    reg = Registry()
+    engine = InferenceEngine(policy, max_bucket=256, device=dev,
+                             registry=reg, strict=True)
+    t0 = _sync(torch)
+    with CompileCounter() as c:
+        warmed = engine.warmup(obs[0], mask[0])
+    capture_s = _sync(torch) - t0
+    compiles = reg.counter("serve_bucket_compiles_total").value
+    _line("serve_capture", graphs=engine.graphs, warmed=list(warmed),
+          captures=c.captures, builds=c.builds, compiles_total=compiles,
+          recompiles=engine.post_warmup_recompiles, wall_s=capture_s)
+    if not (engine.graphs and c.captures == 9 and c.builds == 0
+            and compiles == 9 and engine.post_warmup_recompiles == 0):
+        raise SystemExit("warmup to bucket 256 must capture 9 graphs and "
+                         "raise no recompile alarm")
+
+    # (2) graph against eager, and the graph's decide latency
+    served, differ, below, latency = {}, 0, 0, {}
+    for bucket, sizes in BUCKETS.items():
+        lat = []
+        for n in sizes:
+            rows = np.arange(n) * 7 % obs.shape[0]
+            served[n], d, lo = _against_eager(torch, engine, obs[rows],
+                                              mask[rows])
+            differ, below = differ + d, below + lo
+            for _ in range(LATENCY_REPS):
+                t0 = time.perf_counter()
+                engine.decide(obs[rows], mask[rows])
+                lat.append((time.perf_counter() - t0) * 1e3)
+        latency[str(bucket)] = {
+            "graph_p50_ms": float(np.percentile(lat, 50)),
+            "graph_p99_ms": float(np.percentile(lat, 99)),
+            "eager_p50_ms": eager_latency[str(bucket)]["p50_ms"],
+            "eager_p99_ms": eager_latency[str(bucket)]["p99_ms"]}
+    _line("serve_graph_vs_eager", sizes=sorted(served),
+          rows_differing_below_margin=differ, rows_below_margin=below,
+          decide_latency=latency)
+
+    # (3) the bench through the server
+    server = PolicyServer(engine, registry=reg)
+    with _GcPauses() as gcp:
+        rep = run_bench(engine, server, pool, rounds=SERVE_ROUNDS,
+                        request_sizes=SERVE_SIZES)
+    errors = reg.counter("serve_dispatch_errors_total").value
+    latency_max_ms = max(server._latencies) * 1e3
+    server.close()
+    _line("serve_bench", **gcp.fields(), latency_max_ms=latency_max_ms,
+          requests=rep["requests"],
+          dispatches=rep["dispatches"], buckets=rep["buckets"],
+          latency_p50_ms=rep["latency_p50_ms"],
+          latency_p99_ms=rep["latency_p99_ms"],
+          decisions_per_s=rep["decisions_per_s"],
+          batch_occupancy_mean=rep["batch_occupancy_mean"],
+          post_warmup_recompiles=rep["post_warmup_recompiles"],
+          dispatch_errors=errors, graphs=rep["graphs"])
+    if rep["post_warmup_recompiles"] or errors:
+        raise SystemExit(f"serve bench: {rep['post_warmup_recompiles']} "
+                         f"recompiles, {errors} dispatch errors")
+
+    # (4) the sync guard is live around a steady-state dispatch
+    prog = next(p for k, p in engine._programs.items() if k[0] == 16)
+    with no_implicit_transfers(dev):
+        for d, h in zip(prog.inputs, prog.staging):
+            d.copy_(h, non_blocking=True)
+        prog.graph.replay()
+    torch.cuda.synchronize()
+    try:
+        with no_implicit_transfers(dev):
+            torch.ones(1, device=dev).sum().item()
+    except RuntimeError as e:
+        tripped = str(e).splitlines()[0]
+    else:
+        raise SystemExit("a .item() under the sync guard did not raise")
+    _line("serve_sync_guard", steady_dispatch="ok", deliberate_item=tripped,
+          mode_after=torch.cuda.get_sync_debug_mode())
+    if torch.cuda.get_sync_debug_mode() != 0:
+        raise SystemExit("the sync guard left its mode on")
+
+    # (5) swap in other seeded weights, re-warm, swap back
+    orig = {k: v.clone() for k, v in policy.state_dict().items()}
+    other = build_policy(dataclasses.replace(cfg, seed=cfg.seed + 1),
+                         env_params, device=dev).state_dict()
+    changed, differ = 0, 0
+    with CompileCounter() as c:
+        engine.set_params(other)
+        engine.rewarm()
+        for n in served:
+            rows = np.arange(n) * 7 % obs.shape[0]
+            got, d, _ = _against_eager(torch, engine, obs[rows], mask[rows])
+            changed += int((got != served[n]).sum())
+            differ += d
+        engine.set_params(orig)
+        engine.rewarm()
+        back = all(np.array_equal(
+            engine.decide(obs[np.arange(n) * 7 % obs.shape[0]],
+                          mask[np.arange(n) * 7 % obs.shape[0]])[0],
+            served[n]) for n in served)
+    _line("serve_swap", captures=c.total, actions_changed=changed,
+          rows_differing_below_margin=differ, restored_bit_for_bit=back,
+          recompiles=engine.post_warmup_recompiles)
+    if c.total or not back or engine.post_warmup_recompiles:
+        raise SystemExit("weight swap: the re-warm captured, raised an "
+                         "alarm, or swapping back changed an action")
+
+    # (6) the preemptive preset's graph with the stall vector
+    pcfg = CONFIGS["ppo-mlp-preempt"]
+    pparams = build_env_params(pcfg)
+    ppolicy = build_policy(pcfg, pparams, device=dev)
+    _, ptraces = fleet_windows(pcfg, 64, device=dev)
+    ppool = build_request_pool(ppolicy, pparams, ptraces, steps=4)
+    pobs = np.stack([o for o, _ in ppool])
+    pmask = np.stack([m for _, m in ppool])
+    pengine = InferenceEngine(ppolicy, max_bucket=256, device=dev,
+                              env_params=pparams, strict=True)
+    pengine.warmup(pobs[0], pmask[0])
+    thresh = stall_threshold(pparams)
+    gate = (thresh, preempt_slice(pparams, dev))
+    stall = np.random.default_rng(pcfg.seed).integers(
+        0, 2 * thresh, size=pobs.shape[0]).astype(np.int32)
+    pre = gate[1].cpu().numpy()
+    pdiffer, gated, preempts = 0, 0, 0
+    for sizes in BUCKETS.values():
+        for n in sizes:
+            rows = np.arange(n) * 7 % pobs.shape[0]
+            got, d, _ = _against_eager(torch, pengine, pobs[rows],
+                                       pmask[rows], stall[rows], gate)
+            pdiffer += d
+            stalled = stall[rows] >= thresh
+            gated += int((stalled & pmask[rows][:, pre].any(1)).sum())
+            preempts += int(pre[got].sum())
+            if pre[got[stalled]].any():
+                raise SystemExit("a stalled request was served a preempt")
+    _line("serve_preempt_graph", config=pcfg.name,
+          rows_differing_below_margin=pdiffer, gated_rows=gated,
+          preempt_actions_served=preempts,
+          recompiles=pengine.post_warmup_recompiles)
+    del pengine, ppolicy, ptraces
+
+    # (7) the soak through the dispatcher thread
+    sreg = Registry()
+    server = PolicyServer(engine, registry=sreg)
+    server.start()
+    try:
+        with _GcPauses() as gcp:
+            soak = run_soak(server, pool, duration_s=SOAK_S,
+                            rate_hz=SOAK_RATE, deadline_s=SOAK_DEADLINE_S)
+    finally:
+        server.stop()
+    snap = server.slo_snapshot()
+    submitted = sreg.counter("serve_requests_total").value
+    shed = sreg.counter("serve_shed_total").value
+    errors = sreg.counter("serve_dispatch_errors_total").value
+    _line("serve_soak", **soak, **gcp.fields(),
+          registry_served=snap["requests"],
+          registry_shed=shed, registry_requests=submitted,
+          dispatches=snap["dispatches"],
+          batch_occupancy_mean=snap["batch_occupancy_mean"],
+          dispatch_errors=errors,
+          recompiles=engine.post_warmup_recompiles)
+    if not (soak["served"] + soak["shed"] == soak["requests"] == submitted
+            and snap["requests"] == soak["served"] and shed == soak["shed"]
+            and errors == 0 and engine.post_warmup_recompiles == 0):
+        raise SystemExit("soak: a request was neither served nor shed, or "
+                         "a dispatch failed or recompiled")
+    server.close()
+
+    # (8) the host path: stub engine, both data planes
+    hp = run_host_path(pool, max_bucket=256, rounds=HOST_ROUNDS)
+    legacy, arena = hp["arms"]
+    _line("serve_host_path", bucket=hp["bucket"], rounds=hp["rounds"],
+          **{f"{a['data_plane']}_{k}": a[k] for a in hp["arms"]
+             for k in ("decisions_per_s", "alloc_calls",
+                       "steady_state_slab_allocs", "conservation_ok")},
+          speedup=hp["speedup"])
+    if arena["alloc_calls"] or arena["steady_state_slab_allocs"] or not (
+            arena["conservation_ok"] and legacy["conservation_ok"]):
+        raise SystemExit(f"host path: the arena arm allocated {arena}")
+
+    # (9) the serve CLI's bench
+    lines, err, wall = _run_cli(
+        "rlgpuschedule_tpu_torch.serve",
+        ["--config", CONFIG, "--bench", "--bucket", "256"])
+    (line,) = lines
+    b = line["bench"]
+    _line("serve_cli", wall_s=wall, device=line.get("device"),
+          graphs=b["graphs"], request_sizes=b["request_sizes"],
+          latency_p50_ms=b["latency_p50_ms"],
+          latency_p99_ms=b["latency_p99_ms"],
+          decisions_per_s=b["decisions_per_s"],
+          post_warmup_recompiles=b["post_warmup_recompiles"])
+    if b["post_warmup_recompiles"] or not b["graphs"]:
+        raise SystemExit(f"serve CLI bench: {b}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1196,7 +1518,7 @@ def main() -> int:
     policy = fleet_phase(torch, cfg, env_params, traces, "cuda")
     profile_phase(torch, env_params, traces, policy)
     compare_phase(torch, cfg, env_params, windows, "cuda")
-    request_phase(torch, env_params, traces, policy, "cuda")
+    eager_latency = request_phase(torch, env_params, traces, policy, "cuda")
     del policy, traces, windows
 
     def timed(phase, *args):
@@ -1215,6 +1537,7 @@ def main() -> int:
     timed(entry_point_phase)
     timed(action_space_phase)
     timed(preset_train_eval_phase)
+    timed(policy_server_phase, eager_latency)
     _line("done", total_s=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,10 @@ same two entry points as the JAX package's serving layer:
   simulated clusters, the simulator, observation builder and policy all
   on the device at every decision step;
 - :class:`.serve.engine.InferenceEngine` -- the same greedy decision on
-  padded request batches, one power-of-two bucket at a time;
+  padded request batches, one power-of-two bucket at a time (one CUDA
+  graph per bucket on the card), behind the continuous-batching
+  :class:`.serve.batching.PolicyServer` and ``python -m
+  rlgpuschedule_tpu_torch.serve --bench/--soak/--host-path``;
 
 and trains it with PPO through :class:`.experiment.Experiment` and
 ``python -m rlgpuschedule_tpu_torch.train``: rollout, GAE and the

@@ -44,7 +44,7 @@ from .sim.core import validate_trace
 PERCENTILES = (50, 90, 99)
 
 _Q1 = "ROADMAP.md queue 1"
-_FULL_TRACE = f"the full-trace stitched replay ({_Q1}, next 3)"
+_FULL_TRACE = f"the full-trace stitched replay ({_Q1}, item 11)"
 # the JAX CLI's flags that this port does not take, and what they wait for
 UNPORTED_FLAGS: dict[str, str] = {
     **dict.fromkeys(("--ckpt-dir", "--ckpt-step"),
@@ -65,9 +65,8 @@ UNPORTED_FLAGS: dict[str, str] = {
     **dict.fromkeys(("--obs-dir", "--trace-spans", "--alarms"),
                     f"the observability slice ({_Q1}, item 24)"),
     # a no-op switch here: the guard is on unless --no-stall-guard
-    "--stall-guard": f"the PolicyServer slice ({_Q1}, next 2), with the "
-                     f"JAX signatures' other stall switches; the guard is "
-                     f"on by default",
+    "--stall-guard": f"a caller that needs it ({_Q1}, item 11); the "
+                     f"guard is on by default",
 }
 
 

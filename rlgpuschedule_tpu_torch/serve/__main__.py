@@ -1,75 +1,226 @@
 """Serving CLI of the port: ``python -m rlgpuschedule_tpu_torch.serve``.
 
-``--fleet N`` replays the policy greedily against N seeded simulated
-clusters of the config and prints the fleet report as JSON on stdout.
+Modes, composable in one invocation (at least one is required):
+
+- ``--bench``: a deterministic request stream through the
+  continuous-batching :class:`.batching.PolicyServer` over the
+  :class:`.engine.InferenceEngine` (one CUDA graph per bucket on the
+  card): p50/p99 decision latency, decisions/s, batch occupancy, and the
+  steady-state contract, zero post-warmup recompiles across request
+  sizes (``--request-sizes``, default three sizes inside ``--bucket``).
+- ``--soak SECONDS``: paced load (``--rate``, default 200/s) through the
+  live dispatcher thread, with ``--deadline-ms`` shedding and
+  ``--adaptive-wait``: first-half against second-half p99, shed rate.
+- ``--host-path``: the data-plane bench, a zero-work stub engine
+  isolating submit/coalesce/seal/scatter, legacy plane against arena
+  plane, the arena's steady-state numpy allocations counted (must be 0).
+- ``--fleet N``: greedy replay against N seeded simulated clusters.
+
 The weights come from ``--weights x.npz`` (a Flax parameter tree of the
 JAX package saved flat, see :func:`..models.convert.load_npz`) or, by
-default, from a seeded initialization. The device is ``cuda`` unless
-``--device cpu`` is given.
+default, from a seeded initialization. ``--metrics-port`` exposes the
+live Prometheus scrape endpoint; ``--obs-dir`` writes the event stream
+(``compile`` / ``recompile`` events, with ``--trace-spans`` the request
+spans) and a ``metrics.prom`` snapshot. The device is ``cuda`` unless
+``--device cpu`` is given; the JSON on stdout carries the ``repro``
+block of the config.
 
-``--bench``, ``--soak``, the router, the network front end and the
-flight log of the JAX package's CLI wait for later slices, and so do
-``--fleet-regime`` fault replays.
+Refused with ``NotImplementedError`` naming their ``ROADMAP.md`` item:
+the router (``--engines`` > 1, ``--scaleout``, ``--autoscale``,
+``--chaos-faults``), the network front door (``--frontend-port``,
+``--wire-requests``), the flywheel (``--flight-log``, ``--promote``,
+``--promote-noise``), checkpoints (``--ckpt-dir``) and fault-regime
+fleet replays (``--fleet-regime``).
 
 Example::
 
     python -m rlgpuschedule_tpu_torch.serve --config ppo-cnn-philly512 \\
-        --fleet 512
+        --bench --bucket 256
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import os
 import sys
 
 import torch
 
-from ..configs import CONFIGS
+from ..cli import add_config_flags, check_source_jobs, config_overrides
+from ..configs import CONFIGS, repro_tuple
 from ..device import resolve_device
 from ..experiment import build_env_params, build_policy
 from ..models import load_npz
+from ..obs import EventBus, Registry, Tracer, serve_http
+from ..obs.trace import NULL_TRACER
+from .batching import PolicyServer
+from .bench import build_request_pool, run_bench, run_host_path, run_soak
+from .engine import InferenceEngine
 from .fleet import fleet_replay, fleet_windows
+
+# flags of the JAX package's CLI this slice refuses, and what they wait
+# for
+DEFERRED = {
+    **dict.fromkeys(("scaleout", "autoscale", "chaos_faults"),
+                    "the router slice (ROADMAP.md queue 1, item 22)"),
+    **dict.fromkeys(("frontend_port", "wire_requests"),
+                    "the network front door slice (ROADMAP.md queue 1, "
+                    "item 22)"),
+    **dict.fromkeys(("flight_log", "promote", "promote_noise"),
+                    "the flywheel slice (ROADMAP.md queue 1, item 23)"),
+    "ckpt_dir": "the checkpoint slice (ROADMAP.md queue 1, item 12)",
+    "fleet_regime": "the faults slice of sim/core (ROADMAP.md queue 1, "
+                    "item 17)",
+}
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m rlgpuschedule_tpu_torch.serve",
-        description="Greedy policy serving on the GPU: fleet replay.")
+        description="Greedy policy serving on the GPU: the "
+                    "continuous-batching bench, soak and host-path bench, "
+                    "and fleet replay.")
     p.add_argument("--config", default="ppo-mlp-synth64",
                    choices=sorted(CONFIGS))
-    p.add_argument("--fleet", type=int, required=True, metavar="N",
-                   help="replay the policy against N seeded clusters")
-    p.add_argument("--max-steps", type=int, default=None,
-                   help="cap decision steps per cluster (default: the "
-                        "config's horizon)")
     p.add_argument("--seed", type=int, default=None,
                    help="trace and weight seed (default: the config's)")
+    p.add_argument("--n-envs", type=int, default=None,
+                   help="env windows the request pool is stepped on")
+    add_config_flags(p)
     p.add_argument("--weights", default=None, metavar="NPZ",
                    help="Flax parameter tree saved flat as .npz")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda)")
-    p.add_argument("--fleet-regime", default=None, metavar="REGIME",
-                   help="per-cluster fault regime (not in this slice)")
+    # bench
+    p.add_argument("--bench", action="store_true",
+                   help="latency bench through the continuous-batching "
+                        "server; reports the post-warmup recompile count "
+                        "(0 in a steady state)")
+    p.add_argument("--bucket", type=int, default=8,
+                   help="largest power-of-two batch bucket of the engine")
+    p.add_argument("--rounds", type=int, default=24,
+                   help="bench: coalesced dispatches to serve")
+    p.add_argument("--request-sizes", default=None, metavar="A,B,...",
+                   help="bench: request counts to cycle per round "
+                        "(default: three sizes inside --bucket)")
+    p.add_argument("--pool-steps", type=int, default=4,
+                   help="env decision steps that build the request pool")
+    p.add_argument("--soak", type=float, default=None, metavar="SECONDS",
+                   help="paced load through the live dispatcher thread")
+    p.add_argument("--rate", type=float, default=None, metavar="HZ",
+                   help="soak arrival rate (default 200/s)")
+    p.add_argument("--deadline-ms", type=float, default=None,
+                   help="soak: per-request latency SLO; requests that "
+                        "cannot meet it are shed with a typed rejection")
+    p.add_argument("--adaptive-wait", action="store_true",
+                   help="learn the partial-bucket hold from the arrival "
+                        "rate and the head-of-line deadline")
+    p.add_argument("--host-path", action="store_true",
+                   help="data-plane bench: stub engine, legacy against "
+                        "arena plane, steady-state allocations (arena: 0)")
+    p.add_argument("--host-rounds", type=int, default=300,
+                   help="host-path: measured full-bucket rounds per arm")
+    p.add_argument("--fleet", type=int, default=None, metavar="N",
+                   help="replay the policy against N seeded clusters")
+    p.add_argument("--max-steps", type=int, default=None,
+                   help="fleet: cap decision steps per cluster (default: "
+                        "the config's horizon)")
+    # observability
+    p.add_argument("--metrics-port", type=int, default=None,
+                   help="live Prometheus scrape endpoint on this port (0 "
+                        "= ephemeral; the port and a self-scrape check "
+                        "land in the JSON)")
+    p.add_argument("--obs-dir", default=None,
+                   help="write serve events (JSONL) and a metrics.prom "
+                        "snapshot under this directory")
+    p.add_argument("--trace-spans", action="store_true",
+                   help="record the request lifecycle as spans on the "
+                        "event bus (needs --obs-dir)")
+    # the JAX CLI's flags that later slices bring
+    p.add_argument("--engines", type=int, default=1,
+                   help="routed engines (only 1 in this slice)")
+    p.add_argument("--scaleout", action="store_true")
+    p.add_argument("--autoscale", action="store_true")
+    p.add_argument("--chaos-faults", default=None, metavar="SPEC")
+    p.add_argument("--frontend-port", type=int, default=None)
+    p.add_argument("--wire-requests", type=int, default=None)
+    p.add_argument("--flight-log", default=None, metavar="DIR")
+    p.add_argument("--promote", default=None, metavar="CKPTDIR")
+    p.add_argument("--promote-noise", type=float, default=None)
+    p.add_argument("--ckpt-dir", default=None)
+    p.add_argument("--fleet-regime", default=None, metavar="REGIME")
     return p
+
+
+def _check(args) -> "tuple[int, ...] | None":
+    """Refuse the deferred flags and the silent no-ops; returns the
+    parsed ``--request-sizes``."""
+    for dest, what in DEFERRED.items():
+        value = getattr(args, dest)
+        if value is not None and value is not False:   # 0 is a value
+            flag = "--" + dest.replace("_", "-")
+            raise NotImplementedError(f"{flag} is not in the PyTorch port "
+                                      f"yet: it waits for {what}")
+    if args.engines != 1:
+        if args.engines < 1:
+            sys.exit("--engines must be >= 1")
+        raise NotImplementedError(
+            "--engines > 1 is not in the PyTorch port yet: it waits for "
+            "the router slice (ROADMAP.md queue 1, item 22)")
+    if not (args.bench or args.soak is not None or args.host_path
+            or args.fleet is not None):
+        sys.exit("nothing to do: pass --bench, --soak S, --host-path "
+                 "and/or --fleet N")
+    if args.fleet is not None and args.fleet <= 0:
+        sys.exit("--fleet must be a positive cluster count")
+    if args.max_steps is not None and args.max_steps <= 0:
+        sys.exit("--max-steps must be positive")
+    if args.bucket <= 0 or (args.bucket & (args.bucket - 1)):
+        sys.exit("--bucket must be a positive power of two")
+    if args.soak is not None and args.soak <= 0:
+        sys.exit("--soak must be a positive duration in seconds")
+    if args.rate is not None and args.soak is None:
+        sys.exit("--rate paces --soak submissions; pass --soak S with it "
+                 "(refusing the silent no-op)")
+    if args.rate is not None and args.rate <= 0:
+        sys.exit("--rate must be positive requests/s")
+    if args.deadline_ms is not None and args.soak is None:
+        sys.exit("--deadline-ms attaches SLOs to --soak submissions; pass "
+                 "--soak S with it (refusing the silent no-op)")
+    if args.deadline_ms is not None and args.deadline_ms <= 0:
+        sys.exit("--deadline-ms must be positive")
+    if args.host_rounds <= 0:
+        sys.exit("--host-rounds must be positive")
+    if args.pool_steps < 0:
+        sys.exit("--pool-steps must be >= 0")
+    if args.trace_spans and not args.obs_dir:
+        sys.exit("--trace-spans records spans on the event bus; pass "
+                 "--obs-dir with it (refusing the silent no-op)")
+    if args.request_sizes is None:
+        return None
+    if not args.bench:
+        sys.exit("--request-sizes configures --bench (refusing the silent "
+                 "no-op)")
+    try:
+        sizes = tuple(int(s) for s in args.request_sizes.split(",") if s)
+    except ValueError:
+        sys.exit(f"bad --request-sizes {args.request_sizes!r}")
+    if not sizes or any(s <= 0 for s in sizes):
+        sys.exit("--request-sizes must be positive integers")
+    too_big = [s for s in sizes if s > args.bucket]
+    if too_big:
+        sys.exit(f"--request-sizes {too_big} exceed --bucket {args.bucket}")
+    return sizes
 
 
 def main(argv: "list[str] | None" = None) -> dict:
     args = build_parser().parse_args(argv)
-    if args.fleet <= 0:
-        sys.exit("--fleet must be a positive cluster count")
-    if args.max_steps is not None and args.max_steps <= 0:
-        sys.exit("--max-steps must be positive")
-    if args.fleet_regime is not None:
-        raise NotImplementedError(
-            "--fleet-regime: fault-regime fleet replay waits for the "
-            "faults slice of sim/core")
-    cfg = CONFIGS[args.config]
-    if args.seed is not None:
-        cfg = dataclasses.replace(cfg, seed=args.seed)
+    sizes = _check(args)
+    cfg = dataclasses.replace(CONFIGS[args.config], **config_overrides(args))
+    check_source_jobs(args, cfg)
     dev = resolve_device(args.device)
     env_params = build_env_params(cfg)
-    _, traces = fleet_windows(cfg, args.fleet, device=dev)
     policy = build_policy(cfg, env_params, device=dev)
     if args.weights:
         policy.load_state_dict(load_npz(args.weights))
@@ -77,18 +228,138 @@ def main(argv: "list[str] | None" = None) -> dict:
     else:
         print(f"note: no --weights; serving seeded init weights "
               f"(seed {cfg.seed})", file=sys.stderr)
-    fl = fleet_replay(policy, env_params, traces, max_steps=args.max_steps,
-                      device=dev)
-    report = {"config": cfg.name, "seed": cfg.seed, "weights": args.weights,
-              "fleet": fl}
+    report: dict = {"config": cfg.name, "seed": cfg.seed,
+                    "weights": args.weights, "repro": repro_tuple(cfg),
+                    "device": str(dev)}
     if dev.type == "cuda":
         report["device_name"] = torch.cuda.get_device_name(dev)
-    print(f"fleet: {fl['n_clusters']} clusters on {dev}, mean JCT "
-          f"{fl['mean_jct']:.1f} s, completion {fl['completion']:.1%}, "
-          f"{fl['decisions']} decisions in {fl['wall_s']:.2f} s "
-          f"({fl['decisions_per_s']:.0f}/s)", file=sys.stderr)
+    registry = Registry()
+    bus = (EventBus(os.path.abspath(args.obs_dir), rank=0, name="serve")
+           if args.obs_dir else None)
+    tracer = Tracer(bus, enabled=True) if args.trace_spans else NULL_TRACER
+    scraper = None
+    try:
+        if args.metrics_port is not None:
+            scraper = serve_http(registry, port=args.metrics_port)
+            print(f"metrics scrape endpoint: {scraper.url}",
+                  file=sys.stderr)
+        engine = InferenceEngine(policy, max_bucket=args.bucket, device=dev,
+                                 env_params=env_params, registry=registry,
+                                 bus=bus, tracer=tracer)
+        pool = None
+        if args.bench or args.soak is not None or args.host_path:
+            _, traces = fleet_windows(cfg, cfg.n_envs, device=dev)
+            pool = build_request_pool(policy, env_params, traces,
+                                      steps=args.pool_steps)
+        if args.bench:
+            server = PolicyServer(engine, registry=registry, tracer=tracer,
+                                  bus=bus, adaptive_wait=args.adaptive_wait)
+            b = report["bench"] = run_bench(engine, server, pool,
+                                            rounds=args.rounds,
+                                            request_sizes=sizes)
+            print(f"bench: {b['requests']} decisions over {b['rounds']} "
+                  f"dispatches (sizes {b['request_sizes']} -> buckets "
+                  f"{b['buckets']}, graphs {b['graphs']}), p50 "
+                  f"{b['latency_p50_ms']:.2f} ms, p99 "
+                  f"{b['latency_p99_ms']:.2f} ms, "
+                  f"{b['decisions_per_s']:.0f} decisions/s, post-warmup "
+                  f"recompiles: {b['post_warmup_recompiles']}",
+                  file=sys.stderr)
+        if args.soak is not None:
+            report["soak"] = _soak(args, engine, pool, registry, tracer, bus)
+        if args.host_path:
+            hp = report["host_path"] = run_host_path(
+                pool, max_bucket=args.bucket, rounds=args.host_rounds)
+            for arm in hp["arms"]:
+                print(f"host-path[{arm['data_plane']}]: "
+                      f"{arm['decisions_per_s']:.0f} decisions/s, "
+                      f"{arm['alloc_calls']} ndarray allocs "
+                      f"({arm['allocs_per_batch']:.1f}/batch), "
+                      f"conservation "
+                      + ("ok" if arm["conservation_ok"] else "VIOLATED"),
+                      file=sys.stderr)
+        if args.fleet is not None:
+            _, traces = fleet_windows(cfg, args.fleet, device=dev)
+            fl = report["fleet"] = fleet_replay(
+                policy, env_params, traces, max_steps=args.max_steps,
+                device=dev)
+            registry.gauge("serve_fleet_mean_jct",
+                           "fleet replay pooled mean JCT").set(
+                fl["mean_jct"])
+            registry.gauge("serve_fleet_completion",
+                           "fleet replay completed fraction").set(
+                fl["completion"])
+            registry.gauge("serve_fleet_decisions_per_s",
+                           "fleet replay decision throughput").set(
+                fl["decisions_per_s"])
+            print(f"fleet: {fl['n_clusters']} clusters on {dev}, mean JCT "
+                  f"{fl['mean_jct']:.1f} s, completion "
+                  f"{fl['completion']:.1%}, {fl['decisions']} decisions in "
+                  f"{fl['wall_s']:.2f} s ({fl['decisions_per_s']:.0f}/s)",
+                  file=sys.stderr)
+        if scraper is not None:
+            report["scrape"] = _self_scrape(scraper)
+        if args.obs_dir:
+            registry.write(os.path.join(os.path.abspath(args.obs_dir),
+                                        "metrics.prom"))
+    finally:
+        if scraper is not None:
+            scraper.close()
+        if bus is not None:
+            bus.close()
     print(json.dumps(report))
     return report
+
+
+def _soak(args, engine, pool, registry, tracer, bus) -> dict:
+    """``--soak``: every bucket warmed, then paced load through the
+    dispatcher thread."""
+    obs0, mask0 = pool[0]
+    engine.warmup(obs0, mask0)
+    server = PolicyServer(engine, registry=registry, tracer=tracer,
+                          bus=bus, adaptive_wait=args.adaptive_wait)
+    server.start()
+    try:
+        soak = run_soak(server, pool, duration_s=args.soak,
+                        rate_hz=args.rate if args.rate is not None
+                        else 200.0,
+                        deadline_s=(args.deadline_ms / 1e3
+                                    if args.deadline_ms is not None
+                                    else None))
+    finally:
+        server.stop()
+    soak["post_warmup_recompiles"] = engine.post_warmup_recompiles
+    soak["dispatch_errors"] = int(
+        registry.counter("serve_dispatch_errors_total").value)
+    drift = soak["p99_drift"]
+    print(f"soak: {soak['requests']} requests over "
+          f"{soak['duration_s']:.1f}s at {soak['rate_hz']:.0f}/s, shed "
+          f"{soak['shed']} ({soak['shed_rate']:.1%}), p99 "
+          f"{soak['p99_first_half_ms']} -> {soak['p99_second_half_ms']} ms "
+          f"(drift " + (f"{drift:.2f}x" if drift is not None else "n/a")
+          + f"), post-warmup recompiles: {soak['post_warmup_recompiles']}",
+          file=sys.stderr)
+    return soak
+
+
+def _self_scrape(scraper) -> dict:
+    """GET the live endpoint once and check that the exposition is well
+    formed."""
+    import urllib.request
+    with urllib.request.urlopen(scraper.url, timeout=10) as resp:
+        body = resp.read().decode("utf-8")
+        status = resp.status
+        ctype = resp.headers.get("Content-Type", "")
+    lines = [ln for ln in body.splitlines() if ln]
+    sample_lines = [ln for ln in lines if not ln.startswith("#")]
+    well_formed = (
+        status == 200 and ctype.startswith("text/plain")
+        and all(ln.startswith(("# HELP ", "# TYPE "))
+                or len(ln.split()) == 2 for ln in lines)
+        and any(ln.startswith("serve_") for ln in sample_lines))
+    return {"url": scraper.url, "port": scraper.port, "status": status,
+            "content_type": ctype, "metric_lines": len(sample_lines),
+            "well_formed": bool(well_formed)}
 
 
 if __name__ == "__main__":

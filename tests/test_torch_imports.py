@@ -75,6 +75,41 @@ def test_importing_the_preemptive_and_graph_path_leaves_jax_out():
                      "models.convert", "serve.engine"))
 
 
+def test_importing_the_policy_server_path_leaves_jax_out():
+    _leaves_jax_out(("serve", "serve.batching", "serve.bench",
+                     "serve.engine", "serve.__main__", "obs", "obs.events",
+                     "obs.metrics", "obs.slo", "obs.trace",
+                     "analysis.sentinels"))
+
+
+def test_the_policy_server_slice_has_its_pieces():
+    """The serving stack and the telemetry it reports through are the
+    port's own modules, not re-exports."""
+    import importlib
+    sys.path.insert(0, ROOT)
+    try:
+        for mod, names in {
+                "serve.batching": ("PolicyServer", "Reservoir", "Ewma",
+                                   "ServeResult", "DeadlineSheddedError",
+                                   "ServerClosedError", "stack_requests",
+                                   "scatter_results"),
+                "serve.bench": ("build_request_pool", "run_bench",
+                                "run_soak", "run_host_path", "StubEngine"),
+                "obs.metrics": ("Registry", "MetricsHTTPServer",
+                                "serve_http"),
+                "obs.events": ("EventBus", "merge_dir"),
+                "obs.trace": ("Tracer", "TracerLane"),
+                "obs.slo": ("SLOEngine", "SLOSpec", "histogram_sli"),
+                "analysis.sentinels": ("CompileCounter",
+                                       "no_implicit_transfers",
+                                       "RecompileSentinelError")}.items():
+            m = importlib.import_module(f"rlgpuschedule_tpu_torch.{mod}")
+            for n in names:
+                assert getattr(m, n).__module__ == m.__name__, (mod, n)
+    finally:
+        sys.path.remove(ROOT)
+
+
 def test_the_preemptive_and_graph_slice_has_its_pieces():
     """The modules this slice extends carry the pieces it ports, each
     defined in the port itself (not re-exported from elsewhere)."""
