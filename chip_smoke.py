@@ -134,6 +134,38 @@ imports nothing of JAX. Phases, each fatal on failure:
     (bucket 256, 300 rounds): the arena arm allocates nothing; (9)
     ``python -m rlgpuschedule_tpu_torch.serve --config ppo-cnn-philly512
     --bench --bucket 256`` exits 0 with 0 post-warmup recompiles.
+14. Checkpoints of config 2 at its published geometry (bf16, 8 envs x
+    128 steps, 4 x 4 minibatches) with half the envs drained and a
+    window resample every 2 iterations, under torch's default cuDNN
+    switches (TF32 on, not deterministic; phases 3-9 leave them off and
+    on, and they are put back after): 4 iterations with a checkpoint
+    every 2; a fresh ``Experiment`` restores the iteration-2 step (taken
+    just before a resample) and runs 2 more, and its parameters, Adam
+    moments and step, rollout carry and both generators' states must be
+    the uninterrupted run's bit for bit (else a second uninterrupted run
+    measures the card's run-to-run difference, and the resume must stay
+    within 10x of it); the checkpoint's bytes and the milliseconds to
+    save and to restore are printed. The newest step's payload is then
+    truncated: ``restore()`` must fall back to the older step and say
+    so. ``evaluate --ckpt-dir --drain-frac 0.5`` and ``serve --ckpt-dir
+    --fleet 64`` in subprocesses on the card must restore that step and
+    equal the same replays in this process, row for row and cluster for
+    cluster. Last, the checkpoint on the CPU: a CPU experiment must
+    refuse to continue its CUDA generators, and its policy at f32 (TF32
+    off) replays 4 of the windows (2 streaming, 2 drained) on the card
+    and on the CPU within phase 9's margin rule.
+15. ``ppo-mlp-synth64`` at its preset on the drain curriculum
+    (``drain_frac=1.0``): 6 iterations, a checkpoint every 2, 3 kept;
+    ``python -m rlgpuschedule_tpu_torch.select_checkpoint`` ranks them
+    by full-trace avg JCT over Tiresias on a 256-job seed-2000
+    validation stream (the reference's default is 1,024 jobs); the
+    chosen step's ``full_trace_report`` over a 256-job seed-123 stream
+    (``drain_completions=8``), every row finite; and that stitched
+    replay at f32 on the card and on the CPU: the same number of windows
+    and the avg JCT within rtol 1e-6, unless a decision where the CPU's
+    top-two margin is below 1e-4 differs, and then the phase names the
+    first divergent window. Prints the ranking, the windows, the rows
+    and the wall time of each part.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it is the card's name and power limit. Without a CUDA device, or
@@ -142,6 +174,7 @@ exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -176,6 +209,12 @@ SERVE_SIZES = (5, 7, 8, 100, 129, 200, 256)   # phase 13's bench
 SERVE_ROUNDS = 48
 SOAK_S, SOAK_RATE, SOAK_DEADLINE_S = 8.0, 2000.0, 0.05
 HOST_ROUNDS = 300
+CKPT_DRAIN, CKPT_RESAMPLE, CKPT_ITERS = 0.5, 2, 4   # phase 14
+CKPT_FLEET = 64           # serve --ckpt-dir --fleet 64
+CKPT_COMPARE_FROM = 2     # phase 14 replays windows 2-5: 2 of each kind
+SELECT_ITERS = 6          # phase 15: 3 checkpoints kept, one every 2
+SELECT_VAL_JOBS, SELECT_TEST_SEED, SELECT_TEST_JOBS = 256, 123, 256
+SELECT_STITCH_DRAIN = 8
 ROWS = ("policy", "random", "fifo", "sjf", "srtf", "tiresias")
 BASELINES = ("fifo", "sjf", "srtf", "tiresias")
 
@@ -1494,6 +1533,398 @@ def policy_server_phase(torch, dev, eager_latency):
         raise SystemExit(f"serve CLI bench: {b}")
 
 
+def _flags(torch, tf32: bool, deterministic: bool) -> dict:
+    """Set the cuDNN/TF32 switches; returns the previous ones."""
+    b = torch.backends
+    old = {"matmul_tf32": b.cuda.matmul.allow_tf32,
+           "cudnn_tf32": b.cudnn.allow_tf32,
+           "cudnn_deterministic": b.cudnn.deterministic}
+    b.cuda.matmul.allow_tf32 = False     # torch's default
+    b.cudnn.allow_tf32 = tf32
+    b.cudnn.deterministic = deterministic
+    return old
+
+
+def _restore_flags(torch, old: dict) -> None:
+    b = torch.backends
+    b.cuda.matmul.allow_tf32 = old["matmul_tf32"]
+    b.cudnn.allow_tf32 = old["cudnn_tf32"]
+    b.cudnn.deterministic = old["cudnn_deterministic"]
+
+
+def _state_diff(torch, a, b) -> dict:
+    """Max abs difference per payload of two experiments (0.0 = the same
+    bits), and whether each generator's state is equal."""
+    def mx(xs, ys):
+        return max((float((x.double() - y.double()).abs().max())
+                    if x.is_floating_point() else
+                    float((x != y).sum()) for x, y in zip(xs, ys)),
+                   default=0.0)
+    sa = a.train_state.opt.state_dict()["state"]
+    sb = b.train_state.opt.state_dict()["state"]
+    ca, cb = a.carry, b.carry
+    return {
+        "params": mx(list(a.net.state_dict().values()),
+                     list(b.net.state_dict().values())),
+        "adam_moments": mx([sa[i][k] for i in sa for k in
+                            ("exp_avg", "exp_avg_sq")],
+                           [sb[i][k] for i in sb for k in
+                            ("exp_avg", "exp_avg_sq")]),
+        "adam_step": mx([sa[i]["step"] for i in sa],
+                        [sb[i]["step"] for i in sb]),
+        "carry": mx(list(ca.env_state.sim) + [ca.env_state.t, ca.obs,
+                                              ca.mask],
+                    list(cb.env_state.sim) + [cb.env_state.t, cb.obs,
+                                              cb.mask]),
+        "generators_equal": bool(
+            torch.equal(ca.generator.get_state(), cb.generator.get_state())
+            and torch.equal(a.generator.get_state(),
+                            b.generator.get_state())),
+    }
+
+
+def _margin_rule(torch, what, sides, steps_cap):
+    """Phase 9's rule on two replays ``{device: (EvalResult,
+    ReplayRecord, per-window JCTs)}`` of the same windows: the actions
+    agree except after a step where the CPU's top-two margin is below
+    1e-4; a window compared to the end has the same steps, n_done and
+    per-job JCTs. Returns (windows compared to the end, cut-short
+    windows)."""
+    (rg, recg, jg), (rc, recc, jc) = sides
+    steps = torch.minimum(rg.steps.cpu(), rc.steps.cpu()).clamp(
+        max=steps_cap)
+    splits = _first_split(recg.actions.cpu(), recc.actions.cpu(),
+                          recc.margin.cpu(), steps)
+    compared, cut = [], {}
+    for e, sp in enumerate(splits):
+        if sp is not None:
+            if sp[1] >= MARGIN:
+                raise SystemExit(f"{what}, window {e}: card and CPU actions "
+                                 f"differ at step {sp[0]} where the CPU's "
+                                 f"margin is {sp[1]}")
+            cut[str(e)] = {"step": sp[0], "cpu_margin": sp[1]}
+            continue
+        compared.append(e)
+        for k in ("steps", "n_done"):
+            if int(getattr(rg, k)[e]) != int(getattr(rc, k)[e]):
+                raise SystemExit(f"{what}, window {e}: {k} differs between "
+                                 f"the card and the CPU")
+        if jg[e] != jc[e]:
+            raise SystemExit(f"{what}, window {e}: per-job JCTs differ "
+                             f"between the card and the CPU")
+    if not compared:
+        raise SystemExit(f"{what}: no window was compared to the end")
+    return compared, cut
+
+
+def checkpoint_phase(torch, dev):
+    """Checkpoint and resume of config 2 at its published geometry, the
+    crc fallback, and the checkpoint in other processes and on the CPU
+    (phase 14)."""
+    import io
+    import shutil
+    import tempfile
+
+    from rlgpuschedule_tpu_torch.checkpoint import STATE_FILE, Checkpointer
+    from rlgpuschedule_tpu_torch.configs import CONFIGS
+    from rlgpuschedule_tpu_torch.env import stack_traces
+    from rlgpuschedule_tpu_torch.eval import jct_report, replay
+    from rlgpuschedule_tpu_torch.experiment import (Experiment, build_policy,
+                                                    restore_policy)
+    from rlgpuschedule_tpu_torch.serve.fleet import fleet_replay, fleet_windows
+
+    cfg = dataclasses.replace(CONFIGS[CONFIG], drain_frac=CKPT_DRAIN,
+                              resample_every=CKPT_RESAMPLE)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    d = os.path.join(tmp, "ck")
+    # the train CLI's switches (torch's defaults) for everything the CLIs
+    # compare against; phase 7 left cuDNN deterministic and TF32 off
+    old = _flags(torch, tf32=True, deterministic=False)
+    try:
+        # (1) 4 iterations, a checkpoint every 2; a resample before
+        # iteration 2 (so the first checkpoint holds the state before it)
+        a = Experiment.build(cfg, device=dev)
+        ck = Checkpointer(d, max_to_keep=3)
+        t0 = _sync(torch)
+        out = a.run(CKPT_ITERS, ckpt=ck, ckpt_every=CKPT_ITERS // 2)
+        train_s = _sync(torch) - t0
+        steps = ck.all_steps()
+        if len(steps) != 2 or out["window_cursor"] != cfg.n_envs:
+            raise SystemExit(f"checkpoint: steps {steps}, cursor "
+                             f"{out['window_cursor']}")
+        t0 = _sync(torch)
+        a.save_checkpoint(Checkpointer(os.path.join(tmp, "timed")))
+        save_ms = (_sync(torch) - t0) * 1e3
+        nbytes = os.path.getsize(os.path.join(d, str(steps[0]),
+                                              STATE_FILE))
+        # (2) a fresh experiment restores the iteration-2 step, runs 2
+        b = Experiment.build(cfg, device=dev)
+        t0 = _sync(torch)
+        meta = b.restore_checkpoint(ck, step=steps[0])
+        restore_ms = (_sync(torch) - t0) * 1e3
+        b.run(CKPT_ITERS // 2)
+        diff = _state_diff(torch, a, b)
+        exact = diff["generators_equal"] and not any(
+            v for k, v in diff.items() if k != "generators_equal")
+        band = None
+        if not exact:
+            # two uninterrupted runs: the card's run-to-run difference
+            c = Experiment.build(cfg, device=dev)
+            c.run(CKPT_ITERS)
+            band = _state_diff(torch, a, c)
+            if not band["params"] or diff["params"] > 10 * band["params"] \
+                    or not diff["generators_equal"]:
+                raise SystemExit(f"resume differs from the uninterrupted "
+                                 f"run by {diff}, two uninterrupted runs "
+                                 f"by {band}")
+        _line("checkpoint_resume", config=cfg.name, drain_frac=CKPT_DRAIN,
+              resample_every=CKPT_RESAMPLE, n_envs=cfg.n_envs,
+              n_steps=cfg.ppo.n_steps, iterations=CKPT_ITERS,
+              steps=steps, restored_meta={k: meta[k] for k in
+                                          ("iteration", "window_cursor")},
+              window_cursor=b.window_cursor, adam_step=b.step,
+              bit_identical=exact, resume_diff=diff,
+              uninterrupted_run_to_run_diff=band,
+              backend_flags={"cudnn_tf32": True,
+                             "cudnn_deterministic": False},
+              train_s=train_s, checkpoint_bytes=nbytes, save_ms=save_ms,
+              restore_ms=restore_ms)
+
+        # (3) a truncated newest payload: restore falls back, says so
+        path = os.path.join(d, str(steps[-1]), STATE_FILE)
+        with open(path, "r+b") as f:
+            f.truncate(os.path.getsize(path) // 2)
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            ck.restore()
+        said = err.getvalue().strip()
+        print(said, flush=True)
+        if ck.last_restored_step != steps[0] or "falling back" not in said:
+            raise SystemExit(f"the crc fallback did not fire: restored "
+                             f"{ck.last_restored_step}, said {said!r}")
+
+        # (4) evaluate and serve in processes of their own (they fall
+        # back to the same step) against the same replays in this one
+        lines, _, eval_wall = _run_cli(
+            "rlgpuschedule_tpu_torch.evaluate",
+            ["--config", CONFIG, "--ckpt-dir", d, "--drain-frac",
+             str(CKPT_DRAIN), "--no-random", "--max-steps",
+             str(EVAL_STEPS)])
+        (ev,) = lines
+        here = Experiment.build(cfg, device=dev)
+        here.restore_checkpoint(Checkpointer(d), train=False)
+        want = jct_report(here, max_steps=EVAL_STEPS, include_random=False)
+        lines, _, serve_wall = _run_cli(
+            "rlgpuschedule_tpu_torch.serve",
+            ["--config", CONFIG, "--ckpt-dir", d, "--fleet",
+             str(CKPT_FLEET)])
+        (sv,) = lines
+        _, ftraces = fleet_windows(CONFIGS[CONFIG], CKPT_FLEET, device=dev)
+        fl = fleet_replay(here.net, here.env_params, ftraces, device=dev)
+        same_eval = all(ev[k] == want[k] for k in ROWS[:1] + BASELINES
+                        + ("policy_completion", "policy_steps"))
+        same_fleet = sv["fleet"]["per_cluster"] == fl["per_cluster"]
+        _line("checkpoint_cli", evaluate_ckpt_step=ev["repro"]["ckpt_step"],
+              serve_ckpt_step=sv["repro"]["ckpt_step"],
+              evaluate_policy=ev["policy"], in_process_policy=want["policy"],
+              evaluate_policy_steps=ev["policy_steps"],
+              serve_fleet_mean_jct=sv["fleet"]["mean_jct"],
+              in_process_fleet_mean_jct=fl["mean_jct"],
+              serve_decisions=sv["fleet"]["decisions"],
+              evaluate_equal=same_eval, serve_equal=same_fleet,
+              evaluate_wall_s=eval_wall, serve_wall_s=serve_wall,
+              evaluate_device=ev["device"], serve_device=sv["device"])
+        if not (ev["repro"]["ckpt_step"] == sv["repro"]["ckpt_step"]
+                == steps[0] and same_eval and same_fleet):
+            raise SystemExit("a checkpoint served or evaluated in another "
+                             "process disagrees with this one")
+    finally:
+        _restore_flags(torch, old)
+
+    # (5) the card-written checkpoint on the CPU: a CPU run cannot
+    # continue its CUDA generators; its policy replays at f32 (TF32 off)
+    # within phase 9's margin rule
+    refused = None
+    if torch.device(dev).type != "cpu":
+        try:
+            Experiment.build(cfg, device="cpu").restore_checkpoint(
+                Checkpointer(d))
+        except ValueError as e:
+            refused = str(e)
+        else:
+            raise SystemExit(f"a CPU experiment continued {dev} generators")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sub = here.windows[CKPT_COMPARE_FROM:CKPT_COMPARE_FROM + EVAL_COMPARE]
+    sides = []
+    for side in (dev, "cpu"):
+        net = build_policy(cfg, here.env_params, dtype=torch.float32,
+                           device=side)
+        restore_policy(Checkpointer(d), net)
+        traces = stack_traces(sub, here.env_params, side)
+        res, states, rec = replay(net, here.env_params, traces,
+                                  EVAL_STEPS, record=True,
+                                  return_states=True)
+        sides.append((res, rec, [_window_jcts(torch, states, traces, e)
+                                 for e in range(len(sub))]))
+    compared, cut = _margin_rule(torch, "checkpoint on the CPU", sides,
+                                 EVAL_STEPS)
+    _line("checkpoint_on_cpu", windows=len(sub), dtype="float32",
+          tf32=False, compared_to_end=len(compared), cut_short=cut,
+          drained=[bool((w.submit[w.valid] == 0).all()) for w in sub],
+          steps=[int(x) for x in sides[1][0].steps],
+          n_done=[int(x) for x in sides[1][0].n_done],
+          cpu_train_restore_refused=refused)
+    shutil.rmtree(tmp)
+
+
+def select_phase(torch, dev):
+    """Config 1 at its preset on the drain curriculum:
+    ``select_checkpoint`` over the retained steps, the chosen step's
+    full-trace table, and that replay card against CPU at f32 (phase
+    15)."""
+    import shutil
+    import tempfile
+
+    from rlgpuschedule_tpu_torch import eval as eval_lib
+    from rlgpuschedule_tpu_torch.checkpoint import Checkpointer
+    from rlgpuschedule_tpu_torch.configs import CONFIGS
+    from rlgpuschedule_tpu_torch.experiment import (Experiment, build_policy,
+                                                    load_source_trace,
+                                                    restore_policy)
+    from rlgpuschedule_tpu_torch.sim.core import validate_trace
+
+    cfg = dataclasses.replace(CONFIGS[BENCH_CONFIG], drain_frac=1.0)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_select_")
+    d = os.path.join(tmp, "ck")
+    wall = {}
+    t0 = _sync(torch)
+    exp = Experiment.build(cfg, device=dev)
+    out = exp.run(SELECT_ITERS, log_every=SELECT_ITERS - 1,
+                  ckpt=Checkpointer(d, max_to_keep=3),
+                  ckpt_every=SELECT_ITERS // 3)
+    wall["train"] = _sync(torch) - t0
+    steps = Checkpointer(d).all_steps()
+    lines, _, wall["select_checkpoint"] = _run_cli(
+        "rlgpuschedule_tpu_torch.select_checkpoint",
+        ["--config", BENCH_CONFIG, "--ckpt-dir", d, "--val-jobs",
+         str(SELECT_VAL_JOBS), "--test-seed", str(SELECT_TEST_SEED)])
+    (sel,) = lines
+    if len(steps) != 3 or sel["step"] not in steps or \
+            sorted(s for _, s in sel["ranking"]) != steps:
+        raise SystemExit(f"select_checkpoint: steps {steps}, {sel}")
+
+    # the chosen step's full-trace table, as evaluate --full-trace runs it
+    test = dataclasses.replace(cfg, seed=SELECT_TEST_SEED,
+                               source_jobs=SELECT_TEST_JOBS)
+    texp = Experiment.build(test, device=dev)
+    texp.restore_checkpoint(Checkpointer(d), step=sel["step"], train=False)
+    t0 = _sync(torch)
+    rep = eval_lib.full_trace_report(texp, percentiles=PERCENTILES,
+                                     drain_completions=SELECT_STITCH_DRAIN)
+    wall["full_trace_report"] = _sync(torch) - t0
+    print(eval_lib.format_report(rep), file=sys.stderr, flush=True)
+
+    # card against CPU at f32: the same windows, the same JCTs, unless a
+    # decision below the top-two margin parts them (then named)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    source = validate_trace(texp.env_params.sim, load_source_trace(test),
+                            clamp=True)
+    runs = {}
+    for side in (dev, "cpu"):
+        net = build_policy(cfg, texp.env_params, dtype=torch.float32,
+                           device=side)
+        restore_policy(Checkpointer(d), net, sel["step"])
+        rec = _Recorder(net)
+        t0 = _sync(torch)
+        with rec.windows(eval_lib):
+            r = eval_lib.full_trace_replay(
+                rec, texp.env_params, source,
+                drain_completions=SELECT_STITCH_DRAIN)
+        wall[f"f32_replay_{torch.device(side).type}"] = _sync(torch) - t0
+        runs[side] = (r, rec.trace())
+    (rg, (ag, mg, wg)), (rc, (ac, mc, wc)) = runs[dev], runs["cpu"]
+    rel = abs(rg["avg_jct"] - rc["avg_jct"]) / abs(rc["avg_jct"])
+    n = min(len(ag), len(ac))
+    diff = (ag[:n] != ac[:n]).nonzero().flatten()
+    split = None
+    if diff.numel():
+        s = int(diff[0])
+        split = {"step": s, "window": int(wc[s]), "cpu_margin": float(mc[s])}
+    _line("select_checkpoint", config=cfg.name, drain_frac=1.0,
+          iterations=SELECT_ITERS, steps=steps,
+          last_iteration=out["history"][-1], chosen_step=sel["step"],
+          val_ratio=sel["val_ratio"], val_tiresias=sel["val_tiresias"],
+          ranking=sel["ranking"], val_jobs=SELECT_VAL_JOBS)
+    _line("full_trace", config=cfg.name, step=sel["step"],
+          test_seed=SELECT_TEST_SEED, n_jobs=rep["n_jobs"],
+          stitch_drain_jobs=SELECT_STITCH_DRAIN,
+          windows=rep["policy_windows"],
+          rows={k: rep[k] for k in ROWS}, vs_tiresias=rep["vs_tiresias"],
+          percentiles=rep["percentiles"],
+          f32_card_windows=rg["windows"], f32_cpu_windows=rc["windows"],
+          f32_avg_jct_card=rg["avg_jct"], f32_avg_jct_cpu=rc["avg_jct"],
+          f32_avg_jct_rel_diff=rel, decisions_compared=n,
+          first_divergence=split, wall_s=wall)
+    if not _finite(*(rep[k] for k in ROWS), rep["vs_tiresias"]):
+        raise SystemExit(f"the full-trace table is not finite: {rep}")
+    if split is not None:
+        if split["cpu_margin"] >= MARGIN:
+            raise SystemExit(f"full trace: card and CPU decide differently "
+                             f"in window {split['window']} at a CPU margin "
+                             f"of {split['cpu_margin']}")
+        print(f"full trace: card and CPU part in window {split['window']} "
+              f"(decision {split['step']}, CPU margin "
+              f"{split['cpu_margin']:.3g} < {MARGIN})", flush=True)
+    elif rg["windows"] != rc["windows"] or rel > 1e-6:
+        raise SystemExit(f"full trace: {rg['windows']} windows and avg JCT "
+                         f"{rg['avg_jct']} on the card, {rc['windows']} and "
+                         f"{rc['avg_jct']} on the CPU")
+    shutil.rmtree(tmp)
+
+
+class _Recorder:
+    """Wraps a policy for :func:`..eval.full_trace_replay`: keeps each
+    decision's greedy action, top-two logit margin and stitched-window
+    index (one device tensor per decision, read after the replay)."""
+
+    def __init__(self, net):
+        self.net, self.window = net, 0
+        self.acts, self.margins, self.wins = [], [], []
+
+    def parameters(self):
+        return self.net.parameters()
+
+    def __call__(self, obs, mask):
+        logits, value = self.net(obs, mask)
+        top2 = logits.topk(2, dim=-1).values
+        self.acts.append(logits.argmax(-1))
+        self.margins.append(top2[:, 0] - top2[:, 1])
+        self.wins.append(self.window)
+        return logits, value
+
+    @contextlib.contextmanager
+    def windows(self, eval_lib):
+        """Count the stitched windows while the replay runs."""
+        inner = eval_lib._stitch_window
+
+        def counted(*a, **kw):
+            self.window += 1
+            return inner(*a, **kw)
+
+        eval_lib._stitch_window = counted
+        try:
+            yield
+        finally:
+            eval_lib._stitch_window = inner
+
+    def trace(self):
+        import torch
+        return (torch.cat(self.acts).cpu(), torch.cat(self.margins).cpu(),
+                torch.tensor(self.wins))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1538,6 +1969,8 @@ def main() -> int:
     timed(action_space_phase)
     timed(preset_train_eval_phase)
     timed(policy_server_phase, eager_latency)
+    timed(checkpoint_phase)
+    timed(select_phase)
     _line("done", total_s=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

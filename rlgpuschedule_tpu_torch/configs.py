@@ -1,8 +1,8 @@
 """Named experiment configs (L6): cluster, trace, env and PPO fields.
 
 The port's copy of the JAX package's ``configs.py``. The ``a2c``
-optimizer fields, window streaming, the drain curriculum, fault and
-domain regimes and the mode-refusal table wait for their slices.
+optimizer fields, fault and domain regimes and the mode-refusal table
+wait for their slices.
 The presets keep their names and the values of the fields kept here, so
 a config name means the same run in both packages; the presets this
 port cannot run are refused by :func:`..experiment.build_env_params`
@@ -34,9 +34,15 @@ class ExperimentConfig:
     # window-streaming pass over the env batch (window_jobs *
     # max(n_envs, 8), floored at 1024 / 4096)
     source_jobs: int | None = None
+    # window streaming: every N iterations re-cut the env windows at the
+    # next n_envs windows of the source tiling (0 = static windows)
+    resample_every: int = 0
     arrival_rate: float = 0.08          # synthetic: jobs/sec
     mean_duration: float = 600.0        # synthetic: log-normal mean
     window_jobs: int = 64               # jobs per episode window (max_jobs)
+    # backlog-drain curriculum: the last round(n_envs * drain_frac) envs
+    # train on copies of their windows with every job submitted at t=0
+    drain_frac: float = 0.0
     # env
     n_envs: int = 4
     queue_len: int = 8
@@ -65,16 +71,23 @@ class ExperimentConfig:
         return self.n_nodes * self.gpus_per_node
 
 
-def repro_tuple(cfg: ExperimentConfig) -> dict:
-    """The config fields that determine a replay: enough to regenerate
-    any reported row (the JAX package's ``repro_tuple`` without the
-    fields the port does not have yet, the checkpoint among them)."""
+def repro_tuple(cfg: ExperimentConfig, ckpt_dir: str | None = None,
+                ckpt_step: int | None = None) -> dict:
+    """The reproducibility tuple every evaluate and serve JSON carries:
+    the config fields that determine a replay and the checkpoint it
+    restored, the JAX package's key set. ``ckpt_step`` is the step
+    actually restored (``Checkpointer.last_restored_step``), which the
+    integrity fallback may make older than the one asked for. The port
+    has no fault or domain regimes yet: ``faults`` and ``domains`` are
+    None."""
     return {"config": cfg.name, "seed": cfg.seed, "trace": cfg.trace,
             "trace_path": cfg.trace_path, "trace_load": cfg.trace_load,
             "source_jobs": cfg.source_jobs, "n_envs": cfg.n_envs,
             "n_nodes": cfg.n_nodes, "gpus_per_node": cfg.gpus_per_node,
             "window_jobs": cfg.window_jobs, "queue_len": cfg.queue_len,
-            "horizon": cfg.horizon, "obs_kind": cfg.obs_kind}
+            "horizon": cfg.horizon, "obs_kind": cfg.obs_kind,
+            "drain_frac": cfg.drain_frac, "faults": None, "domains": None,
+            "ckpt_dir": ckpt_dir, "ckpt_step": ckpt_step}
 
 
 CONFIGS: dict[str, ExperimentConfig] = {}

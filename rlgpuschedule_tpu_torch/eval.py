@@ -1,8 +1,9 @@
 """Trace replay and the JCT-vs-baselines table (L6) of the port.
 
-Counterpart of ``EvalResult``, ``replay``, ``pooled_avg_jct``,
-``baseline_jcts``, ``baseline_jct_table``, ``jct_report`` and
-``format_report`` in the JAX package's ``eval.py``. There the replay is
+Counterpart of ``EvalResult``, ``replay``, ``full_trace_replay``,
+``pooled_avg_jct``, ``baseline_jcts``, ``baseline_jct_table``,
+``jct_report``, ``full_trace_report`` and ``format_report`` in the JAX
+package's ``eval.py``. There the replay is
 one ``lax.scan``; here it is a Python loop over decision steps whose
 body stays on the device: no value comes back to the host inside the
 loop, except one "all done?" check every 64 steps that ends the loop
@@ -17,12 +18,17 @@ a preemptive action space the greedy replay runs the stall guard
 host through :mod:`.sim.schedulers` (the native engine unless no
 compiler is present), so the table compares like with like.
 
-Not here: fault replay, the hierarchical env, and the fairness, chaos,
-matrix and full-trace reports; they come with their slices
-(``ROADMAP.md`` queue 1).
+The full-trace replay stitches a whole source trace through E=1
+windows of a fixed-shape job table, carrying every job not yet done
+from one window to the next (:func:`full_trace_replay`).
+
+Not here: fault replay (a stitched replay under a fault schedule
+included), the hierarchical env, and the fairness, chaos and matrix
+reports; they come with their slices (``ROADMAP.md`` queue 1).
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Any, NamedTuple
 
@@ -33,10 +39,11 @@ from torch import nn
 from .algos import action_dist
 from .decision import (gate_stalled, greedy_actions, preempt_slice,
                        stall_threshold)
+from .device import resolve_device
 from .env import env as env_lib
 from .env.env import EnvParams, stack_traces
 from .sim import core
-from .sim.core import PENDING
+from .sim.core import DONE, PENDING
 from .sim.schedulers import BASELINES, resolve_backend, run_baseline
 from .traces.records import ArrayTrace
 
@@ -213,6 +220,216 @@ def replay(net: "nn.Module | None", env_params: EnvParams,
     return out if len(out) > 1 else result
 
 
+def _stitch_window(net: "nn.Module | None", rp: EnvParams,
+                   trace: core.Trace, cutoff: torch.Tensor,
+                   need_completion: bool, drain_block: int, n_steps: int,
+                   policy: str, generator: torch.Generator | None,
+                   prefs: torch.Tensor | None, backlog_gate: int,
+                   pre: torch.Tensor | None, thresh: int) -> core.SimState:
+    """One window of :func:`full_trace_replay` (E=1): replay until the
+    clock would pass ``cutoff`` (the step past it is discarded) or, with
+    ``need_completion``, until ``drain_block`` valid jobs are done (the
+    step that completes them is kept); then advance the clock over the
+    continuous service up to the next event or the cutoff. Steps after
+    the window froze change nothing, so the loop ends at the first
+    64-step check that finds it frozen."""
+    state, ts = env_lib.reset(rp, trace)
+    obs, mask = ts.obs, ts.action_mask
+    frozen = torch.zeros_like(ts.done)
+    stall = torch.zeros_like(frozen, dtype=torch.int32)
+    for i in range(n_steps):
+        if pre is not None:
+            mask = gate_stalled(mask, stall, thresh, pre)
+        if policy == "random":
+            action, _ = _random_actions(generator, mask)
+        else:
+            logits, _ = net(obs, mask)
+            action = greedy_actions(logits)
+        if prefs is not None:
+            action = _gate_to_fifo(prefs, state.sim.status, mask, action,
+                                   backlog_gate)
+        new_state, new_ts = env_lib.step(rp, state, trace, action)
+        if need_completion:
+            done_before = torch.sum((state.sim.status == DONE)
+                                    & trace.valid, dim=-1)
+            past = (new_state.sim.clock > cutoff) & (done_before
+                                                     >= drain_block)
+        else:
+            past = new_state.sim.clock > cutoff
+        stop = frozen | past
+        state = core.select(stop, state, new_state)
+        obs = core.select(stop, obs, new_ts.obs)
+        mask = core.select(stop, mask, new_ts.action_mask)
+        frozen = stop | new_ts.done
+        stall = torch.where(frozen | (new_ts.info.dt > 0.0), 0, stall + 1)
+        if (i + 1) % _DONE_CHECK_EVERY == 0 and bool(frozen.all()):
+            break
+    # a future cutoff freezes the window at its last decision point not
+    # beyond it; up to the cutoff there is no event (the next one
+    # overshot), only service, which is advanced here, or running jobs
+    # would lose (cutoff - clock) of work at every seam
+    sim = state.sim
+    t_end = torch.minimum(cutoff, core.next_event_time(sim, trace))
+    t_end = torch.maximum(t_end, sim.clock)
+    return core.advance_to(sim, trace, t_end)
+
+
+def full_trace_replay(net: "nn.Module | None", env_params: EnvParams,
+                      source: ArrayTrace,
+                      max_steps_per_window: int | None = None,
+                      policy: str = "greedy",
+                      generator: torch.Generator | None = None,
+                      backlog_gate: int = 0, stall_guard: bool = True,
+                      drain_completions: int = 1, faults=None,
+                      device: "torch.device | str | None" = None,
+                      ) -> dict[str, Any]:
+    """The policy's avg JCT over an entire source trace by sequential
+    windowed replay with residual carry: one number comparable to the
+    baselines' over the same trace. ``device`` defaults to ``net``'s
+    (``cuda`` for the random control without one).
+
+    The trace streams through a fixed-shape job table of ``max_jobs``
+    rows: each window holds the carried residual jobs (anything not done
+    at the previous cutoff) and as many fresh jobs as fit, and replays
+    under the policy only up to the arrival of the first excluded job
+    (the cutoff), so a window never runs ahead of work it cannot see.
+    When that job has already arrived (a deep backlog: global time has
+    outrun the arrivals), the window instead runs until it completes
+    ``drain_completions`` jobs (clamped to ``max_jobs // 2``), freeing
+    rows, and global time advances by the sim time it used. JCT is
+    accounted against the original submit times. Two approximations, as
+    in JAX: a job running at a seam is carried as pending with its
+    remaining service (a checkpointed preemption), and a future cutoff
+    freezes the window at its last decision point not beyond it, the
+    service up to the cutoff advanced without decisions.
+
+    A window takes at most ``max_steps_per_window`` decision steps
+    (default ``4 * max_jobs + 16``). ``policy``, ``backlog_gate`` and
+    ``stall_guard`` are :func:`replay`'s; the random control draws from
+    ``generator`` (default one seeded 0). ``faults`` waits for the
+    chaos slice. Returns ``{"avg_jct", "n_jobs", "jct", "finish",
+    "tenant", "windows", "makespan", "drain_completions"}``, the last
+    the value after the clamp."""
+    if faults is not None:
+        raise NotImplementedError(
+            "a stitched replay under a fault schedule (faults=, "
+            "evaluate --stitch-faults/--stitch-domain) waits for the "
+            "chaos and domain slice (ROADMAP.md queue 1, item 17)")
+    if policy not in ("greedy", "random"):
+        raise ValueError(f"unknown replay policy {policy!r}; "
+                         f"expected 'greedy' or 'random'")
+    if backlog_gate < 0:
+        raise ValueError("backlog_gate must be >= 0 (a negative gate never "
+                         "engages: silently ungated)")
+    if backlog_gate and policy == "random":
+        raise ValueError("backlog_gate composes with the learned policy "
+                         "only: gating the random control would overwrite "
+                         "its actions with FIFO whenever the backlog is "
+                         "shallow, silently inflating the baseline")
+    if drain_completions < 1:
+        raise ValueError("drain_completions must be >= 1 (a deep-backlog "
+                         "window must free at least one table row)")
+    if device is None and net is not None:
+        device = next(net.parameters()).device
+    dev = resolve_device(device)
+    if policy == "random" and generator is None:
+        generator = torch.Generator(dev).manual_seed(0)
+    sim = env_params.sim
+    J = sim.max_jobs
+    drain_block = min(int(drain_completions), max(J // 2, 1))
+    S = int(max_steps_per_window or 4 * J + 16)
+    # replay wants no horizon cut: only completion or the cutoff freeze
+    rp = dataclasses.replace(env_params, horizon=S + 1)
+    prefs = _fifo_preferences(env_params, dev) if backlog_gate else None
+    pre = (preempt_slice(env_params, dev)
+           if stall_guard and policy == "greedy" else None)
+    thresh = stall_threshold(env_params) if pre is not None else 0
+
+    valid = np.flatnonzero(np.asarray(source.valid))
+    submit = np.asarray(source.submit, np.float64)[valid]
+    duration = np.asarray(source.duration, np.float64)[valid]
+    gpus = np.asarray(source.gpus, np.int32)[valid]
+    tenant = np.asarray(source.tenant, np.int32)[valid]
+    total = len(valid)
+    if total == 0:
+        raise ValueError("source trace has no valid jobs")
+    if int(gpus.max()) > sim.capacity:
+        raise ValueError(
+            f"source demands up to {int(gpus.max())} GPUs but the cluster "
+            f"has {sim.capacity}; clamp the trace first "
+            f"(sim.core.validate_trace(clamp=True))")
+
+    finish_g = np.full(total, np.nan)        # global finish times
+    # residuals: original index -> remaining service
+    res_idx = np.zeros(0, np.int64)
+    res_rem = np.zeros(0, np.float64)
+    base, cursor, n_windows = 0.0, 0, 0
+    max_windows = 2 * total + 16   # >= 1 fresh job ingested per window
+    with torch.inference_mode():
+        while cursor < total or len(res_idx):
+            n_windows += 1
+            if n_windows > max_windows:
+                raise RuntimeError(
+                    f"full-trace replay made no progress after "
+                    f"{n_windows} windows ({cursor}/{total} ingested, "
+                    f"{len(res_idx)} residual)")
+            n_fresh = min(J - len(res_idx), total - cursor)
+            fresh = np.arange(cursor, cursor + n_fresh)
+            rows_idx = np.concatenate([res_idx, fresh])
+            rows_rem = np.concatenate([res_rem, duration[fresh]])
+            # rows must be submit-sorted (the sim's queue order); a
+            # carried not-yet-arrived residual can out-submit a fresh job
+            order = np.lexsort((rows_idx,
+                                np.maximum(submit[rows_idx] - base, 0.0)))
+            rows_idx, rows_rem = rows_idx[order], rows_rem[order]
+            n_rows = len(rows_idx)
+            cutoff = (submit[cursor + n_fresh] - base
+                      if cursor + n_fresh < total else np.inf)
+            # deep backlog: the first excluded job has already arrived
+            need_completion = bool(np.isfinite(cutoff) and cutoff <= 0.0)
+            if need_completion:
+                cutoff = 0.0
+
+            w_submit = np.full(J, np.inf, np.float32)
+            w_duration = np.ones(J, np.float32)
+            w_gpus = np.zeros(J, np.int32)
+            w_tenant = np.zeros(J, np.int32)
+            w_valid = np.zeros(J, bool)
+            w_submit[:n_rows] = np.maximum(submit[rows_idx] - base, 0.0)
+            w_duration[:n_rows] = rows_rem
+            w_gpus[:n_rows] = gpus[rows_idx]
+            w_tenant[:n_rows] = tenant[rows_idx]
+            w_valid[:n_rows] = True
+            trace = core.Trace.from_array_traces(
+                [ArrayTrace(w_submit, w_duration, w_gpus, w_tenant,
+                            w_valid)], sim, dev)
+            cut = torch.full((1,), np.float32(cutoff), device=dev)
+            s = _stitch_window(net, rp, trace, cut, need_completion,
+                               drain_block, S, policy, generator, prefs,
+                               backlog_gate, pre, thresh)
+            status = s.status[0, :n_rows].cpu().numpy()
+            finish = s.finish[0, :n_rows].cpu().numpy()
+            remaining = s.remaining[0, :n_rows].cpu().numpy()
+            clock = float(s.clock[0])
+            done_rows = status == DONE
+            finish_g[rows_idx[done_rows]] = base + finish[done_rows]
+            left = ~done_rows
+            res_idx = rows_idx[left]
+            res_rem = remaining.astype(np.float64)[left]
+            # future cutoff: global time jumps to the excluded arrival;
+            # completion mode and the final drain: by the sim time used
+            base = base + (cutoff if np.isfinite(cutoff)
+                           and not need_completion else clock)
+            cursor += n_fresh
+
+    jct = finish_g - submit
+    assert np.isfinite(jct).all()
+    return {"avg_jct": float(jct.mean()), "n_jobs": total,
+            "jct": jct, "finish": finish_g, "tenant": tenant,
+            "windows": n_windows, "makespan": float(np.nanmax(finish_g)),
+            "drain_completions": drain_block}
+
+
 def pooled_avg_jct(result: EvalResult) -> tuple[float, float]:
     """Completion-weighted mean JCT across clusters + completed fraction."""
     n = result.n_done.cpu().numpy().astype(np.float64)
@@ -344,6 +561,101 @@ def jct_report(exp, windows: list[ArrayTrace] | None = None,
                 pcts[name] = _pct_row(jcts, percentiles)
         wall["baselines"] = time.perf_counter() - t0
     if "tiresias" in report and report["tiresias"] > 0:
+        report["vs_tiresias"] = report["policy"] / report["tiresias"]
+    if percentiles is not None:
+        report["percentiles"] = pcts
+    report["wall_s"] = wall
+    return report
+
+
+def full_trace_report(exp, max_jobs: int | None = None,
+                      baselines: tuple[str, ...] = BASELINE_NAMES,
+                      max_steps_per_window: int | None = None,
+                      include_random: bool = True,
+                      percentiles: tuple[float, ...] | None = None,
+                      env_params: EnvParams | None = None,
+                      backlog_gate: int = 0, stall_guard: bool = True,
+                      drain_completions: int = 1,
+                      faults=None) -> dict[str, Any]:
+    """The full-trace comparison table (``evaluate --full-trace``): the
+    policy's avg JCT by :func:`full_trace_replay` (on the experiment's
+    device) against the baselines run over the same source trace (on
+    the host, the native engine unless no compiler is present), the
+    source cut to its first ``max_jobs`` jobs. ``include_random`` adds
+    the masked-uniform control through the same stitched replay.
+
+    ``env_params`` may deepen the stitch window (``sim.max_jobs``) and
+    change the horizon, nothing else: the policy's observation and
+    action spaces do not depend on the job table's size, everything
+    else is baked into them. Besides JAX's keys the report records
+    ``baseline_backend`` and ``wall_s``, the wall time of each part with
+    the device synchronized around it."""
+    if faults is not None:
+        raise NotImplementedError(
+            "a full-trace table under a fault schedule waits for the "
+            "chaos and domain slice (ROADMAP.md queue 1, item 17)")
+    eval_params = env_params or exp.env_params
+    if env_params is not None:
+        normalized = dataclasses.replace(
+            eval_params, sim=dataclasses.replace(
+                eval_params.sim, max_jobs=exp.env_params.sim.max_jobs),
+            horizon=exp.env_params.horizon)
+        if normalized != exp.env_params:
+            raise ValueError(
+                "env_params may change the stitch window (sim.max_jobs) "
+                "and horizon only; every other field is baked into the "
+                "checkpointed policy's observation and action spaces")
+    dev = exp.device
+    source = exp.source
+    if max_jobs is not None and source.num_jobs > max_jobs:
+        source = source.slice(0, max_jobs)
+    pcts: dict[str, dict[str, float]] = {}
+    wall: dict[str, float] = {}
+    t0 = _clock(dev)
+    out = full_trace_replay(exp.net, eval_params, source,
+                            max_steps_per_window=max_steps_per_window,
+                            backlog_gate=backlog_gate,
+                            stall_guard=stall_guard,
+                            drain_completions=drain_completions,
+                            device=dev)
+    wall["policy_replay"] = _clock(dev) - t0
+    report: dict[str, Any] = {"policy": out["avg_jct"],
+                              "n_jobs": out["n_jobs"],
+                              "policy_windows": out["windows"]}
+    if backlog_gate:
+        report["backlog_gate"] = int(backlog_gate)
+    if eval_params.sim.preempt_len:
+        report["stall_guard"] = bool(stall_guard)
+    if out["drain_completions"] != 1:
+        # the effective (clamped) batching: part of the evaluated
+        # scheduler's approximation, so artifacts stay distinguishable
+        report["drain_completions"] = int(out["drain_completions"])
+    if percentiles is not None:
+        # full_trace_replay finishes every job: no truncation bias here
+        pcts["policy"] = _pct_row(out["jct"], percentiles)
+    if include_random:
+        t0 = _clock(dev)
+        rnd = full_trace_replay(
+            None, eval_params, source,
+            max_steps_per_window=max_steps_per_window, policy="random",
+            generator=torch.Generator(dev).manual_seed(RANDOM_SEED),
+            drain_completions=drain_completions, device=dev)
+        wall["random_replay"] = _clock(dev) - t0
+        report["random"] = rnd["avg_jct"]
+        if percentiles is not None:
+            pcts["random"] = _pct_row(rnd["jct"], percentiles)
+    if baselines:
+        report["baseline_backend"] = resolve_backend("auto")
+        t0 = time.perf_counter()
+        for name in baselines:
+            sim = run_baseline(source, exp.cfg.n_nodes,
+                               exp.cfg.gpus_per_node, name,
+                               report["baseline_backend"])
+            report[name] = sim.avg_jct()
+            if percentiles is not None:
+                pcts[name] = _pct_row(sim.jcts(), percentiles)
+        wall["baselines"] = time.perf_counter() - t0
+    if report.get("tiresias"):
         report["vs_tiresias"] = report["policy"] / report["tiresias"]
     if percentiles is not None:
         report["percentiles"] = pcts

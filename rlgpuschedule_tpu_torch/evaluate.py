@@ -1,24 +1,31 @@
 """Evaluation CLI (L6) of the port:
 ``python -m rlgpuschedule_tpu_torch.evaluate --config <name>``.
 
-Counterpart of the per-window table of the JAX package's
-``evaluate.py``: it builds the config's experiment on the device,
-replays its trace windows under the greedy policy and the masked-uniform
-random control there, runs the FIFO, SJF, SRTF and Tiresias baselines
-over the same windows on the host (:func:`..eval.jct_report`), prints
-the table on stderr and one JSON line on stdout: the numeric rows,
-``percentiles`` with ``--percentiles``, the baseline backend, the wall
-time of each part, the device, and a ``repro`` block of the config
-fields that regenerate it.
-
-There are no checkpoints in the port yet, so the policy is the seeded
-init of ``--seed`` (said on stderr). Every other flag of the JAX CLI
-exits naming the slice it waits for.
+Counterpart of the per-window and full-trace tables of the JAX
+package's ``evaluate.py``: it builds the config's experiment on the
+device, restores the policy from ``--ckpt-dir`` (the step
+``--ckpt-step``, else the newest that restores; without it, the seeded
+init of ``--seed``, said on stderr), replays its trace windows under the
+greedy policy and the masked-uniform random control there, runs the
+FIFO, SJF, SRTF and Tiresias baselines over the same windows on the
+host (:func:`..eval.jct_report`), prints the table on stderr and one
+JSON line on stdout: the numeric rows, ``percentiles`` with
+``--percentiles``, the baseline backend, the wall time of each part, the
+device, and a ``repro`` block of the config fields and the checkpoint
+step that regenerate it. ``--full-trace`` replaces the windows by the
+whole source trace, stitched through the job table
+(:func:`..eval.full_trace_report`); ``--drain-frac`` evaluates on
+backlog-drain copies of that fraction of the windows. Every other flag
+of the JAX CLI exits naming the slice it waits for.
 
 Examples::
 
     python -m rlgpuschedule_tpu_torch.evaluate --config ppo-cnn-philly512 \\
         --eval-windows 8 --max-steps 4096 --percentiles
+    python -m rlgpuschedule_tpu_torch.evaluate --config ppo-mlp-synth64 \\
+        --ckpt-dir out/run --seed 123 --drain-frac 1.0
+    python -m rlgpuschedule_tpu_torch.evaluate --config ppo-mlp-synth64 \\
+        --ckpt-dir out/run --seed 123 --full-trace --stitch-drain-jobs 8
     python -m rlgpuschedule_tpu_torch.evaluate --config ppo-mlp-synth64 \\
         --baselines-only --device cpu
 """
@@ -27,15 +34,18 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import sys
 
 import torch
 
+from .checkpoint import Checkpointer
 from .cli import (add_config_flags, check_source_jobs, config_overrides,
                   numeric_rows, refuse_unported)
 from .configs import CONFIGS, repro_tuple
 from .device import resolve_device
-from .eval import baseline_jct_table, format_report, jct_report
+from .eval import (baseline_jct_table, format_report, full_trace_report,
+                   jct_report)
 from .experiment import (Experiment, build_env_params, load_source_trace,
                          make_env_windows)
 from .sim.core import validate_trace
@@ -44,14 +54,11 @@ from .sim.core import validate_trace
 PERCENTILES = (50, 90, 99)
 
 _Q1 = "ROADMAP.md queue 1"
-_FULL_TRACE = f"the full-trace stitched replay ({_Q1}, item 11)"
 # the JAX CLI's flags that this port does not take, and what they wait for
 UNPORTED_FLAGS: dict[str, str] = {
-    **dict.fromkeys(("--ckpt-dir", "--ckpt-step"),
-                    f"the checkpoint slice ({_Q1}, item 12)"),
-    **dict.fromkeys(("--full-trace", "--max-jobs", "--stitch-window-jobs",
-                     "--stitch-drain-jobs", "--stitch-faults",
-                     "--stitch-domain", "--stitch-seed"), _FULL_TRACE),
+    **dict.fromkeys(("--stitch-faults", "--stitch-domain", "--stitch-seed"),
+                    f"the chaos and domain slice ({_Q1}, item 17): a "
+                    f"stitched replay under a fault schedule"),
     **dict.fromkeys(
         ("--chaos", "--chaos-regimes", "--chaos-baselines", "--chaos-seed",
          "--matrix", "--matrix-regimes", "--matrix-baselines",
@@ -60,8 +67,6 @@ UNPORTED_FLAGS: dict[str, str] = {
     "--fairness": f"the fairness slice ({_Q1}, item 16)",
     **dict.fromkeys(("--pbt", "--n-pop", "--member"),
                     f"the hierarchical/PBT slice ({_Q1}, item 19)"),
-    "--drain-frac": f"window streaming and the drain curriculum ({_Q1}, "
-                    f"item 13)",
     **dict.fromkeys(("--obs-dir", "--trace-spans", "--alarms"),
                     f"the observability slice ({_Q1}, item 24)"),
     # a no-op switch here: the guard is on unless --no-stall-guard
@@ -80,6 +85,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--n-envs", type=int, default=None)
     add_config_flags(p)
+    p.add_argument("--drain-frac", type=float, default=None,
+                   help="evaluate on backlog-drain copies of this fraction "
+                        "of the windows (all jobs at t=0), the regime the "
+                        "drain curriculum trains on; 1.0 gives the "
+                        "BASELINE.md drain tables")
+    p.add_argument("--ckpt-dir", default=None,
+                   help="restore the policy from this checkpoint dir "
+                        "(cluster, queue and observation flags must match "
+                        "the training run's)")
+    p.add_argument("--ckpt-step", type=int, default=None,
+                   help="the checkpoint step to restore (default: the "
+                        "newest that restores)")
     p.add_argument("--max-steps", type=int, default=None,
                    help="decision steps per window (default: the horizon)")
     p.add_argument("--eval-windows", type=int, default=None,
@@ -88,6 +105,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--percentiles", action="store_true",
                    help="add p50/p90/p99 JCT columns per scheduler")
     p.add_argument("--baselines-only", action="store_true")
+    p.add_argument("--full-trace", action="store_true",
+                   help="evaluate over the entire source trace: the policy "
+                        "by sequential windowed replay with residual "
+                        "carry, the baselines over the same trace")
+    p.add_argument("--max-jobs", type=int, default=None,
+                   help="with --full-trace: cap the source trace at the "
+                        "first N jobs")
+    p.add_argument("--stitch-window-jobs", type=int, default=None,
+                   help="with --full-trace: stitch through a job table of "
+                        "this size instead of the training window_jobs "
+                        "(the policy does not depend on the table's "
+                        "size), widening the backlog held between seams")
+    p.add_argument("--stitch-drain-jobs", type=int, default=1,
+                   help="with --full-trace: in deep-backlog mode, free "
+                        "this many job-table rows per stitched window "
+                        "instead of 1 before ingesting fresh jobs (fewer "
+                        "windows on an overloaded stream; 1 reproduces "
+                        "the recorded tables)")
     p.add_argument("--no-random", action="store_true",
                    help="skip the random-policy row")
     p.add_argument("--backlog-gate", type=int, default=0,
@@ -112,14 +147,28 @@ def main(argv: "list[str] | None" = None) -> dict:
     refuse_unported(extra, parser, UNPORTED_FLAGS)
     if args.config not in CONFIGS:
         sys.exit(f"unknown config {args.config!r}")
-    cfg = dataclasses.replace(CONFIGS[args.config], **config_overrides(args))
+    over = config_overrides(args)
+    if args.drain_frac is not None:
+        over["drain_frac"] = args.drain_frac
+    cfg = dataclasses.replace(CONFIGS[args.config], **over)
     check_source_jobs(args, cfg)
     if args.percentiles and args.baselines_only:
         sys.exit("--percentiles applies to the JCT table with a policy row "
                  "(no --baselines-only)")
-    if args.eval_windows is not None and args.baselines_only:
+    if args.eval_windows is not None and (args.baselines_only
+                                          or args.full_trace):
         sys.exit("--eval-windows applies to the plain per-window JCT table "
-                 "(no --baselines-only)")
+                 "(no --baselines-only or --full-trace, which define their "
+                 "own windows)")
+    if args.stitch_window_jobs is not None and not args.full_trace:
+        sys.exit("--stitch-window-jobs applies to --full-trace stitched "
+                 "replay only")
+    if args.stitch_drain_jobs != 1 and not args.full_trace:
+        sys.exit("--stitch-drain-jobs applies to --full-trace stitched "
+                 "replay only")
+    if args.stitch_drain_jobs < 1:
+        sys.exit("--stitch-drain-jobs must be >= 1 (each deep-backlog "
+                 "window must free at least one job-table row)")
     if args.backlog_gate < 0:
         sys.exit("--backlog-gate must be >= 0 (a negative gate would "
                  "silently run ungated)")
@@ -133,7 +182,7 @@ def main(argv: "list[str] | None" = None) -> dict:
                  "actions, so it is a no-op elsewhere (refusing beats "
                  "silently changing nothing)")
     dev = resolve_device(args.device)
-    repro = repro_tuple(cfg)
+    repro = repro_tuple(cfg, ckpt_dir=args.ckpt_dir)
 
     try:
         if args.baselines_only:
@@ -148,18 +197,44 @@ def main(argv: "list[str] | None" = None) -> dict:
         exp = Experiment.build(cfg, device=dev)
     except (NotImplementedError, ValueError) as e:
         sys.exit(str(e))
-    print("note: no --ckpt-dir; evaluating untrained init weights",
-          file=sys.stderr)
-    windows = None
-    if args.eval_windows is not None and args.eval_windows != cfg.n_envs:
-        windows = make_env_windows(
-            dataclasses.replace(cfg, n_envs=args.eval_windows), exp.source)
-    report = jct_report(exp, windows=windows, max_steps=args.max_steps,
-                        include_random=not args.no_random,
-                        percentiles=PERCENTILES if args.percentiles
-                        else None,
-                        backlog_gate=args.backlog_gate,
-                        stall_guard=args.stall_guard)
+    if args.ckpt_dir:
+        with Checkpointer(os.path.abspath(args.ckpt_dir)) as ckpt:
+            exp.restore_checkpoint(ckpt, step=args.ckpt_step, train=False)
+        # resolved, not requested: the integrity fallback may restore an
+        # older retained step than asked for
+        repro["ckpt_step"] = ckpt.last_restored_step
+        print(f"policy restored from {args.ckpt_dir} (step "
+              f"{repro['ckpt_step']})", file=sys.stderr)
+    else:
+        print("note: no --ckpt-dir; evaluating untrained init weights",
+              file=sys.stderr)
+    if args.full_trace:
+        stitch_params = None
+        if args.stitch_window_jobs is not None:
+            stitch_params = dataclasses.replace(
+                exp.env_params, sim=dataclasses.replace(
+                    exp.env_params.sim, max_jobs=args.stitch_window_jobs))
+        report = full_trace_report(
+            exp, max_jobs=args.max_jobs, include_random=not args.no_random,
+            percentiles=PERCENTILES if args.percentiles else None,
+            env_params=stitch_params, backlog_gate=args.backlog_gate,
+            stall_guard=args.stall_guard,
+            drain_completions=args.stitch_drain_jobs)
+    else:
+        windows = None
+        if args.eval_windows is not None and \
+                args.eval_windows != cfg.n_envs:
+            # the restored tiling cursor, so that a resized batch replays
+            # the part of the trace the default one would
+            windows = make_env_windows(
+                dataclasses.replace(cfg, n_envs=args.eval_windows),
+                exp.source, start=exp.window_cursor)
+        report = jct_report(exp, windows=windows, max_steps=args.max_steps,
+                            include_random=not args.no_random,
+                            percentiles=PERCENTILES if args.percentiles
+                            else None,
+                            backlog_gate=args.backlog_gate,
+                            stall_guard=args.stall_guard)
     print(format_report(report), file=sys.stderr)
     out = numeric_rows(report)
     if "percentiles" in report:

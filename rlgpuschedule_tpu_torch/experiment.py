@@ -2,12 +2,30 @@
 optimizer and the training loop.
 
 Counterparts of ``build_env_params``, ``load_source_trace``,
-``build_stack``, ``windows_per_pass``, ``make_env_windows`` and the
-single-run ``Experiment`` (``build``, ``run`` with its eval hook,
-``steps_per_iteration``) in the JAX package's ``experiment.py``.
-Checkpoints, window streaming, ``run_fused``, meshes, faults and
-domains are not ported; the hierarchical config and A2C are refused
-here with ``NotImplementedError``.
+``build_stack``, ``windows_per_pass``, ``drain_window``,
+``make_env_windows`` (with the drain curriculum) and the single-run
+``Experiment`` (``build``, ``run`` with its eval, checkpoint and
+window-streaming cadences, ``advance_windows``, ``save_checkpoint``,
+``restore_checkpoint``, ``steps_per_iteration``) in the JAX package's
+``experiment.py``. ``run_fused``, meshes, faults and domains are not
+ported; the hierarchical config and A2C are refused here with
+``NotImplementedError``.
+
+Random streams: the rollout samples from the carry's generator (seeded
+``cfg.seed``) and the update permutes with another (seeded
+``cfg.seed + 1``). A window resample resets every episode and keeps the
+carry's generator, which goes on drawing where it was (JAX re-keys the
+carry with a split); both generators' states are checkpointed.
+
+Cadences count iterations over the experiment's whole life, across
+``run`` calls and a restore (``Experiment.iteration``): a resample falls
+just before iteration ``g`` whenever ``g % resample_every == 0`` and
+``g > 0``. So a checkpoint written on a resample boundary holds the
+state before the re-cut, and the run that restores it re-cuts first:
+``k`` iterations, a save, a restore and ``k`` more are the ``2k``
+uninterrupted ones for any cadence. Within one ``run`` from a fresh
+build this is JAX's schedule; JAX counts each ``run`` call from 0 and
+skips the resample after a call's last iteration.
 """
 from __future__ import annotations
 
@@ -15,6 +33,7 @@ import dataclasses
 import time
 from typing import Callable
 
+import numpy as np
 import torch
 
 from .algos.ppo import (PPOMetrics, TrainState, make_train_state,
@@ -22,12 +41,13 @@ from .algos.ppo import (PPOMetrics, TrainState, make_train_state,
 from .algos.rollout import (RolloutCarry, init_carry,
                             validate_rollout_geometry)
 from .algos.update import validate_update_geometry
+from .checkpoint import Checkpointer
 from .configs import ExperimentConfig
 from .device import resolve_device
-from .env.env import EnvParams, stack_traces
+from .env.env import EnvParams, EnvState, stack_traces
 from .env.obs import build_adjacency
 from .models import ActorCritic, GNNActorCritic, make_policy
-from .sim.core import SimParams, Trace, validate_trace
+from .sim.core import SimParams, SimState, Trace, validate_trace
 from .traces import (ArrayTrace, gen_pai_proxy_trace, gen_philly_proxy_trace,
                      gen_poisson_trace, load_pai, load_philly)
 
@@ -50,32 +70,35 @@ def build_env_params(cfg: ExperimentConfig) -> EnvParams:
                      preempt_cost=cfg.preempt_cost, horizon=cfg.horizon)
 
 
-def load_source_trace(cfg: ExperimentConfig) -> ArrayTrace:
+def load_source_trace(cfg: ExperimentConfig, n_jobs: int | None = None,
+                      seed: int | None = None) -> ArrayTrace:
     """The full source trace this experiment schedules: generated from
-    ``cfg.seed`` for the synthetic and proxy traces, sized by
-    ``cfg.source_jobs``; read from ``cfg.trace_path`` for the CSV
-    traces."""
-    # source_jobs pins generated traces only; a CSV is its own size
+    ``seed`` (default ``cfg.seed``) for the synthetic and proxy traces,
+    ``n_jobs`` long (default ``cfg.source_jobs``, else one pass over the
+    env batch); read from ``cfg.trace_path`` for the CSV traces, capped
+    at ``n_jobs``."""
+    seed = cfg.seed if seed is None else seed
+    if cfg.trace in ("synthetic", "philly-proxy", "pai-proxy"):
+        # source_jobs pins generated traces only; a CSV is its own size
+        n_jobs = n_jobs or cfg.source_jobs
     if cfg.trace == "synthetic":
-        n = cfg.source_jobs or max(cfg.window_jobs * max(cfg.n_envs, 8),
-                                   1024)
-        return gen_poisson_trace(cfg.arrival_rate, n, cfg.seed,
+        n = n_jobs or max(cfg.window_jobs * max(cfg.n_envs, 8), 1024)
+        return gen_poisson_trace(cfg.arrival_rate, n, seed,
                                  mean_duration=cfg.mean_duration,
                                  n_tenants=max(cfg.n_tenants, 1))
     if cfg.trace in ("philly-proxy", "pai-proxy"):
-        n = cfg.source_jobs or max(cfg.window_jobs * max(cfg.n_envs, 8),
-                                   4096)
+        n = n_jobs or max(cfg.window_jobs * max(cfg.n_envs, 8), 4096)
         gen = (gen_philly_proxy_trace if cfg.trace == "philly-proxy"
                else gen_pai_proxy_trace)
         kw = {"n_tenants": cfg.n_tenants} if cfg.n_tenants else {}
-        return gen(n, cfg.seed, n_gpus=cfg.total_gpus, load=cfg.trace_load,
+        return gen(n, seed, n_gpus=cfg.total_gpus, load=cfg.trace_load,
                    max_gang=cfg.total_gpus, **kw)
     if cfg.trace_path is None:
         raise ValueError(
             f"config {cfg.name!r} uses trace={cfg.trace!r} but has no "
             f"trace_path; pass one (CSV) or use trace='synthetic'")
     loader = load_philly if cfg.trace == "philly" else load_pai
-    return loader(cfg.trace_path)
+    return loader(cfg.trace_path, max_jobs=n_jobs)
 
 
 def windows_per_pass(total_jobs: int, window_jobs: int) -> int:
@@ -84,11 +107,26 @@ def windows_per_pass(total_jobs: int, window_jobs: int) -> int:
     return max(-(-total_jobs // window_jobs), 1)
 
 
+def drain_window(w: ArrayTrace) -> ArrayTrace:
+    """A backlog-drain copy of a window: every job submitted at t=0, so
+    the episode is only "drain this backlog", the regime where the
+    ordering and packing decisions carry the whole JCT signal (see
+    ``ExperimentConfig.drain_frac``)."""
+    return dataclasses.replace(
+        w, submit=np.where(w.valid, 0.0, np.inf).astype(np.float32))
+
+
 def make_env_windows(cfg: ExperimentConfig, source: ArrayTrace,
                      start: int = 0) -> list[ArrayTrace]:
     """Cut ``n_envs`` episode windows out of the source trace: windows
     ``start + e`` of a tiling of the trace by ``window_jobs``, wrapping
-    around at its end."""
+    around at its end. Advancing ``start`` by ``n_envs`` per resample
+    sweeps the whole trace every ``windows_per_pass / n_envs``
+    resamples.
+
+    With ``cfg.drain_frac > 0`` the last ``round(n_envs * drain_frac)``
+    envs train on drained copies of their windows (the backlog-drain
+    curriculum); resamples keep the same envs drained."""
     total = source.num_jobs
     if total < cfg.window_jobs:
         raise ValueError(f"source trace has {total} jobs < window "
@@ -99,6 +137,9 @@ def make_env_windows(cfg: ExperimentConfig, source: ArrayTrace,
         k = (start + e) % per_pass
         off = min(k * cfg.window_jobs, total - cfg.window_jobs)
         windows.append(source.slice(off, cfg.window_jobs))
+    n_drain = int(round(cfg.n_envs * cfg.drain_frac))
+    for e in range(cfg.n_envs - n_drain, cfg.n_envs):
+        windows[e] = drain_window(windows[e])
     return windows
 
 
@@ -138,6 +179,33 @@ def build_stack(cfg: ExperimentConfig,
     return env_params, windows, traces, net, source
 
 
+def _host(t: torch.Tensor) -> torch.Tensor:
+    """A CPU copy that owns its storage (a view would save its base)."""
+    return t.detach().to("cpu", copy=True)
+
+
+def _host_tree(tree):
+    """:func:`_host` on every tensor of nested dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: _host_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_host_tree(v) for v in tree)
+    return _host(tree) if isinstance(tree, torch.Tensor) else tree
+
+
+def restore_policy(ckpt: Checkpointer, net: torch.nn.Module,
+                   step: int | None = None) -> dict:
+    """Load the policy weights of checkpoint ``step`` (default: the
+    newest that restores, :meth:`..checkpoint.Checkpointer.restore`)
+    into ``net``, on its device; returns the checkpoint's meta. What a
+    replay or a server needs of a checkpoint, whatever device wrote
+    it."""
+    dev = next(net.parameters()).device
+    state, meta = ckpt.restore(step, map_location=dev)
+    net.load_state_dict(state["policy"])
+    return meta
+
+
 @dataclasses.dataclass
 class Experiment:
     """An assembled PPO run: the train step and its host loop."""
@@ -151,10 +219,23 @@ class Experiment:
     generator: torch.Generator   # the update's permutation stream
     source: ArrayTrace
     device: torch.device
+    window_cursor: int = 0   # first window index of the current env batch
+    iteration: int = 0       # iterations trained over all run() calls
 
     @property
     def net(self) -> "ActorCritic | GNNActorCritic":
         return self.train_state.net
+
+    @property
+    def step(self) -> int:
+        """The count of Adam updates taken (iterations x epochs x
+        minibatches): JAX's ``train_state.step``, and the number a
+        checkpoint is saved under."""
+        state = self.train_state.opt.state
+        for p in self.net.parameters():
+            if p in state:
+                return int(state[p]["step"])
+        return 0
 
     @staticmethod
     def build(cfg: ExperimentConfig,
@@ -193,48 +274,144 @@ class Experiment:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _cut_windows(self, cursor: int) -> None:
+        """Re-cut the env windows at tiling position ``cursor`` (the same
+        shapes; the carry is left as it is)."""
+        self.window_cursor = cursor
+        self.windows = make_env_windows(self.cfg, self.source, cursor)
+        self.traces = stack_traces(self.windows, self.env_params,
+                                   self.device)
+
+    def advance_windows(self) -> None:
+        """Rotate every env onto the next ``n_envs`` windows of the
+        source tiling and reset every episode (window streaming: a long
+        run covers the whole trace). The carry's generator goes on
+        drawing where it was."""
+        self._cut_windows(self.window_cursor + self.cfg.n_envs)
+        self.carry = init_carry(self.env_params, self.traces,
+                                self.carry.generator)
+
+    def save_checkpoint(self, ckpt: Checkpointer, step: int | None = None,
+                        meta: dict | None = None,
+                        force: bool = False) -> bool:
+        """Persist the policy, the optimizer (both Adam moments and its
+        step), the rollout carry (env state, obs, mask) and the states
+        of both generators under ``step`` (default :attr:`step`), all as
+        host tensors; ``meta`` gains the config, ``iteration`` (the last
+        one trained), ``window_cursor`` and the generators' device.
+        ``force=True`` overwrites an existing step."""
+        step = self.step if step is None else step
+        c = self.carry
+        state = {
+            "policy": _host_tree(self.net.state_dict()),
+            "optimizer": _host_tree(self.train_state.opt.state_dict()),
+            "carry": {"sim": _host_tree(c.env_state.sim._asdict()),
+                      "t": _host(c.env_state.t), "obs": _host(c.obs),
+                      "mask": _host(c.mask)},
+            "generators": {"sampling": c.generator.get_state().clone(),
+                           "update": self.generator.get_state().clone()},
+        }
+        meta = dict(meta or {}, config=dataclasses.asdict(self.cfg),
+                    iteration=self.iteration - 1,
+                    window_cursor=self.window_cursor,
+                    generator_device=self.device.type)
+        return ckpt.save(step, state, meta=meta, force=force)
+
+    def restore_checkpoint(self, ckpt: Checkpointer, step: int | None = None,
+                           train: bool = True) -> dict:
+        """Restore checkpoint ``step`` (default: the newest that
+        restores) in place and return its meta. The windows are re-cut
+        at its cursor. With ``train`` (the default) the optimizer, the
+        carry, both generators and the iteration count come back too, so
+        a resumed :meth:`run` reproduces the uninterrupted run bit for
+        bit; the experiment must be built from the same config on the
+        same kind of device (a generator's state does not carry between
+        a CUDA and a CPU generator). ``train=False`` loads the policy
+        and the cursor only: what a replay needs, from a checkpoint
+        written on any device."""
+        state, meta = ckpt.restore(step, map_location=self.device)
+        wrote = meta.get("generator_device")
+        if train and wrote != self.device.type:
+            raise ValueError(
+                f"checkpoint {ckpt.last_restored_step} holds {wrote} "
+                f"generator states, which a {self.device.type} run cannot "
+                f"continue; restore with train=False to replay its policy")
+        self.net.load_state_dict(state["policy"])
+        if train:
+            self.train_state.opt.load_state_dict(state["optimizer"])
+            c = state["carry"]
+            gen = self.carry.generator
+            gen.set_state(state["generators"]["sampling"].cpu())
+            self.generator.set_state(state["generators"]["update"].cpu())
+            self.carry = RolloutCarry(
+                EnvState(sim=SimState(**c["sim"]), t=c["t"]), c["obs"],
+                c["mask"], gen)
+            self.iteration = int(meta["iteration"]) + 1
+        cursor = int(meta.get("window_cursor", 0))
+        if cursor != self.window_cursor:
+            self._cut_windows(cursor)
+        return meta
+
     def run(self, iterations: int | None = None, log_every: int = 0,
             logger: Callable[[int, dict], None] | None = None,
+            ckpt: Checkpointer | None = None, ckpt_every: int = 0,
             eval_every: int = 0,
             eval_fn: "Callable[[int], dict] | None" = None,
             eval_logger: Callable[[int, dict], None] | None = None,
             ) -> dict:
-        """Run the training loop; returns the summary (wall time, env
-        steps per second, logged history). Iteration ``i`` is logged
-        when ``i % log_every == 0`` and at the last iteration; a logged
-        iteration costs one host sync (its metrics in one transfer).
+        """Run ``iterations`` (default ``cfg.iterations``) more training
+        iterations; returns the summary (wall time, env steps per second,
+        ``window_cursor``, logged history). Iteration ``g`` counts over
+        the experiment's life (:attr:`iteration`, the module docstring's
+        cadences): it is logged when ``g % log_every == 0`` and at the
+        call's last iteration; a logged iteration costs one host sync
+        (its metrics in one transfer).
 
-        ``eval_fn(i) -> dict`` runs after iteration ``i`` when
-        ``(i + 1) % eval_every == 0`` and at the last iteration (the
+        ``eval_fn(g) -> dict`` runs after iteration ``g`` when
+        ``(g + 1) % eval_every == 0`` and at the last iteration (the
         in-training quality probe, e.g. a held-out JCT replay); its rows
         go to ``eval_logger`` and into the summary's ``eval_history``.
-        Nothing else in the loop waits for the device. ``wall_s`` and
-        env-steps/s include the probes' time."""
+        With ``ckpt``, the experiment is saved after the probe at the
+        same cadence of ``ckpt_every`` and at the last iteration; with
+        ``cfg.resample_every`` the windows are re-cut before every
+        ``resample_every``-th iteration. Nothing else in the loop waits
+        for the device. ``wall_s`` and env-steps/s include the probes'
+        and saves' time."""
         iterations = iterations or self.cfg.iterations
+        every = self.cfg.resample_every
         history, eval_history = [], []
         self._sync()
         t0 = time.perf_counter()
         for i in range(iterations):
+            g = self.iteration
+            if every and g and g % every == 0:
+                self.advance_windows()
             self.train_state, self.carry, metrics = self.train_step(
                 self.train_state, self.carry, self.traces, self.generator)
-            if log_every and (i % log_every == 0 or i == iterations - 1):
+            self.iteration = g + 1
+            last = i == iterations - 1
+            if log_every and (g % log_every == 0 or last):
                 m = dict(zip(PPOMetrics._fields,
                              torch.stack(metrics).tolist()))
-                history.append({"iteration": i, **m})
+                history.append({"iteration": g, **m})
                 if logger is not None:
-                    logger(i, m)
+                    logger(g, m)
             if eval_fn is not None and eval_every and \
-                    ((i + 1) % eval_every == 0 or i == iterations - 1):
-                em = dict(eval_fn(i))
-                eval_history.append({"iteration": i, **em})
+                    ((g + 1) % eval_every == 0 or last):
+                em = dict(eval_fn(g))
+                eval_history.append({"iteration": g, **em})
                 if eval_logger is not None:
-                    eval_logger(i, em)
+                    eval_logger(g, em)
+            if ckpt is not None and ckpt_every and \
+                    ((g + 1) % ckpt_every == 0 or last):
+                self.save_checkpoint(ckpt)
         self._sync()
         wall = time.perf_counter() - t0
         env_steps = iterations * self.steps_per_iteration
         out = {"wall_s": wall, "iterations": iterations,
                "env_steps": env_steps,
                "env_steps_per_sec": env_steps / wall,
+               "window_cursor": self.window_cursor,
                "history": history}
         if eval_history:
             out["eval_history"] = eval_history

@@ -16,10 +16,13 @@ Modes, composable in one invocation (at least one is required):
   plane, the arena's steady-state numpy allocations counted (must be 0).
 - ``--fleet N``: greedy replay against N seeded simulated clusters.
 
-The weights come from ``--weights x.npz`` (a Flax parameter tree of the
-JAX package saved flat, see :func:`..models.convert.load_npz`) or, by
-default, from a seeded initialization. ``--metrics-port`` exposes the
-live Prometheus scrape endpoint; ``--obs-dir`` writes the event stream
+The weights come from a checkpoint of the port's ``train``
+(``--ckpt-dir``, at ``--ckpt-step`` or the newest step that restores),
+from ``--weights x.npz`` (a Flax parameter tree of the JAX package saved
+flat, see :func:`..models.convert.load_npz`; JAX's Orbax checkpoints do
+not load here) or, by default, from a seeded initialization.
+``--metrics-port`` exposes the live Prometheus scrape endpoint;
+``--obs-dir`` writes the event stream
 (``compile`` / ``recompile`` events, with ``--trace-spans`` the request
 spans) and a ``metrics.prom`` snapshot. The device is ``cuda`` unless
 ``--device cpu`` is given; the JSON on stdout carries the ``repro``
@@ -29,8 +32,8 @@ Refused with ``NotImplementedError`` naming their ``ROADMAP.md`` item:
 the router (``--engines`` > 1, ``--scaleout``, ``--autoscale``,
 ``--chaos-faults``), the network front door (``--frontend-port``,
 ``--wire-requests``), the flywheel (``--flight-log``, ``--promote``,
-``--promote-noise``), checkpoints (``--ckpt-dir``) and fault-regime
-fleet replays (``--fleet-regime``).
+``--promote-noise``) and fault-regime fleet replays
+(``--fleet-regime``).
 
 Example::
 
@@ -47,10 +50,11 @@ import sys
 
 import torch
 
+from ..checkpoint import Checkpointer
 from ..cli import add_config_flags, check_source_jobs, config_overrides
 from ..configs import CONFIGS, repro_tuple
 from ..device import resolve_device
-from ..experiment import build_env_params, build_policy
+from ..experiment import build_env_params, build_policy, restore_policy
 from ..models import load_npz
 from ..obs import EventBus, Registry, Tracer, serve_http
 from ..obs.trace import NULL_TRACER
@@ -69,7 +73,6 @@ DEFERRED = {
                     "item 22)"),
     **dict.fromkeys(("flight_log", "promote", "promote_noise"),
                     "the flywheel slice (ROADMAP.md queue 1, item 23)"),
-    "ckpt_dir": "the checkpoint slice (ROADMAP.md queue 1, item 12)",
     "fleet_regime": "the faults slice of sim/core (ROADMAP.md queue 1, "
                     "item 17)",
 }
@@ -88,6 +91,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--n-envs", type=int, default=None,
                    help="env windows the request pool is stepped on")
     add_config_flags(p)
+    p.add_argument("--ckpt-dir", default=None,
+                   help="serve the policy of this checkpoint dir (the "
+                        "port's train --ckpt-dir; pick the step with "
+                        "select_checkpoint)")
+    p.add_argument("--ckpt-step", type=int, default=None,
+                   help="the checkpoint step (default: the newest that "
+                        "restores)")
     p.add_argument("--weights", default=None, metavar="NPZ",
                    help="Flax parameter tree saved flat as .npz")
     p.add_argument("--device", default=None,
@@ -148,7 +158,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--flight-log", default=None, metavar="DIR")
     p.add_argument("--promote", default=None, metavar="CKPTDIR")
     p.add_argument("--promote-noise", type=float, default=None)
-    p.add_argument("--ckpt-dir", default=None)
     p.add_argument("--fleet-regime", default=None, metavar="REGIME")
     return p
 
@@ -168,6 +177,12 @@ def _check(args) -> "tuple[int, ...] | None":
         raise NotImplementedError(
             "--engines > 1 is not in the PyTorch port yet: it waits for "
             "the router slice (ROADMAP.md queue 1, item 22)")
+    if args.weights and args.ckpt_dir:
+        sys.exit("--weights and --ckpt-dir both name the served weights; "
+                 "pass one")
+    if args.ckpt_step is not None and not args.ckpt_dir:
+        sys.exit("--ckpt-step picks a step of --ckpt-dir; pass --ckpt-dir "
+                 "with it")
     if not (args.bench or args.soak is not None or args.host_path
             or args.fleet is not None):
         sys.exit("nothing to do: pass --bench, --soak S, --host-path "
@@ -222,14 +237,23 @@ def main(argv: "list[str] | None" = None) -> dict:
     dev = resolve_device(args.device)
     env_params = build_env_params(cfg)
     policy = build_policy(cfg, env_params, device=dev)
-    if args.weights:
+    repro = repro_tuple(cfg, ckpt_dir=args.ckpt_dir)
+    if args.ckpt_dir:
+        with Checkpointer(os.path.abspath(args.ckpt_dir)) as ckpt:
+            restore_policy(ckpt, policy, args.ckpt_step)
+        # resolved, not requested: the integrity fallback may restore an
+        # older retained step than asked for
+        repro["ckpt_step"] = ckpt.last_restored_step
+        print(f"policy restored from {args.ckpt_dir} (step "
+              f"{repro['ckpt_step']})", file=sys.stderr)
+    elif args.weights:
         policy.load_state_dict(load_npz(args.weights))
         print(f"policy weights from {args.weights}", file=sys.stderr)
     else:
-        print(f"note: no --weights; serving seeded init weights "
-              f"(seed {cfg.seed})", file=sys.stderr)
+        print(f"note: no --ckpt-dir or --weights; serving seeded init "
+              f"weights (seed {cfg.seed})", file=sys.stderr)
     report: dict = {"config": cfg.name, "seed": cfg.seed,
-                    "weights": args.weights, "repro": repro_tuple(cfg),
+                    "weights": args.weights, "repro": repro,
                     "device": str(dev)}
     if dev.type == "cuda":
         report["device_name"] = torch.cuda.get_device_name(dev)

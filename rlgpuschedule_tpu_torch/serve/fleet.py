@@ -23,18 +23,21 @@ from ..experiment import build_env_params, load_source_trace, make_env_windows
 from ..sim.core import Trace, validate_trace
 
 
-def fleet_windows(cfg, n_clusters: int,
+def fleet_windows(cfg, n_clusters: int, source=None, start: int = 0, *,
                   device: "torch.device | str | None" = None):
     """Cut ``n_clusters`` seeded trace windows (one per simulated
-    cluster) from the config's source trace, the same tiling eval uses:
-    cluster ``e`` is window ``e``. Returns ``(windows, batched device
+    cluster) from ``source`` (default: the config's validated source
+    trace), the same tiling training and eval use: cluster ``e`` is
+    window ``start + e``. Returns ``(windows, batched device
     traces)``."""
     if n_clusters <= 0:
         raise ValueError(f"n_clusters must be positive, got {n_clusters}")
     sim_params = build_env_params(cfg).sim
-    source = validate_trace(sim_params, load_source_trace(cfg), clamp=True)
+    if source is None:
+        source = validate_trace(sim_params, load_source_trace(cfg),
+                                clamp=True)
     windows = make_env_windows(dataclasses.replace(cfg, n_envs=n_clusters),
-                               source)
+                               source, start)
     return windows, stack_traces(windows, sim_params, device)
 
 

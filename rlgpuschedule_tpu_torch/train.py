@@ -9,10 +9,22 @@ probe (its keys start with ``eval_``), then a summary line with
 env-steps/s, the device it ran on and, with ``--report``, the
 JCT-vs-baselines table (also printed on stderr).
 
+``--ckpt-dir`` keeps the last ``--ckpt-keep`` checkpoints, written every
+``--ckpt-every`` iterations and at the last (:mod:`.checkpoint`);
+``--resume`` restores the newest that loads and trains ``--iterations``
+more, its iterations numbered on from the checkpoint's; ``--keep-best``
+also saves the policy whenever the held-out probe improves, under
+``<ckpt-dir>/best``. ``--drain-frac`` trains that fraction of the envs
+on backlog-drain windows; ``--resample-every`` re-cuts the windows from
+the source trace every N iterations.
+
 Examples::
 
     python -m rlgpuschedule_tpu_torch.train --config ppo-cnn-philly512 \\
         --iterations 3 --log-every 1
+    python -m rlgpuschedule_tpu_torch.train --config ppo-mlp-synth64 \\
+        --drain-frac 1.0 --iterations 1500 --ckpt-dir out/run \\
+        --ckpt-every 250 --ckpt-keep 6
     python -m rlgpuschedule_tpu_torch.train --config ppo-mlp-synth64 \\
         --n-envs 2 --n-steps 16 --iterations 2 --eval-every 1 --report \\
         --device cpu
@@ -22,11 +34,13 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import sys
 
 import torch
 
 from . import eval as eval_lib
+from .checkpoint import Checkpointer
 from .cli import (add_config_flags, check_source_jobs, config_overrides,
                   numeric_rows, refuse_unported)
 from .configs import CONFIGS, ExperimentConfig
@@ -37,8 +51,6 @@ from .sim.core import validate_trace
 _Q1 = "ROADMAP.md queue 1"
 # the JAX CLI's flags that this port does not take, and what they wait for
 UNPORTED_FLAGS: dict[str, str] = {
-    **dict.fromkeys(("--resample-every", "--drain-frac"),
-                    f"window streaming ({_Q1}, item 13)"),
     **dict.fromkeys(("--faults", "--domains"),
                     f"the chaos and domain slice ({_Q1}, item 17)"),
     **dict.fromkeys(
@@ -54,9 +66,6 @@ UNPORTED_FLAGS: dict[str, str] = {
     **dict.fromkeys(("--mesh", "--max-rollbacks", "--fault"),
                     f"the data-parallel and resilience slice ({_Q1}, "
                     f"item 21)"),
-    **dict.fromkeys(("--ckpt-dir", "--ckpt-every", "--ckpt-keep",
-                     "--resume", "--keep-best"),
-                    f"the checkpoint slice ({_Q1}, item 12)"),
     **dict.fromkeys(("--continual", "--continual-trust",
                      "--continual-rho-max"),
                     f"the data-flywheel slice ({_Q1}, item 23)"),
@@ -81,6 +90,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--n-envs", type=int, default=None)
     add_config_flags(p)
+    p.add_argument("--resample-every", type=int, default=None,
+                   help="window streaming: rotate env windows over the "
+                        "source trace every N iterations (0 = static)")
+    p.add_argument("--drain-frac", type=float, default=None,
+                   help="backlog-drain curriculum: fraction of envs that "
+                        "train on drained copies of their windows (all "
+                        "jobs at t=0)")
     p.add_argument("--n-steps", type=int, default=None,
                    help="rollout length T per iteration")
     p.add_argument("--n-epochs", type=int, default=None,
@@ -104,9 +120,24 @@ def build_parser() -> argparse.ArgumentParser:
                         "training seed + 1000)")
     p.add_argument("--eval-probe", default="auto",
                    choices=["auto", "drain", "stream"],
-                   help="probe regime; the port probes streaming windows "
-                        "('auto' = 'stream'); 'drain' waits for the drain "
-                        "curriculum")
+                   help="probe regime: auto = drain for drain-curriculum "
+                        "configs (--drain-frac > 0), else streaming. Use "
+                        "'stream' when the deliverable is a streaming or "
+                        "full-trace table: drain quality does not rank "
+                        "streaming quality")
+    p.add_argument("--keep-best", action="store_true",
+                   help="with --eval-every and --ckpt-dir: whenever the "
+                        "held-out probe's avg JCT improves (at full "
+                        "completion), save a checkpoint under "
+                        "<ckpt-dir>/best")
+    p.add_argument("--ckpt-dir", default=None)
+    p.add_argument("--ckpt-every", type=int, default=50)
+    p.add_argument("--ckpt-keep", type=int, default=None,
+                   help="retain the last N periodic checkpoints (default "
+                        "3); keep a series to rank afterwards with "
+                        "select_checkpoint on a validation stream")
+    p.add_argument("--resume", action="store_true",
+                   help="restore the latest checkpoint from --ckpt-dir")
     p.add_argument("--report", action="store_true",
                    help="print the JCT-vs-baselines table after training "
                         "(stderr) and add it to the summary line")
@@ -118,8 +149,9 @@ def build_parser() -> argparse.ArgumentParser:
 def apply_overrides(cfg: ExperimentConfig,
                     args: argparse.Namespace) -> ExperimentConfig:
     over = config_overrides(args)
-    if args.iterations is not None:
-        over["iterations"] = args.iterations
+    for k in ("iterations", "resample_every", "drain_frac"):
+        if getattr(args, k) is not None:
+            over[k] = getattr(args, k)
     cfg = dataclasses.replace(cfg, **over)
     ppo = {"lr": args.lr, "ent_coef": args.ent_coef,
            "n_steps": args.n_steps, "n_epochs": args.n_epochs,
@@ -140,17 +172,16 @@ def make_eval_probe(cfg: ExperimentConfig, exp: Experiment, n_windows: int,
     against the FIFO and Tiresias baselines computed once, here. Returns
     ``eval_fn(i) -> dict`` for :meth:`Experiment.run`.
 
-    ``regime``: the port probes streaming windows (``"auto"`` and
-    ``"stream"``); ``"drain"`` waits for the drain curriculum. CSV traces
-    have no second trace to hold out: the probe replays leading windows
-    of the training CSV (on-distribution), says so on stderr, and
-    refuses ``eval_seed``."""
-    if regime == "drain":
-        raise NotImplementedError(
-            "the drain probe (--eval-probe drain) waits for window "
-            "streaming and the drain curriculum (ROADMAP.md queue 1, "
-            "item 13)")
-    if regime not in ("auto", "stream"):
+    ``regime``: ``"auto"`` probes all-drain windows for a
+    drain-curriculum config (``cfg.drain_frac > 0``) and all-streaming
+    ones otherwise; ``"drain"``/``"stream"`` force one. One regime, never
+    a mix: a fractional ``drain_frac`` would pool two incomparable
+    numbers. CSV traces have no second trace to hold out: the probe
+    replays leading windows of the training CSV (on-distribution), says
+    so on stderr, and refuses ``eval_seed``."""
+    if regime == "auto":
+        regime = "drain" if cfg.drain_frac > 0 else "stream"
+    if regime not in ("drain", "stream"):
         raise ValueError(f"unknown probe regime {regime!r}")
     if cfg.trace in ("philly", "pai"):
         if eval_seed is not None:
@@ -164,7 +195,8 @@ def make_eval_probe(cfg: ExperimentConfig, exp: Experiment, n_windows: int,
     seed = cfg.seed + 1000 if eval_seed is None else eval_seed
     # source_jobs=None: the probe's trace is sized to its own windows
     ecfg = dataclasses.replace(cfg, n_envs=n_windows, seed=seed,
-                               source_jobs=None)
+                               source_jobs=None,
+                               drain_frac=1.0 if regime == "drain" else 0.0)
     sim_params = exp.env_params.sim
     windows = make_env_windows(ecfg, validate_trace(
         sim_params, load_source_trace(ecfg), clamp=True))
@@ -184,6 +216,39 @@ def make_eval_probe(cfg: ExperimentConfig, exp: Experiment, n_windows: int,
     return eval_fn
 
 
+def _keep_best(exp: Experiment, ckpt: Checkpointer, probe):
+    """Wrap ``probe`` so that each probe whose avg JCT beats the best so
+    far, at full completion, saves the experiment under
+    ``<ckpt-dir>/best`` (one step kept). A resumed run recovers the bar
+    from the saved meta, so its first probe cannot rotate out a better
+    policy of the earlier run."""
+    best_ckpt = Checkpointer(os.path.join(ckpt.directory, "best"),
+                             max_to_keep=1)
+    best = {"jct": float("inf")}
+    if best_ckpt.latest_step() is not None:
+        best["jct"] = float(best_ckpt.read_meta().get("eval_avg_jct",
+                                                      float("inf")))
+        print(f"keep-best: prior best eval_avg_jct={best['jct']:.1f}",
+              file=sys.stderr)
+
+    def keep_best_probe(i: int) -> dict:
+        m = dict(probe(i))
+        improved = (m["eval_completion"] >= 1.0
+                    and m["eval_avg_jct"] < best["jct"])
+        if improved:
+            # force: a resumed run can revisit a step number best/
+            # already holds, and a skipped save would leave stale
+            # weights labelled with the new probe's result
+            exp.save_checkpoint(best_ckpt,
+                                meta={"eval_avg_jct": m["eval_avg_jct"]},
+                                force=True)
+            best["jct"] = m["eval_avg_jct"]
+        m["eval_is_best"] = float(improved)
+        return m
+
+    return keep_best_probe
+
+
 def main(argv: "list[str] | None" = None) -> dict:
     parser = build_parser()
     args, extra = parser.parse_known_args(argv)
@@ -196,20 +261,44 @@ def main(argv: "list[str] | None" = None) -> dict:
         return {}
     if args.config not in CONFIGS:
         sys.exit(f"unknown config {args.config!r}; try --list-configs")
+    if args.keep_best and not (args.eval_every and args.ckpt_dir):
+        sys.exit("--keep-best requires --eval-every (the probe that "
+                 "defines 'best') and --ckpt-dir (where best/ lives)")
     if args.eval_probe != "auto" and not args.eval_every:
         sys.exit("--eval-probe selects the --eval-every probe's regime; "
                  "without --eval-every no probe runs and the flag would "
                  "be a silent no-op")
+    if args.ckpt_keep is not None:
+        if args.ckpt_keep < 1:
+            sys.exit("--ckpt-keep must be >= 1")
+        if not args.ckpt_dir:
+            sys.exit("--ckpt-keep requires --ckpt-dir (nothing is "
+                     "retained without one)")
+    if args.resume and not args.ckpt_dir:
+        sys.exit("--resume requires --ckpt-dir")
     cfg = apply_overrides(CONFIGS[args.config], args)
     check_source_jobs(args, cfg)
     try:
         exp = Experiment.build(cfg, device=args.device)
+        ckpt = None
+        if args.ckpt_dir:
+            ckpt = Checkpointer(os.path.abspath(args.ckpt_dir),
+                                max_to_keep=args.ckpt_keep or 3)
+        if args.resume:
+            meta = exp.restore_checkpoint(ckpt)
+            # last_restored_step, not latest_step: the integrity fallback
+            # may have restored an older retained step than the newest
+            print(f"resumed from step {ckpt.last_restored_step} "
+                  f"(iteration {meta['iteration']}, window cursor "
+                  f"{meta['window_cursor']})", file=sys.stderr)
         eval_kw = {}
         if args.eval_every:
+            probe = make_eval_probe(cfg, exp, args.eval_windows,
+                                    args.eval_seed, args.eval_probe)
+            if args.keep_best:
+                probe = _keep_best(exp, ckpt, probe)
             eval_kw = dict(
-                eval_every=args.eval_every,
-                eval_fn=make_eval_probe(cfg, exp, args.eval_windows,
-                                        args.eval_seed, args.eval_probe),
+                eval_every=args.eval_every, eval_fn=probe,
                 eval_logger=lambda i, m: print(
                     json.dumps({"iteration": i, **m}), flush=True))
     except (NotImplementedError, ValueError) as e:
@@ -218,7 +307,8 @@ def main(argv: "list[str] | None" = None) -> dict:
     def logger(i: int, m: dict) -> None:
         print(json.dumps({"iteration": i, **m}), flush=True)
 
-    out = exp.run(log_every=args.log_every, logger=logger, **eval_kw)
+    out = exp.run(log_every=args.log_every, logger=logger, ckpt=ckpt,
+                  ckpt_every=args.ckpt_every, **eval_kw)
     dev = exp.device
     summary = {k: v for k, v in out.items() if k != "history"}
     summary.update(

@@ -11,6 +11,7 @@ p50/p90/p99 rows agree within rtol 1e-6; the random row does not enter
 the comparison (the two random streams differ), only its checks here.
 """
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -426,3 +427,125 @@ def test_jct_report_records_the_stall_guard_where_it_can_engage():
     assert "stall_guard" not in got["ppo-mlp-synth64", True]
     assert got["ppo-mlp-synth64", True]["policy"] == \
         got["ppo-mlp-synth64", False]["policy"]
+
+
+# ---- evaluate --ckpt-dir, --drain-frac and --full-trace ---------------------
+
+# config 1 cut to a few seconds on the CPU, as the train tests cut it
+CUT = dict(n_envs=2, n_nodes=4, gpus_per_node=4, window_jobs=12,
+           queue_len=4, horizon=96)
+CUT_FLAGS = ["--config", "ppo-mlp-synth64", "--n-envs", "2", "--n-nodes",
+             "4", "--gpus-per-node", "4", "--window-jobs", "12",
+             "--queue-len", "4", "--horizon", "96"]
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    """A cut config-1 run trained 3 iterations on the drain curriculum,
+    a checkpoint after each (2 kept)."""
+    from rlgpuschedule_tpu_torch.checkpoint import Checkpointer
+    cfg = dataclasses.replace(
+        tconfigs.CONFIGS["ppo-mlp-synth64"], **CUT, drain_frac=1.0,
+        ppo=dataclasses.replace(tconfigs.CONFIGS["ppo-mlp-synth64"].ppo,
+                                n_steps=8, n_epochs=1, n_minibatches=2))
+    d = str(tmp_path_factory.mktemp("trained") / "ck")
+    exp = Experiment.build(cfg, device="cpu")
+    exp.run(3, ckpt=Checkpointer(d, max_to_keep=2), ckpt_every=1)
+    return d, exp
+
+
+def _restored(d, step=None, **kw):
+    from rlgpuschedule_tpu_torch.checkpoint import Checkpointer
+    cfg = dataclasses.replace(tconfigs.CONFIGS["ppo-mlp-synth64"], **CUT,
+                              **kw)
+    exp = Experiment.build(cfg, device="cpu")
+    exp.restore_checkpoint(Checkpointer(d), step=step, train=False)
+    return exp
+
+
+def test_evaluate_cli_restores_a_checkpoint_in_a_subprocess(trained):
+    """``evaluate --ckpt-dir`` in its own process reports the JCT table
+    the trained experiment's own policy gives in this one, and names the
+    step it restored."""
+    import os
+    import subprocess
+    import sys
+    d, exp = trained
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    p = subprocess.run(
+        [sys.executable, "-m", "rlgpuschedule_tpu_torch.evaluate"]
+        + CUT_FLAGS + ["--ckpt-dir", d, "--seed", "123", "--no-random",
+                       "--eval-windows", "3", "--device", "cpu"],
+        cwd=root, env=dict(os.environ, PYTHONPATH=root),
+        capture_output=True, text=True, timeout=300)
+    assert p.returncode == 0, p.stderr
+    line = json.loads(p.stdout.strip().splitlines()[-1])
+    assert line["repro"]["ckpt_step"] == exp.step == 6
+    assert line["repro"]["ckpt_dir"] == d
+    held = dataclasses.replace(exp.cfg, seed=123, drain_frac=0.0)
+    from rlgpuschedule_tpu_torch import experiment as texp
+    win = texp.make_env_windows(dataclasses.replace(held, n_envs=3),
+                                texp.load_source_trace(held))
+    want = teval.jct_report(exp, windows=win, include_random=False)
+    for k in ROWS:
+        assert line[k] == want[k], k
+    assert "restored from" in p.stderr and "(step 6)" in p.stderr
+
+
+def test_evaluate_cli_ckpt_step_and_drain_frac(trained, capsys):
+    from rlgpuschedule_tpu_torch import evaluate as tevaluate
+    d, _ = trained
+    report = tevaluate.main(CUT_FLAGS + ["--ckpt-dir", d, "--ckpt-step", "4",
+                                         "--drain-frac", "1.0",
+                                         "--no-random", "--device", "cpu"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["repro"]["ckpt_step"] == 4
+    assert line["repro"]["drain_frac"] == 1.0
+    exp = _restored(d, step=4, drain_frac=1.0)
+    for w in exp.windows:
+        assert (w.submit[w.valid] == 0.0).all()
+    want = teval.jct_report(exp, include_random=False)
+    for k in ROWS:
+        assert report[k] == want[k], k
+    with pytest.raises(FileNotFoundError):
+        tevaluate.main(CUT_FLAGS + ["--ckpt-dir", d, "--ckpt-step", "2",
+                                    "--device", "cpu"])
+
+
+def test_evaluate_cli_full_trace_matches_the_library(trained, capsys):
+    from rlgpuschedule_tpu_torch import evaluate as tevaluate
+    d, _ = trained
+    report = tevaluate.main(CUT_FLAGS + [
+        "--ckpt-dir", d, "--full-trace", "--max-jobs", "40",
+        "--stitch-drain-jobs", "3", "--stitch-window-jobs", "16",
+        "--percentiles", "--device", "cpu"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    exp = _restored(d)
+    deep = dataclasses.replace(exp.env_params, sim=dataclasses.replace(
+        exp.env_params.sim, max_jobs=16))
+    want = teval.full_trace_report(exp, max_jobs=40, include_random=False,
+                                   percentiles=(50, 90, 99),
+                                   env_params=deep, drain_completions=3)
+    assert line["n_jobs"] == report["n_jobs"] == 40
+    assert line["drain_completions"] == 3
+    for k in ("policy", "policy_windows", "fifo", "sjf", "srtf",
+              "tiresias", "vs_tiresias"):
+        assert report[k] == want[k], k
+    assert np.isfinite(report["random"])
+    assert set(line["percentiles"]) == {"policy", "random", "fifo", "sjf",
+                                        "srtf", "tiresias"}
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--stitch-window-jobs", "16"], "--full-trace"),
+    (["--stitch-drain-jobs", "4"], "--full-trace"),
+    (["--full-trace", "--stitch-drain-jobs", "0"], ">= 1"),
+    (["--full-trace", "--eval-windows", "2"], "--eval-windows"),
+])
+def test_evaluate_cli_full_trace_refuses_what_jax_refuses(argv, match):
+    from rlgpuschedule_tpu import evaluate as jevaluate
+    from rlgpuschedule_tpu_torch import evaluate as tevaluate
+    with pytest.raises(SystemExit, match=match):
+        jevaluate.main(CUT_FLAGS + argv)
+    with pytest.raises(SystemExit, match=match):
+        tevaluate.main(CUT_FLAGS + argv + ["--device", "cpu"])

@@ -166,3 +166,46 @@ def test_the_evaluate_cli_does_not_depend_on_the_train_cli():
                 for a in node.names}
     assert not {m for m, n in relative if m == "train" or n == "train"}
     assert ("cli", "add_config_flags") in relative
+
+
+def test_importing_the_checkpoint_and_full_trace_path_leaves_jax_out():
+    _leaves_jax_out(("checkpoint", "select_checkpoint", "experiment",
+                     "eval", "train", "evaluate", "serve.__main__",
+                     "serve.fleet"))
+
+
+def test_the_checkpoint_slice_has_its_pieces():
+    """Checkpoints, window streaming and the full-trace replay are the
+    port's own code."""
+    import importlib
+    sys.path.insert(0, ROOT)
+    try:
+        for mod, names in {
+                "checkpoint": ("Checkpointer", "CheckpointRestoreError",
+                               "CheckpointChecksumError",
+                               "write_checksum_sidecar", "_crc32_file"),
+                "experiment": ("drain_window", "make_env_windows",
+                               "load_source_trace", "restore_policy"),
+                "eval": ("full_trace_replay", "full_trace_report"),
+                "select_checkpoint": ("build_parser", "main")}.items():
+            m = importlib.import_module(f"rlgpuschedule_tpu_torch.{mod}")
+            for n in names:
+                assert getattr(m, n).__module__ == m.__name__, (mod, n)
+    finally:
+        sys.path.remove(ROOT)
+
+
+def test_unported_messages_name_open_roadmap_items():
+    """Every ``item N`` a refusal of the port names is an open item of
+    ``ROADMAP.md`` (one with its own ``Item N:`` entry), so no message
+    sends a user to a slice that has landed or does not exist."""
+    import re
+    roadmap = open(os.path.join(ROOT, "ROADMAP.md"),
+                   encoding="utf-8").read()
+    open_items = {int(n) for n in re.findall(r"^- Item (\d+):", roadmap,
+                                             re.M)}
+    named = set()
+    for path in _port_files():
+        text = open(path, encoding="utf-8").read()
+        named |= {int(n) for n in re.findall(r"item (\d+)", text)}
+    assert named and named <= open_items, sorted(named - open_items)

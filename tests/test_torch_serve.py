@@ -215,8 +215,7 @@ DEFERRED_FLAGS = [
     (["--frontend-port", "0"], "item 22"), (["--wire-requests", "8"],
                                             "item 22"),
     (["--flight-log", "d"], "item 23"), (["--promote", "d"], "item 23"),
-    (["--promote-noise", "0.1"], "item 23"), (["--ckpt-dir", "d"],
-                                              "item 12"),
+    (["--promote-noise", "0.1"], "item 23"),
     (["--fleet-regime", "storm"], "item 17")]
 
 
@@ -466,3 +465,68 @@ def test_serve_cli_needs_a_mode_and_a_card():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         serve_cli.main(["--bench"])
+
+
+def test_serve_cli_serves_a_checkpoint_in_a_subprocess(tmp_path):
+    """``serve --ckpt-dir --fleet`` in its own process serves the actions
+    of the trained policy: its fleet table equals an in-process replay
+    of the experiment that wrote the checkpoint, and ``repro`` names the
+    step restored."""
+    from rlgpuschedule_tpu_torch.checkpoint import Checkpointer
+    from rlgpuschedule_tpu_torch.experiment import Experiment
+    cut = dict(n_envs=2, n_nodes=4, gpus_per_node=4, window_jobs=12,
+               queue_len=4, horizon=96)
+    base = tconfigs.CONFIGS["ppo-mlp-synth64"]
+    cfg = dataclasses.replace(base, **cut, ppo=dataclasses.replace(
+        base.ppo, n_steps=8, n_epochs=1, n_minibatches=2))
+    exp = Experiment.build(cfg, device="cpu")
+    d = str(tmp_path / "ck")
+    exp.run(2, ckpt=Checkpointer(d), ckpt_every=1)
+    flags = ["--n-envs", "2", "--n-nodes", "4", "--gpus-per-node", "4",
+             "--window-jobs", "12", "--queue-len", "4", "--horizon", "96"]
+    p = _run(["-m", "rlgpuschedule_tpu_torch.serve", "--config",
+              "ppo-mlp-synth64", "--fleet", "3", "--max-steps", "40",
+              "--device", "cpu", "--ckpt-dir", d] + flags)
+    assert p.returncode == 0, p.stderr
+    got = json.loads(p.stdout.strip().splitlines()[-1])
+    assert got["repro"]["ckpt_step"] == exp.step == 4
+    _, traces = fleet_windows(cfg, 3, source=exp.source, device="cpu")
+    want = fleet_replay(exp.net, exp.env_params, traces, max_steps=40,
+                        device="cpu")
+    assert got["fleet"]["per_cluster"] == want["per_cluster"]
+    # an older step by --ckpt-step
+    p = _run(["-m", "rlgpuschedule_tpu_torch.serve", "--fleet", "3",
+              "--max-steps", "40", "--device", "cpu", "--ckpt-dir", d,
+              "--ckpt-step", "2"] + flags)
+    assert p.returncode == 0, p.stderr
+    assert json.loads(p.stdout.strip().splitlines()[-1])[
+        "repro"]["ckpt_step"] == 2
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--weights", "w.npz", "--ckpt-dir", "d"], "pass one"),
+    (["--ckpt-step", "4"], "--ckpt-dir"),
+])
+def test_serve_cli_refuses_ambiguous_weights(argv, match):
+    with pytest.raises(SystemExit, match=match):
+        serve_cli.main(["--fleet", "2", "--device", "cpu"] + argv)
+
+
+def test_fleet_windows_take_a_source_and_a_start_like_jax():
+    from rlgpuschedule_tpu.serve.fleet import fleet_windows as jfleet
+    from rlgpuschedule_tpu_torch.experiment import load_source_trace
+    cut = dict(n_nodes=4, gpus_per_node=4, window_jobs=12, queue_len=4,
+               drain_frac=0.5)
+    cj = dataclasses.replace(jconfigs.CONFIGS["ppo-mlp-synth64"], **cut)
+    ct = dataclasses.replace(tconfigs.CONFIGS["ppo-mlp-synth64"], **cut)
+    from rlgpuschedule_tpu.experiment import load_source_trace as jload
+    for start in (0, 5):
+        wj, _ = jfleet(cj, 3, source=jload(cj, n_jobs=60, seed=4),
+                       start=start)
+        wt, traces = fleet_windows(ct, 3, load_source_trace(
+            ct, n_jobs=60, seed=4), start, device="cpu")
+        for a, b in zip(wj, wt):
+            for f in ("submit", "duration", "gpus", "valid"):
+                assert np.asarray(getattr(a, f)).tobytes() == \
+                    getattr(b, f).tobytes(), (start, f)
+        assert traces.submit.shape == (3, 12)

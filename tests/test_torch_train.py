@@ -459,8 +459,8 @@ def test_train_cli_refuses_a2c_with_the_slice_named():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--ckpt-dir", "x"], ["--async"], ["--mesh=auto"], ["--faults", "storm"],
-    ["--correction", "vtrace"], ["--keep-best"]])
+    ["--fused-chunk", "2"], ["--async"], ["--mesh=auto"],
+    ["--faults", "storm"], ["--correction", "vtrace"], ["--pbt"]])
 def test_train_cli_refuses_unported_flags_with_the_slice_named(argv):
     with pytest.raises(SystemExit, match=r"waits for .*item \d+"):
         ttrain.main(argv + ["--device", "cpu"])
@@ -528,24 +528,33 @@ def test_train_cli_eval_probe_and_report_on_the_cpu(capsys):
 
 def test_train_eval_probe_holds_out_seed_plus_1000():
     """The probe's windows are those of a run seeded ``seed + 1000``,
-    and its baselines equal the table on those windows."""
+    and its baselines equal the table on those windows: streaming ones
+    by default, drained ones for a drain-curriculum config ('auto' =
+    'drain' there, as in JAX) or with ``regime="drain"``."""
     from rlgpuschedule_tpu_torch import eval as teval
     from rlgpuschedule_tpu_torch import experiment as texp
     args = ttrain.build_parser().parse_args(TINY_TRAIN)
     cfg = ttrain.apply_overrides(CONFIGS["ppo-mlp-synth64"], args)
     exp = Experiment.build(cfg, device="cpu")
-    row = ttrain.make_eval_probe(cfg, exp, 3, None)(0)
-    held = dataclasses.replace(cfg, seed=1000, n_envs=3)
-    win = texp.make_env_windows(held, texp.load_source_trace(held))
-    want = teval.baseline_jct_table(win, 4, 4, names=("fifo", "tiresias"))
-    assert row["eval_fifo"] == want["fifo"]
-    assert row["eval_tiresias"] == want["tiresias"]
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ttrain.make_eval_probe(cfg, exp, 3, None, regime="drain")
+    for c, regime, drain in ((cfg, "auto", 0.0), (cfg, "drain", 1.0),
+                             (dataclasses.replace(cfg, drain_frac=0.5),
+                              "auto", 1.0),
+                             (dataclasses.replace(cfg, drain_frac=0.5),
+                              "stream", 0.0)):
+        row = ttrain.make_eval_probe(c, exp, 3, None, regime)(0)
+        held = dataclasses.replace(cfg, seed=1000, n_envs=3,
+                                   drain_frac=drain)
+        win = texp.make_env_windows(held, texp.load_source_trace(held))
+        want = teval.baseline_jct_table(win, 4, 4,
+                                        names=("fifo", "tiresias"))
+        assert row["eval_fifo"] == want["fifo"], (regime, drain)
+        assert row["eval_tiresias"] == want["tiresias"], (regime, drain)
+    with pytest.raises(ValueError, match="unknown probe regime"):
+        ttrain.make_eval_probe(cfg, exp, 3, None, regime="mixed")
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--eval-every", "1", "--eval-probe", "drain"], "item 13"),
+    (["--keep-best"], "requires --eval-every"),
     (["--eval-probe", "stream"], "silent no-op"),
     (["--trace", "philly", "--trace-path",
       os.path.join(ROOT, "tests", "fixtures", "philly_small.csv"),
@@ -706,3 +715,94 @@ def test_evaluate_cli_stall_guard_flags_on_a_preemptive_config(capsys):
     lines = _json_lines(capsys.readouterr().out)
     assert [x["stall_guard"] for x in lines] == [True, False]
     assert on["stall_guard"] is True and off["stall_guard"] is False
+
+
+# ---- checkpoints, window streaming and the drain curriculum -----------------
+
+def _train_cli(argv):
+    p = subprocess.run(
+        [sys.executable, "-m", "rlgpuschedule_tpu_torch.train"] + argv,
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+        capture_output=True, text=True, timeout=300)
+    assert p.returncode == 0, p.stderr
+    return _json_lines(p.stdout), p.stderr
+
+
+def test_train_cli_resume_continues_the_run(tmp_path):
+    """``train --ckpt-dir d`` for 2 iterations, then ``--resume`` for 2
+    more, streaming with half the envs drained: the resumed process logs
+    iterations 2 and 3 with the metrics of an uninterrupted 4-iteration
+    run, bit for bit, and the step its checkpoint was saved under."""
+    base = TINY_TRAIN + ["--log-every", "1", "--resample-every", "1",
+                         "--drain-frac", "0.5", "--ckpt-every", "1"]
+    whole, _ = _train_cli(base + ["--iterations", "4", "--ckpt-dir",
+                                  str(tmp_path / "whole")])
+    _train_cli(base + ["--iterations", "2", "--ckpt-dir",
+                       str(tmp_path / "cut")])
+    resumed, err = _train_cli(base + ["--iterations", "2", "--ckpt-dir",
+                                      str(tmp_path / "cut"), "--resume"])
+    assert "resumed from step 4 (iteration 1, window cursor 2)" in err
+    rows = [r for r in resumed if "total_loss" in r]
+    assert [r["iteration"] for r in rows] == [2, 3]
+    assert rows == [r for r in whole if r.get("iteration") in (2, 3)
+                    and "total_loss" in r]
+    assert resumed[-1]["window_cursor"] == whole[-1]["window_cursor"] == 6
+    from rlgpuschedule_tpu_torch.checkpoint import Checkpointer
+    # the default --ckpt-keep is 3; steps count Adam updates (1 x 2 per
+    # iteration here)
+    assert Checkpointer(str(tmp_path / "cut")).all_steps() == [4, 6, 8]
+    assert Checkpointer(str(tmp_path / "whole")).all_steps() == [4, 6, 8]
+
+
+def test_keep_best_keeps_its_bar_across_a_resume(tmp_path, capsys):
+    from rlgpuschedule_tpu_torch.checkpoint import Checkpointer
+    d = str(tmp_path / "ck")
+    argv = TINY_TRAIN + ["--eval-every", "1", "--eval-windows", "2",
+                         "--keep-best", "--ckpt-dir", d, "--log-every", "0"]
+    first = ttrain.main(argv + ["--iterations", "2"])
+    best = Checkpointer(os.path.join(d, "best"))
+    assert len(best.all_steps()) == 1
+    bar = min(r["eval_avg_jct"] for r in first["eval_history"])
+    assert best.read_meta()["eval_avg_jct"] == bar
+    assert first["eval_history"][0]["eval_is_best"] == 1.0
+    # lower the saved bar out of reach: a resumed run must read it back
+    # and save nothing over it
+    step = best.latest_step()
+    state, meta = best.restore()
+    best.save(step, state, dict(meta, eval_avg_jct=1.0), force=True)
+    capsys.readouterr()
+    again = ttrain.main(argv + ["--iterations", "2", "--resume"])
+    assert "keep-best: prior best eval_avg_jct=1.0" in \
+        capsys.readouterr().err
+    assert [r["eval_is_best"] for r in again["eval_history"]] == [0.0, 0.0]
+    assert best.all_steps() == [step]
+    assert best.read_meta()["eval_avg_jct"] == 1.0
+    # beside best/, the main store holds each call's last iteration
+    # (--ckpt-every's default 50 is never reached)
+    assert Checkpointer(d).all_steps() == [4, 8]
+
+
+@pytest.mark.parametrize("argv", [
+    ["--ckpt-keep", "2"], ["--ckpt-dir", "x", "--ckpt-keep", "0"],
+    ["--keep-best", "--eval-every", "2"], ["--keep-best", "--ckpt-dir", "x"],
+    ["--eval-probe", "drain"]])
+def test_train_cli_exits_where_jax_exits(argv):
+    """The checkpoint flags' refusals, word for word JAX's."""
+    with pytest.raises(SystemExit) as want:
+        jtrain.main(argv)
+    with pytest.raises(SystemExit) as got:
+        ttrain.main(argv + ["--device", "cpu"])
+    assert str(got.value) == str(want.value)
+
+
+def test_experiment_restore_refuses_another_config(tmp_path):
+    from rlgpuschedule_tpu_torch.checkpoint import Checkpointer
+    cfg = _cut("ppo-mlp-synth64")
+    exp = Experiment.build(cfg, device="cpu")
+    exp.run(1)
+    with Checkpointer(str(tmp_path / "ck")) as ck:
+        exp.save_checkpoint(ck)
+        other = Experiment.build(dataclasses.replace(cfg, queue_len=4),
+                                 device="cpu")
+        with pytest.raises(RuntimeError, match="size mismatch"):
+            other.restore_checkpoint(ck, train=False)
