@@ -167,6 +167,41 @@ imports nothing of JAX. Phases, each fatal on failure:
     first divergent window. Prints the ranking, the windows, the rows
     and the wall time of each part.
 
+16. Config 3, ``a2c-pai-fair``, at its published width (16 nodes x 8
+    GPUs, 16 envs x 16 steps, 8 tenants, 96-job PAI-proxy windows, the
+    fairness reward, A2C with RMSprop, bf16 trunk): one warm-up and 20
+    timed iterations through ``Experiment.run`` (env-steps/s), one
+    rollout and one iteration under ``torch.profiler`` (device ops per
+    rollout step, idle share), one iteration under sync debug mode
+    "error"; finite losses, f32 parameters, grads and RMSprop state.
+    Card against CPU at f32 with TF32 off: a 32-step rollout sampled on
+    the card and replayed on the CPU with its actions (obs, mask, the
+    fair reward, done and dt bit-identical, some reward charged), then
+    one A2C learn step on its first 16 steps (parameters within atol
+    1e-5, metrics within phase 7's rule). ``fairness_report`` of the
+    trained policy on 16 held-out windows (seed ``cfg.seed + 1000``),
+    printed with its Jain column, every row finite; and ``evaluate
+    --fairness`` in a subprocess, restoring that policy from a
+    checkpoint, equal to it row for row.
+17. Config 1 at its preset with each option: one iteration each with
+    ``reward_norm``, ``bf16_update`` and ``bf16_advantages`` (finite
+    metrics; f32 parameters, grads and Adam moments; the advantages
+    bf16 only under ``bf16_advantages``; the reward moments counted);
+    a reward-norm run of 2 iterations, a checkpoint and 2 more against
+    a fresh experiment restored from it, bit for bit in every payload;
+    and PPO's V-trace recompute on on-policy rollouts of an f32 and a
+    bf16-trunk policy: the largest ``|rho - 1|`` (one batched ``[T*E]``
+    forward against the rollout's per-step ``[E]`` ones, which cuBLAS
+    may compute with other kernels), held to 1e-5 (f32) and 5e-2 (bf16),
+    and the targets against the GAE path.
+18. ``run_fused(4)`` against 4 iterations of ``run`` from fresh builds of
+    config 1 at the bench geometry (512 envs x 128 steps, 2 x 8), bit
+    for bit under torch's default cuDNN switches (else within 10x of a
+    second plain run's difference); then ``python -m
+    rlgpuschedule_tpu_torch.bench`` in a subprocess, its JSON line
+    (median env-steps/s, spread, the card's name and power limit)
+    printed.
+
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it is the card's name and power limit. Without a CUDA device, or
 without the ``rlgpuschedule_tpu_torch`` package beside it, the script
@@ -191,6 +226,7 @@ BUCKETS = {16: (9, 12, 16), 256: (129, 200, 256)}
 LATENCY_REPS = 30
 TRAIN_TIMED = 3           # timed iterations after one warm-up
 BENCH_CONFIG = "ppo-mlp-synth64"
+BENCH_GEOMETRY = dict(n_envs=512, n_steps=128, n_epochs=2, n_minibatches=8)
 REPLAY_STEPS = 32
 PARAM_ATOL, METRIC_RTOL, METRIC_ATOL = 1e-5, 1e-4, 1e-6
 EVAL_WINDOWS = 64         # held-out windows of the phase-8 table
@@ -215,6 +251,14 @@ CKPT_COMPARE_FROM = 2     # phase 14 replays windows 2-5: 2 of each kind
 SELECT_ITERS = 6          # phase 15: 3 checkpoints kept, one every 2
 SELECT_VAL_JOBS, SELECT_TEST_SEED, SELECT_TEST_JOBS = 256, 123, 256
 SELECT_STITCH_DRAIN = 8
+FAIR_CONFIG = "a2c-pai-fair"
+FAIR_TIMED = 20           # phase 16: timed A2C iterations after a warm-up
+FAIR_WINDOWS = 16         # phase 16's held-out fairness table
+FAIR_REPLAY_STEPS = 32    # phase 16's rollout replayed on the CPU
+# phase 17: the on-policy V-trace ratio band on the card, per trunk
+# dtype (the recompute is one [T*E] batch, the rollout's [E] per step)
+RHO_BAND = {"float32": 1e-5, "bfloat16": 5e-2}
+FUSED_ITERS = 4           # phase 18: run_fused(4) against run(4)
 ROWS = ("policy", "random", "fifo", "sjf", "srtf", "tiresias")
 BASELINES = ("fifo", "sjf", "srtf", "tiresias")
 
@@ -488,7 +532,8 @@ def train_phase(torch, dev):
         exp.carry, tr, last = rollout(exp.net, exp.env_params, exp.traces,
                                       exp.carry, ppo.n_steps)
         t1 = _sync(torch)
-        adv, ret = compute_advantages(ppo, tr, last)
+        _, adv, ret, _ = compute_advantages(ppo, exp.train_state, tr,
+                                            last)
         t2 = _sync(torch)
         exp.train_state, m = run_ppo_epochs(ppo, exp.train_state, tr, adv,
                                             ret, generator=exp.generator)
@@ -512,7 +557,8 @@ def train_phase(torch, dev):
                                exp.carry, ppo.n_steps))
     acct["rollout"] = (ops, busy, w, ppo.n_steps)
     (adv, ret), ops, busy, w = _device_account(
-        torch, lambda: compute_advantages(ppo, tr, last))
+        torch, lambda: compute_advantages(ppo, exp.train_state, tr,
+                                          last)[1:3])
     acct["gae"] = (ops, busy, w, 1)
     (exp.train_state, _), ops, busy, w = _device_account(
         torch, lambda: run_ppo_epochs(ppo, exp.train_state, tr, adv, ret,
@@ -568,18 +614,23 @@ def train_phase(torch, dev):
     return exp
 
 
+def _bench_config():
+    """Config 1 at ``bench.py``'s chip geometry."""
+    from rlgpuschedule_tpu_torch.configs import CONFIGS
+    base = CONFIGS[BENCH_CONFIG]
+    g = BENCH_GEOMETRY
+    return dataclasses.replace(
+        base, n_envs=g["n_envs"],
+        ppo=dataclasses.replace(base.ppo, n_steps=g["n_steps"],
+                                n_epochs=g["n_epochs"],
+                                n_minibatches=g["n_minibatches"]))
+
+
 def bench_phase(torch, dev):
     """Config 1 at bench.py's chip geometry (phase 6)."""
-    import dataclasses
-
-    from rlgpuschedule_tpu_torch.configs import CONFIGS
     from rlgpuschedule_tpu_torch.experiment import Experiment
 
-    base = CONFIGS[BENCH_CONFIG]
-    cfg = dataclasses.replace(
-        base, n_envs=512,
-        ppo=dataclasses.replace(base.ppo, n_steps=128, n_epochs=2,
-                                n_minibatches=8))
+    cfg = _bench_config()
     exp = Experiment.build(cfg, device=dev)
     exp.run(1)
     out = exp.run(TRAIN_TIMED, log_every=1)
@@ -1159,7 +1210,8 @@ def preset_train_eval_phase(torch, dev):
             exp.carry, tr, last = rollout(exp.net, exp.env_params,
                                           exp.traces, exp.carry, ppo.n_steps)
             t1 = _sync(torch)
-            adv, ret = compute_advantages(ppo, tr, last)
+            _, adv, ret, _ = compute_advantages(ppo, exp.train_state, tr,
+                                            last)
             t2 = _sync(torch)
             exp.train_state, m = run_ppo_epochs(
                 ppo, exp.train_state, tr, adv, ret, generator=exp.generator)
@@ -1925,6 +1977,379 @@ class _Recorder:
                 torch.tensor(self.wins))
 
 
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree, key=str):
+            yield from _tensors(tree[k])
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+    elif hasattr(tree, "dtype"):
+        yield tree
+
+
+def _run_diff(torch, a, b) -> dict:
+    """Max abs difference per payload of two experiments of any
+    algorithm (0.0 = the same bits; integer payloads count differing
+    elements), and whether both generators' states are equal."""
+    def mx(x, y):
+        xs, ys = list(_tensors(x)), list(_tensors(y))
+        if len(xs) != len(ys):
+            return math.inf
+        return max((float((u.double() - v.double()).abs().max())
+                    if u.is_floating_point() else float((u != v).sum())
+                    for u, v in zip(xs, ys)), default=0.0)
+    ca, cb = a.carry, b.carry
+    return {
+        "params": mx(a.net.state_dict(), b.net.state_dict()),
+        "optimizer": mx(a.train_state.opt.state_dict()["state"],
+                        b.train_state.opt.state_dict()["state"]),
+        "reward_stats": mx(tuple(a.train_state.reward_stats or ()),
+                           tuple(b.train_state.reward_stats or ())),
+        "carry": mx(tuple(ca.env_state.sim) + (ca.env_state.t, ca.obs,
+                                               ca.mask),
+                    tuple(cb.env_state.sim) + (cb.env_state.t, cb.obs,
+                                               cb.mask)),
+        "generators_equal": bool(
+            torch.equal(ca.generator.get_state(), cb.generator.get_state())
+            and torch.equal(a.generator.get_state(),
+                            b.generator.get_state())),
+    }
+
+
+def _same_run(diff: dict) -> bool:
+    return diff["generators_equal"] and not any(
+        v for k, v in diff.items() if k != "generators_equal")
+
+
+def fair_phase(torch, dev):
+    """Config 3 at its published width: A2C with the fairness reward,
+    card against CPU, the fairness table and the evaluate CLI (phase
+    16)."""
+    import shutil
+    import tempfile
+
+    from rlgpuschedule_tpu_torch.algos import a2c
+    from rlgpuschedule_tpu_torch.algos import action_dist
+    from rlgpuschedule_tpu_torch.algos.rollout import init_carry, rollout
+    from rlgpuschedule_tpu_torch.algos.update import tree_map
+    from rlgpuschedule_tpu_torch.checkpoint import Checkpointer
+    from rlgpuschedule_tpu_torch.configs import CONFIGS
+    from rlgpuschedule_tpu_torch.env import stack_traces
+    from rlgpuschedule_tpu_torch.eval import fairness_report, format_fairness
+    from rlgpuschedule_tpu_torch.evaluate import _json_safe
+    from rlgpuschedule_tpu_torch.experiment import (Experiment, build_policy,
+                                                    load_source_trace,
+                                                    make_env_windows)
+    from rlgpuschedule_tpu_torch.sim.core import validate_trace
+
+    cfg = CONFIGS[FAIR_CONFIG]
+    algo = cfg.a2c
+    cuda = torch.device(dev).type == "cuda"
+    exp = Experiment.build(cfg, device=dev)
+    warm = exp.run(1, log_every=1)
+    out = exp.run(FAIR_TIMED, log_every=FAIR_TIMED)
+    # one rollout and one whole iteration under the profiler
+    (_, tr, _), r_ops, r_busy, r_wall = _device_account(
+        torch, lambda: rollout(exp.net, exp.env_params, exp.traces,
+                               exp.carry, algo.n_steps))
+    (exp.train_state, exp.carry, _), i_ops, i_busy, i_wall = \
+        _device_account(torch, lambda: exp.train_step(
+            exp.train_state, exp.carry, exp.traces, exp.generator))
+    if cuda:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            exp.train_state, exp.carry, _ = exp.train_step(
+                exp.train_state, exp.carry, exp.traces, exp.generator)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    opt = exp.train_state.opt
+    all_f32 = all(p.dtype == p.grad.dtype == opt.state[p]["nu"].dtype
+                  == torch.float32 for p in exp.net.parameters())
+    rows = out["history"] + warm["history"]
+    _line("fair_train", config=cfg.name, algo=cfg.algo, dtype="bfloat16",
+          n_envs=cfg.n_envs, n_steps=algo.n_steps, n_tenants=cfg.n_tenants,
+          window_jobs=cfg.window_jobs, optimizer=type(opt).__name__,
+          params=sum(p.numel() for p in exp.net.parameters()),
+          warmup_s=warm["wall_s"], iterations=FAIR_TIMED,
+          wall_s=out["wall_s"], env_steps_per_s=out["env_steps_per_sec"],
+          rollout_device_ops_per_step=r_ops / algo.n_steps,
+          rollout_busy_ms_per_step=r_busy / algo.n_steps * 1e3,
+          rollout_device_idle_share=1.0 - r_busy / r_wall,
+          iteration_device_ops=i_ops, iteration_busy_ms=i_busy * 1e3,
+          iteration_wall_ms=i_wall * 1e3,
+          device_idle_share=1.0 - i_busy / i_wall,
+          iteration_without_host_sync=cuda,
+          params_grads_rmsprop_f32=all_f32, metrics=rows)
+    if not all_f32:
+        raise SystemExit("config 3: parameters, grads or RMSprop state "
+                         "not f32")
+    for m in rows:
+        if not _finite(m["total_loss"], m["entropy"], m["v_loss"]):
+            raise SystemExit(f"config 3: non-finite metrics {m}")
+
+    # card against CPU at f32 (TF32 off): a rollout replayed with the
+    # card's actions, then one A2C learn step on its batch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    side = {}
+    for d in (dev, "cpu"):
+        side[d] = (build_policy(cfg, exp.env_params, dtype=torch.float32,
+                                device=d),
+                   stack_traces(exp.windows, exp.env_params, d))
+    net, traces = side[dev]
+    carry = init_carry(exp.env_params, traces,
+                       torch.Generator(dev).manual_seed(cfg.seed))
+    _, tr, last = rollout(net, exp.env_params, traces, carry,
+                          FAIR_REPLAY_STEPS)
+    tr, last = tree_map(lambda x: x.cpu(), tr), last.cpu()
+    actions = iter(tr.action)
+
+    def replay(gen, logits):
+        a = next(actions)
+        return a, action_dist.log_prob(logits, a)
+
+    net_c, traces_c = side["cpu"]
+    _, tr_c, last_c = rollout(
+        net_c, exp.env_params, traces_c,
+        init_carry(exp.env_params, traces_c, torch.Generator()),
+        FAIR_REPLAY_STEPS, sample_fn=replay)
+    differ = {f: int((getattr(tr, f) != getattr(tr_c, f)).sum())
+              for f in ("obs", "mask", "reward", "done", "env_steps_dt")}
+    n_charged = int((tr.reward < 0).sum())
+    batch = tree_map(lambda x: x[:algo.n_steps], tr)
+    learn = a2c.make_learn_step(algo)
+    res = {}
+    for d in (dev, "cpu"):
+        state, m = learn(a2c.make_train_state(side[d][0], algo),
+                         tree_map(lambda x: x.to(d), batch),
+                         tr.value[algo.n_steps].to(d))
+        res[d] = ({n: p.detach().cpu()
+                   for n, p in state.net.named_parameters()},
+                  {k: float(v) for k, v in m._asdict().items()})
+    (pg, mg), (pc, mc) = res[dev], res["cpu"]
+    err = max(float((pg[n] - pc[n]).abs().max()) for n in pc)
+    bad = {k: (mg[k], mc[k]) for k in mc if not abs(mg[k] - mc[k])
+           <= METRIC_ATOL + METRIC_RTOL * abs(mc[k])}
+    _line("fair_card_vs_cpu", config=cfg.name, dtype="float32", tf32=False,
+          clusters=cfg.n_envs, replay_steps=FAIR_REPLAY_STEPS,
+          replay_elements_differing=differ, fair_reward_charged=n_charged,
+          learn_batch=algo.n_steps * cfg.n_envs,
+          learn_param_max_abs_diff=err, metrics_card=mg, metrics_cpu=mc)
+    if any(differ.values()) or not n_charged:
+        raise SystemExit(f"config 3: card and CPU rollouts differ: {differ} "
+                         f"({n_charged} rewards charged)")
+    if not err <= PARAM_ATOL or bad:
+        raise SystemExit(f"config 3: learn step card vs CPU: parameters "
+                         f"{err} (atol {PARAM_ATOL}), metrics {bad}")
+    del side
+
+    # the fairness table of the trained policy on held-out windows, and
+    # the evaluate CLI restoring it from a checkpoint
+    held = dataclasses.replace(cfg, seed=cfg.seed + 1000,
+                               n_envs=FAIR_WINDOWS, source_jobs=None)
+    windows = make_env_windows(held, validate_trace(
+        exp.env_params.sim, load_source_trace(held), clamp=True))
+    t0 = _sync(torch)
+    report = fairness_report(exp, windows=windows)
+    wall = _sync(torch) - t0
+    print(format_fairness(report), file=sys.stderr, flush=True)
+    _line("fair_table", config=cfg.name, windows=len(windows),
+          seed=held.seed,
+          weights=f"after {FAIR_TIMED + 3} A2C iterations (bf16)",
+          rows=report, wall_s=wall)
+    for name, row in report.items():
+        if not (_finite(row["avg_jct"], row["jain"], row["completion"])
+                and 0 < row["jain"] <= 1.0):
+            raise SystemExit(f"config 3 fairness table, {name}: {row}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fair_")
+    try:
+        with Checkpointer(os.path.join(tmp, "ck")) as ck:
+            exp.save_checkpoint(ck)
+        lines, _, wall = _run_cli(
+            "rlgpuschedule_tpu_torch.evaluate",
+            ["--config", cfg.name, "--fairness", "--ckpt-dir",
+             os.path.join(tmp, "ck"), "--seed", str(held.seed), "--n-envs",
+             str(FAIR_WINDOWS)])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    (line,) = lines
+    # the CLI writes NaN as null
+    want = json.loads(json.dumps(_json_safe(report)))
+    same = all(line[k] == want[k] for k in report)
+    _line("fair_evaluate_cli", wall_s=wall, device=line["device"],
+          equal_to_in_process=same,
+          rows={k: line[k] for k in report})
+    if not (same and line["device"].startswith("cuda")):
+        raise SystemExit(f"evaluate --fairness differs from the in-process "
+                         f"report: {line}")
+    del exp
+
+
+def options_phase(torch, dev):
+    """Config 1 with the advantage and precision options, a reward-norm
+    resume and the on-policy V-trace ratios on the card (phase 17)."""
+    import shutil
+    import tempfile
+
+    from rlgpuschedule_tpu_torch.algos.action_dist import log_prob
+    from rlgpuschedule_tpu_torch.algos.ppo import compute_advantages
+    from rlgpuschedule_tpu_torch.algos.rollout import init_carry, rollout
+    from rlgpuschedule_tpu_torch.algos.vtrace import importance_ratios
+    from rlgpuschedule_tpu_torch.checkpoint import Checkpointer
+    from rlgpuschedule_tpu_torch.configs import CONFIGS
+    from rlgpuschedule_tpu_torch.experiment import Experiment, build_policy
+
+    base = CONFIGS[BENCH_CONFIG]
+    old = _flags(torch, tf32=True, deterministic=False)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_opts_")
+    try:
+        for opt in ("reward_norm", "bf16_update", "bf16_advantages"):
+            cfg = dataclasses.replace(base, ppo=dataclasses.replace(
+                base.ppo, **{opt: True}))
+            exp = Experiment.build(cfg, device=dev)
+            out = exp.run(1, log_every=1)
+            m = out["history"][-1]
+            st = exp.train_state
+            f32 = all(p.dtype == p.grad.dtype == st.opt.state[p][k].dtype
+                      == torch.float32 for p in exp.net.parameters()
+                      for k in ("exp_avg", "exp_avg_sq"))
+            _, tr, last = rollout(exp.net, exp.env_params, exp.traces,
+                                  exp.carry, cfg.ppo.n_steps)
+            st2, adv, ret, _ = compute_advantages(cfg.ppo, st, tr, last)
+            want = torch.bfloat16 if opt == "bf16_advantages" \
+                else torch.float32
+            stats = st2.reward_stats
+            _line("option", option=opt, config=cfg.name,
+                  env_steps_per_s=out["env_steps_per_sec"], metrics=m,
+                  params_grads_adam_f32=f32, advantages=str(adv.dtype),
+                  returns=str(ret.dtype),
+                  reward_stats=None if stats is None else
+                  [float(x) for x in stats])
+            if not (f32 and adv.dtype == ret.dtype == want
+                    and _finite(*m.values())):
+                raise SystemExit(f"option {opt}: f32 {f32}, advantages "
+                                 f"{adv.dtype}, metrics {m}")
+            if opt == "reward_norm" and not (
+                    float(stats.count) == 2 * exp.steps_per_iteration
+                    and _finite(*stats)):
+                raise SystemExit(f"reward_norm: moments {stats}")
+            del exp
+
+        # a reward-norm resume: 2 iterations, a save, 2 more, against a
+        # fresh experiment restored from the save
+        cfg = dataclasses.replace(base, ppo=dataclasses.replace(
+            base.ppo, reward_norm=True))
+        a = Experiment.build(cfg, device=dev)
+        a.run(2)
+        with Checkpointer(os.path.join(tmp, "ck")) as ck:
+            a.save_checkpoint(ck)
+            a.run(2)
+            b = Experiment.build(cfg, device=dev)
+            b.restore_checkpoint(ck)
+        b.run(2)
+        diff = _run_diff(torch, a, b)
+        _line("option_resume", config=cfg.name, option="reward_norm",
+              iterations="2 + restore + 2", diff=diff,
+              reward_stats=[float(x) for x in a.train_state.reward_stats])
+        if not _same_run(diff):
+            raise SystemExit(f"reward-norm resume differs: {diff}")
+        del a, b
+
+        # V-trace on on-policy batches: the ratios of the batched
+        # recompute against the rollout's per-step log-probs
+        vt = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            exp = Experiment.build(base, device=dev)
+            net = build_policy(base, exp.env_params, dtype=dtype, device=dev)
+            state = exp.train_state._replace(net=net)
+            _, tr, last = rollout(net, exp.env_params, exp.traces,
+                                  init_carry(exp.env_params, exp.traces,
+                                             torch.Generator(dev)
+                                             .manual_seed(base.seed)),
+                                  base.ppo.n_steps)
+            T, E = tr.reward.shape
+            with torch.no_grad():
+                logits, _ = net(tr.obs.reshape(T * E, -1),
+                                tr.mask.reshape(T * E, -1))
+            rho = importance_ratios(tr.log_prob, log_prob(
+                logits, tr.action.reshape(-1)).reshape(T, E))
+            vcfg = dataclasses.replace(base.ppo, correction="vtrace")
+            _, adv_g, ret_g, _ = compute_advantages(base.ppo, state, tr,
+                                                    last)
+            _, adv_v, ret_v, (rmean, rmax) = compute_advantages(
+                vcfg, state, tr, last)
+            name = str(dtype).split(".")[-1]
+            dev_max = float((rho - 1.0).abs().max())
+            vt[name] = {
+                "max_abs_rho_minus_1": dev_max,
+                "ratios_not_1": int((rho != 1.0).sum()),
+                "ratios": rho.numel(), "rho_mean": float(rmean),
+                "rho_max": float(rmax),
+                "adv_max_abs_diff_vs_gae": float(
+                    (adv_v.double() - adv_g.double()).abs().max()),
+                "targets_bitwise_gae": bool(torch.equal(adv_v, adv_g)
+                                            and torch.equal(ret_v, ret_g)),
+                "band": RHO_BAND[name]}
+            del exp
+        _line("vtrace_on_policy", config=base.name, n_envs=base.n_envs,
+              n_steps=base.ppo.n_steps, **vt)
+        for name, v in vt.items():
+            if not v["max_abs_rho_minus_1"] <= v["band"]:
+                raise SystemExit(f"V-trace on-policy ratios ({name}) leave "
+                                 f"their band: {v}")
+    finally:
+        _restore_flags(torch, old)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def fused_phase(torch, dev):
+    """``run_fused`` against ``run`` on config 1 at the bench geometry,
+    and the bench CLI (phase 18)."""
+    from rlgpuschedule_tpu_torch.experiment import Experiment
+
+    cfg = _bench_config()
+    old = _flags(torch, tf32=True, deterministic=False)
+    try:
+        a = Experiment.build(cfg, device=dev)
+        t0 = _sync(torch)
+        m = a.run_fused(FUSED_ITERS)
+        fused_s = _sync(torch) - t0
+        b = Experiment.build(cfg, device=dev)
+        t0 = _sync(torch)
+        b.run(FUSED_ITERS)
+        run_s = _sync(torch) - t0
+        diff = _run_diff(torch, a, b)
+        band = None
+        if not _same_run(diff):
+            # the card's run-to-run difference, from a second plain run
+            c = Experiment.build(cfg, device=dev)
+            c.run(FUSED_ITERS)
+            band = _run_diff(torch, b, c)
+        _line("run_fused", config=cfg.name, n_envs=cfg.n_envs,
+              n_steps=cfg.ppo.n_steps, iterations=FUSED_ITERS,
+              fused_s=fused_s, run_s=run_s, diff=diff,
+              bit_identical=_same_run(diff), run_to_run=band,
+              last_metrics={k: float(v) for k, v in m._asdict().items()})
+        if band is not None and not all(
+                diff[k] <= 10 * max(band[k], 1e-30) for k in diff
+                if k != "generators_equal"):
+            raise SystemExit(f"run_fused differs from run: {diff} "
+                             f"(run to run: {band})")
+        del a, b
+    finally:
+        _restore_flags(torch, old)
+    lines, err, wall = _run_cli("rlgpuschedule_tpu_torch.bench", [],
+                                timeout=900)
+    (line,) = lines
+    print(json.dumps(line), flush=True)
+    _line("bench_cli", wall_s=wall, value=line["value"],
+          spread=line["spread"], repeats=line["repeats"])
+    if not (line["metric"] == "ppo_env_steps_per_sec_per_chip[cuda]"
+            and line["vs_baseline"] is None and _finite(line["value"])
+            and line["power_limit"]):
+        raise SystemExit(f"bench: {line}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1971,6 +2396,9 @@ def main() -> int:
     timed(policy_server_phase, eager_latency)
     timed(checkpoint_phase)
     timed(select_phase)
+    timed(fair_phase)
+    timed(options_phase)
+    timed(fused_phase)
     _line("done", total_s=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,11 @@
 #!/usr/bin/env bash
-# The first config-1 table of a policy trained by the PyTorch port: the
-# whole train -> checkpoint -> select -> evaluate loop of
-# rlgpuschedule_tpu_torch, each step a process of its own.
+# Tables of policies trained by the PyTorch port, each step a process of
+# its own.
 #
-#   bash chip_trained_table.sh          # on a machine with one CUDA card
+#   bash chip_trained_table.sh               # config 1 (below)
+#   bash chip_trained_table.sh a2c-pai-fair  # config 3 (further below)
+#
+# Config 1: the whole train -> checkpoint -> select -> evaluate loop.
 #
 # 1. a two-iteration train with a checkpoint and a --resume (a fault in
 #    the checkpoint path shows in seconds, not after the long run);
@@ -17,14 +19,33 @@
 # 5. the full-trace stitched table of the newest and of the selected
 #    checkpoint over the seed-123 stream (1,024 jobs).
 #
+# Config 3 (a2c-pai-fair), BASELINE.md's round-5 recipe: A2C with the
+# fairness reward over a 128-slot queue view of 192-job PAI-proxy
+# windows, 5,000 iterations, drain curriculum 0.75, windows re-cut every
+# 100 iterations, a held-out drain probe every 200 with --keep-best; then
+# the fairness table (evaluate --fairness) of the best and of the newest
+# checkpoint, and the JCT table of the best, on held-out seed-123 drain
+# windows (16 envs x 192 jobs).
+#
 # Every command's stdout (JSON) and stderr (tables) and its wall time go
-# under $OUT (default chiprun_out/trained_table). ITERS, CKPT_EVERY and
-# DEVICE (e.g. DEVICE=cpu) cut the run for a rehearsal.
+# under $OUT (default chiprun_out/trained_table, or
+# chiprun_out/trained_table_fair). ITERS, CKPT_EVERY and DEVICE (e.g.
+# DEVICE=cpu) cut the run for a rehearsal.
 set -euo pipefail
 cd "$(dirname "$0")"
-OUT=${OUT:-chiprun_out/trained_table}
-ITERS=${ITERS:-1500}
-CKPT_EVERY=${CKPT_EVERY:-250}
+MODE=${1:-ppo-mlp-synth64}
+if [ "$MODE" = a2c-pai-fair ]; then
+    OUT=${OUT:-chiprun_out/trained_table_fair}
+    ITERS=${ITERS:-5000}
+    CKPT_EVERY=${CKPT_EVERY:-500}
+elif [ "$MODE" = ppo-mlp-synth64 ]; then
+    OUT=${OUT:-chiprun_out/trained_table}
+    ITERS=${ITERS:-1500}
+    CKPT_EVERY=${CKPT_EVERY:-250}
+else
+    echo "unknown mode $MODE (ppo-mlp-synth64 or a2c-pai-fair)" >&2
+    exit 2
+fi
 DEV=${DEVICE:+--device $DEVICE}
 CFG="--config ppo-mlp-synth64"
 mkdir -p "$OUT"
@@ -45,6 +66,27 @@ run() {   # run NAME ARGS...: python -m rlgpuschedule_tpu_torch.ARGS
         | tee -a "$OUT/walls.jsonl"
     tail -n 1 "$OUT/$name.jsonl" | cut -c1-2000
 }
+
+if [ "$MODE" = a2c-pai-fair ]; then
+    FAIR="--config a2c-pai-fair --queue-len 128 --window-jobs 192"
+    run smoke_train train $FAIR --drain-frac 0.75 --iterations 2 \
+        --ckpt-dir "$OUT/smoke" --ckpt-every 1 --log-every 1
+    run smoke_resume train $FAIR --drain-frac 0.75 --iterations 1 \
+        --ckpt-dir "$OUT/smoke" --resume --log-every 1
+    run train train $FAIR --drain-frac 0.75 --resample-every 100 \
+        --iterations "$ITERS" --ckpt-dir "$OUT/ckpt" \
+        --ckpt-every "$CKPT_EVERY" --ckpt-keep 3 --log-every 100 \
+        --eval-every 200 --keep-best
+    run fair_best evaluate $FAIR --ckpt-dir "$OUT/ckpt/best" --seed 123 \
+        --drain-frac 1.0 --fairness
+    run fair_newest evaluate $FAIR --ckpt-dir "$OUT/ckpt" --seed 123 \
+        --drain-frac 1.0 --fairness
+    run jct_best evaluate $FAIR --ckpt-dir "$OUT/ckpt/best" --seed 123 \
+        --drain-frac 1.0 --percentiles
+    ls -l "$OUT/ckpt" "$OUT/ckpt/best" > "$OUT/ckpt_listing.txt"
+    echo "trained table (a2c-pai-fair): done"
+    exit 0
+fi
 
 run smoke_train train $CFG --drain-frac 1.0 --iterations 2 \
     --ckpt-dir "$OUT/smoke" --ckpt-every 1 --log-every 1

@@ -1,7 +1,8 @@
 """Minibatch-update engine (L4) of the port.
 
-Counterpart of ``resolve_geometry``, ``validate_update_geometry`` and
-``run_minibatch_epochs`` in the JAX package's ``algos/update.py``: one
+Counterpart of ``resolve_geometry``, ``validate_update_geometry``,
+``cast_floating`` and ``run_minibatch_epochs`` in the JAX package's
+``algos/update.py``: one
 ``n_epochs x n_minibatches x minibatch_size`` loop that calls a
 ``grad_step`` on contiguous blocks of the shuffled rollout batch.
 
@@ -81,6 +82,13 @@ def tree_map(fn: Callable[[torch.Tensor], torch.Tensor], tree: Any) -> Any:
         out = [tree_map(fn, x) for x in tree]
         return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
     return fn(tree)
+
+
+def cast_floating(tree: Any, dtype: torch.dtype) -> Any:
+    """Cast every floating tensor of ``tree`` to ``dtype``; bool and
+    integer tensors (actions, masks, done flags) keep their dtypes."""
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x,
+                    tree)
 
 
 def _first_leaf(tree: Any) -> torch.Tensor:

@@ -1,25 +1,28 @@
-"""Named experiment configs (L6): cluster, trace, env and PPO fields.
+"""Named experiment configs (L6): cluster, trace, env, PPO and A2C
+fields, and the mode-combination refusal table.
 
-The port's copy of the JAX package's ``configs.py``. The ``a2c``
-optimizer fields, fault and domain regimes and the mode-refusal table
-wait for their slices.
-The presets keep their names and the values of the fields kept here, so
-a config name means the same run in both packages; the presets this
-port cannot run are refused by :func:`..experiment.build_env_params`
-and :meth:`..experiment.Experiment.build`.
+The port's copy of the JAX package's ``configs.py``; fault and domain
+regimes wait for their slice. The presets keep their names and the
+values of the fields kept here, so a config name means the same run in
+both packages; the preset this port cannot run (the hierarchical config
+5) is refused by :func:`..experiment.build_env_params`.
+:data:`MODE_REFUSALS` is JAX's table word for word, so a refused pair
+gives the JAX CLI's message; modes that wait for a slice of the port are
+refused before it, by the CLIs' tables of unported flags.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Literal
 
+from .algos.a2c import A2CConfig
 from .algos.ppo import PPOConfig
 
 
 @dataclasses.dataclass(frozen=True)
 class ExperimentConfig:
     name: str
-    algo: Literal["ppo", "a2c"] = "ppo"   # "a2c" waits for config 3
+    algo: Literal["ppo", "a2c"] = "ppo"
     # cluster
     n_nodes: int = 8
     gpus_per_node: int = 8
@@ -63,12 +66,136 @@ class ExperimentConfig:
     preempt_cost: float = 0.25
     # training
     ppo: PPOConfig = PPOConfig()
+    a2c: A2CConfig = A2CConfig()
     iterations: int = 100
     seed: int = 0
 
     @property
     def total_gpus(self) -> int:
         return self.n_nodes * self.gpus_per_node
+
+
+class ModeCombinationError(ValueError):
+    """Two requested run modes are mutually unsupported (the one refusal
+    format of :data:`MODE_REFUSALS`)."""
+
+
+# how each mode name is spelled to the user in refusal messages
+MODE_FLAGS: dict[str, str] = {
+    "async": "--async",
+    "pbt": "--pbt",
+    "faults": "--faults",
+    "domains": "--domains",
+    "fault_injection": "--fault",
+    "fused_chunk": "--fused-chunk",
+    "rollbacks": "--max-rollbacks",
+    "hier": "hierarchical config (n_pods > 1)",
+    "shard_map": "shard_map/axis_name build",
+    "mesh": "--mesh",
+    "vtrace": "--correction vtrace",
+    "sync": "the synchronous loop (no --async)",
+    "router": "--engines > 1 (multi-engine serving router)",
+    "continual": "--continual LOGDIR (flight-log retraining)",
+}
+
+# every pairwise refusal, symmetric: (mode_a, mode_b, why)
+MODE_REFUSALS: tuple[tuple[str, str, str], ...] = (
+    ("vtrace", "sync",
+     "importance correction divides the target policy by the behavior "
+     "policy; the sync loop collects every batch on-policy (ratios are "
+     "identically 1), so --correction vtrace without --async would only "
+     "buy the extra forward pass — the bit-identity contract makes this "
+     "a no-op, refuse it loudly instead"),
+    ("vtrace", "hier",
+     "the hierarchical joint log-prob sums router+placer heads; the "
+     "V-trace ratio recompute has not been validated against the "
+     "multi-head action distribution yet"),
+    ("async", "fused_chunk",
+     "the async engine already overlaps phases — pick one"),
+    ("async", "rollbacks",
+     "the divergence watchdog is sync-path-only for now"),
+    ("async", "fault_injection",
+     "fault injection hooks the sync loop's iteration boundary"),
+    ("async", "mesh",
+     "the async engine resolves its own actor/learner submeshes from "
+     "the unified mesh"),
+    ("pbt", "domains",
+     "per-member domain draws would need member-indexed trace windows "
+     "through the population stack; sample domain diversity across "
+     "single-run seeds instead"),
+    ("hier", "domains",
+     "domain schedules carry per-node capacity through the flat sim "
+     "path only; the pod-sharded hierarchical env has no geometry "
+     "threading yet"),
+    ("pbt", "fused_chunk",
+     "the PBT loop interleaves host-side exploit/explore between steps"),
+    ("pbt", "mesh",
+     "--pbt builds the population mesh from the unified mesh "
+     "automatically"),
+    ("hier", "faults",
+     "sim faults thread per-node health through flat observations only"),
+    ("shard_map", "pbt",
+     "the population step is a GSPMD vmap, not an axis-name program"),
+    ("shard_map", "async",
+     "the async engine jits per-group GSPMD programs, not shard_map"),
+    ("shard_map", "fused_chunk",
+     "run_fused jits the raw step; an axis-name step needs "
+     "dp.shard_map_train"),
+    ("shard_map", "mesh",
+     "rule-table shardings are GSPMD in/out_shardings; the axis-name "
+     "path wires its own specs in dp.shard_map_train"),
+    ("router", "hier",
+     "the engine router resolves one single-device engine per data-axis "
+     "device; a hierarchical (n_pods > 1) policy's router+placer heads "
+     "have not been validated under per-engine replicated serving — "
+     "serve hierarchical configs single-engine until they are"),
+    ("continual", "pbt",
+     "continual ingest folds ONE flight log into one learner's "
+     "pseudo-trajectories; a population would train every member on "
+     "the same behavior stream (no per-member exploration signal)"),
+    ("continual", "async",
+     "the async engine overlaps simulator rollout collection with the "
+     "update; continual mode has no rollout to overlap — the flight "
+     "log is read once up front"),
+    ("continual", "hier",
+     "logged rows carry the flat policy's action heads; the "
+     "hierarchical joint log-prob has not been validated against "
+     "flight-log replay (same gap as vtrace x hier)"),
+    ("continual", "fused_chunk",
+     "run_fused scans the simulator train step; continual updates run "
+     "their own jitted learn step over a fixed ingested batch"),
+)
+
+
+def _validate_refusal_table() -> None:
+    """Checked at import: a misspelled mode name would otherwise never
+    refuse anything."""
+    for a, b, why in MODE_REFUSALS:
+        for m in (a, b):
+            if m not in MODE_FLAGS:
+                raise AssertionError(
+                    f"MODE_REFUSALS names unknown mode {m!r} (known: "
+                    f"{sorted(MODE_FLAGS)})")
+        if a == b or not why:
+            raise AssertionError(f"malformed refusal entry {(a, b, why)!r}")
+
+
+_validate_refusal_table()
+
+
+def validate_mode_combination(active: dict[str, bool]) -> None:
+    """Raise :class:`ModeCombinationError` if two active modes are a
+    refused pair. ``active`` maps :data:`MODE_FLAGS` names to whether
+    the run asks for them; an unknown name raises ``KeyError``."""
+    unknown = set(active) - set(MODE_FLAGS)
+    if unknown:
+        raise KeyError(f"unknown mode name(s) {sorted(unknown)}; known: "
+                       f"{sorted(MODE_FLAGS)}")
+    for a, b, why in MODE_REFUSALS:
+        if active.get(a) and active.get(b):
+            raise ModeCombinationError(
+                f"unsupported mode combination: {MODE_FLAGS[a]} × "
+                f"{MODE_FLAGS[b]} — {why}")
 
 
 def repro_tuple(cfg: ExperimentConfig, ckpt_dir: str | None = None,

@@ -27,7 +27,8 @@ class EnvParams:
     """Static env configuration."""
     sim: SimParams
     obs_kind: Literal["flat", "grid", "graph"] = "flat"
-    reward_kind: Literal["jct"] = "jct"
+    reward_kind: Literal["jct", "fair"] = "jct"
+    n_tenants: int = 1            # the fairness reward's tenant bins
     time_scale: float = 600.0     # normalizes times in observations
     reward_scale: float = 1000.0  # divides reward magnitudes
     place_bonus: float = 0.0      # potential-based shaping (rewards.py)
@@ -37,11 +38,8 @@ class EnvParams:
     def __post_init__(self):
         if self.obs_kind not in ("flat", "grid", "graph"):
             raise ValueError(f"unknown obs_kind {self.obs_kind!r}")
-        if self.reward_kind != "jct":
-            raise NotImplementedError(
-                f"reward_kind={self.reward_kind!r}: the multi-tenant "
-                f"fairness reward (a2c-pai-fair) waits for the config-3 "
-                f"slice")
+        if self.reward_kind not in ("jct", "fair"):
+            raise ValueError(f"unknown reward_kind {self.reward_kind!r}")
 
     @property
     def n_actions(self) -> int:
@@ -116,8 +114,13 @@ def reset(params: EnvParams, trace: Trace) -> tuple[EnvState, TimeStep]:
 def step(params: EnvParams, state: EnvState, trace: Trace,
          action: torch.Tensor) -> tuple[EnvState, TimeStep]:
     sim, info = core.rl_step(params.sim, state.sim, trace, action)
-    reward = reward_lib.reward_jct(info, params.reward_scale,
-                                   params.place_bonus)
+    if params.reward_kind == "fair":
+        reward = reward_lib.reward_fair(state.sim, trace, info,
+                                        params.n_tenants,
+                                        params.reward_scale)
+    else:
+        reward = reward_lib.reward_jct(info, params.reward_scale,
+                                       params.place_bonus)
     # the anti-stall charge belongs to the action space, not to one
     # reward function: applied after the reward. Without preempt slots
     # it is exactly -0.0 and leaves the reward's bits as they are, so it

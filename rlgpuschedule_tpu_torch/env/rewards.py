@@ -1,14 +1,13 @@
-"""Reward functions (L2) of the port: the JCT reward and the anti-stall
-preemption charge.
+"""Reward functions (L2) of the port: the JCT reward, the multi-tenant
+fairness reward of config 3 and the anti-stall preemption charge.
 
-Counterpart of ``reward_jct`` and ``preempt_charge`` in the JAX
-package's ``env/rewards.py``. The multi-tenant fairness reward waits
-for the config-3 slice."""
+Counterpart of ``reward_jct``, ``tenant_counts``, ``reward_fair`` and
+``preempt_charge`` in the JAX package's ``env/rewards.py``."""
 from __future__ import annotations
 
 import torch
 
-from ..sim.core import StepInfo
+from ..sim.core import PENDING, RUNNING, SimState, StepInfo, Trace
 
 
 def preempt_charge(info: StepInfo, preempt_cost: float) -> torch.Tensor:
@@ -37,3 +36,24 @@ def reward_jct(info: StepInfo, reward_scale: float,
     if place_bonus:
         return base + place_bonus * info.first_placed.to(torch.float32)
     return base
+
+
+def tenant_counts(state: SimState, trace: Trace,
+                  n_tenants: int) -> torch.Tensor:
+    """In-system job count per tenant, ``[E, n_tenants]`` (f32). A tenant
+    id outside ``[0, n_tenants)`` counts nowhere, as in JAX's one-hot."""
+    insys = (state.status == PENDING) | (state.status == RUNNING)
+    onehot = (trace.tenant[..., None] == torch.arange(
+        n_tenants, device=trace.tenant.device)).to(torch.float32)
+    return (onehot * insys[..., None].to(torch.float32)).sum(-2)
+
+
+def reward_fair(state_before: SimState, trace: Trace, info: StepInfo,
+                n_tenants: int, reward_scale: float) -> torch.Tensor:
+    """Multi-tenant fairness: accumulate ``-dt * sum_t n_t^2`` (``n_t``
+    tenant t's in-system count over the interval). For a fixed total
+    backlog the sum of squares is least at equal shares, so backlog on
+    one tenant costs more than the same backlog spread evenly."""
+    n_t = tenant_counts(state_before, trace, n_tenants)
+    # times the reciprocal, as in reward_jct
+    return -(info.dt * (n_t * n_t).sum(-1)) * (1.0 / reward_scale)

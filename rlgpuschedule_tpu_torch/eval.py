@@ -2,8 +2,9 @@
 
 Counterpart of ``EvalResult``, ``replay``, ``full_trace_replay``,
 ``pooled_avg_jct``, ``baseline_jcts``, ``baseline_jct_table``,
-``jct_report``, ``full_trace_report`` and ``format_report`` in the JAX
-package's ``eval.py``. There the replay is
+``jct_report``, ``full_trace_report``, ``format_report`` and the
+fairness table (``jain_index``, ``fairness_report``,
+``format_fairness``) in the JAX package's ``eval.py``. There the replay is
 one ``lax.scan``; here it is a Python loop over decision steps whose
 body stays on the device: no value comes back to the host inside the
 loop, except one "all done?" check every 64 steps that ends the loop
@@ -23,8 +24,8 @@ windows of a fixed-shape job table, carrying every job not yet done
 from one window to the next (:func:`full_trace_replay`).
 
 Not here: fault replay (a stitched replay under a fault schedule
-included), the hierarchical env, and the fairness, chaos and matrix
-reports; they come with their slices (``ROADMAP.md`` queue 1).
+included), the hierarchical env, and the chaos and matrix reports;
+they come with their slices (``ROADMAP.md`` queue 1).
 """
 from __future__ import annotations
 
@@ -661,6 +662,108 @@ def full_trace_report(exp, max_jobs: int | None = None,
         report["percentiles"] = pcts
     report["wall_s"] = wall
     return report
+
+
+def jain_index(xs: np.ndarray) -> float:
+    """Jain's fairness index over per-tenant values, ``(sum x)^2 / (n
+    sum x^2)`` over the finite positive ones: 1.0 is perfectly even, 1/n
+    all on one tenant; NaN when none is left."""
+    xs = np.asarray(xs, np.float64)
+    xs = xs[np.isfinite(xs) & (xs > 0)]
+    if xs.size == 0:
+        return float("nan")
+    return float(xs.sum() ** 2 / (xs.size * np.square(xs).sum()))
+
+
+def _pool_tenant_jct(finish: np.ndarray, submit: np.ndarray,
+                     tenant: np.ndarray, done: np.ndarray,
+                     n_tenants: int, sums: np.ndarray, counts: np.ndarray,
+                     ) -> None:
+    """Add the JCTs of the ``done`` jobs to their tenants' ``sums`` and
+    ``counts`` (one bincount; padding rows are masked out before the
+    subtraction)."""
+    t = tenant[done]
+    sums += np.bincount(t, weights=finish[done] - submit[done],
+                        minlength=n_tenants)
+    counts += np.bincount(t, minlength=n_tenants)
+
+
+def _fair_row(sums: np.ndarray, counts: np.ndarray, n_valid: int) -> dict:
+    per_tenant = np.where(counts > 0, sums / np.maximum(counts, 1), np.nan)
+    return {
+        # NaN, not 0.0, when nothing completed: a truncated replay must
+        # not sort to the top of the table
+        "avg_jct": (float(sums.sum() / counts.sum()) if counts.sum()
+                    else float("nan")),
+        "jain": jain_index(per_tenant),
+        "completion": float(counts.sum() / max(n_valid, 1)),
+        "tenant_avg_jct": [round(float(x), 1) for x in per_tenant]}
+
+
+def fairness_report(exp, windows: list[ArrayTrace] | None = None,
+                    max_steps: int | None = None,
+                    baselines: tuple[str, ...] = BASELINE_NAMES,
+                    backend: str = "auto") -> dict[str, Any]:
+    """The multi-tenant fairness table of config 3: per-tenant avg JCT
+    under the policy's greedy replay (on the experiment's device) and
+    under each baseline (on the host), on identical windows (default:
+    the experiment's own), with Jain's index over the per-tenant means
+    beside each row's avg JCT and completion.
+
+    Returns ``{"<name>": {"avg_jct", "jain", "completion",
+    "tenant_avg_jct": [...]}, ...}`` with ``policy`` one of the rows.
+    Tenants are pooled over every id present in the windows, not only
+    ``cfg.n_tenants`` bins (a CSV maps each user to its own id)."""
+    if windows is None:
+        windows, traces = exp.windows, exp.traces
+    else:
+        traces = stack_traces(windows, exp.env_params, exp.device)
+    n_tenants = max(int(exp.cfg.n_tenants), 1,
+                    1 + max((int(np.asarray(w.tenant)[w.valid].max())
+                             for w in windows if w.valid.any()),
+                            default=0))
+    n_valid = int(sum(w.num_jobs for w in windows))
+    out: dict[str, Any] = {}
+    _, states = replay(exp.net, exp.env_params, traces, max_steps,
+                       return_states=True)
+    finish = states.sim.finish.cpu().numpy()
+    submit = traces.submit.cpu().numpy()
+    tenant = traces.tenant.cpu().numpy()
+    valid = traces.valid.cpu().numpy()
+    sums = np.zeros(n_tenants)
+    counts = np.zeros(n_tenants, np.int64)
+    for e in range(finish.shape[0]):
+        done = valid[e] & np.isfinite(finish[e])
+        _pool_tenant_jct(finish[e], submit[e], tenant[e], done, n_tenants,
+                         sums, counts)
+    out["policy"] = _fair_row(sums, counts, n_valid)
+    for name in baselines:
+        sums = np.zeros(n_tenants)
+        counts = np.zeros(n_tenants, np.int64)
+        for w in windows:
+            bl = run_baseline(w, exp.cfg.n_nodes, exp.cfg.gpus_per_node,
+                              name, backend)
+            bl_finish = np.asarray(bl.finish, np.float64)
+            done = w.valid & np.isfinite(bl_finish)
+            _pool_tenant_jct(bl_finish, np.asarray(w.submit, np.float64),
+                             np.asarray(w.tenant), done, n_tenants, sums,
+                             counts)
+        out[name] = _fair_row(sums, counts, n_valid)
+    return out
+
+
+def format_fairness(report: dict[str, Any]) -> str:
+    """The fairness table as text, rows by avg JCT (NaN last)."""
+    width = max(len("scheduler"), *(len(k) for k in report))
+    lines = [f"{'scheduler':<{width}}  avg JCT (s)  Jain(tenant JCT)  done",
+             f"{'-' * width}  -----------  ----------------  ----"]
+    order = sorted(report.items(),
+                   key=lambda kv: (np.isnan(kv[1]["avg_jct"]),
+                                   kv[1]["avg_jct"]))
+    for k, v in order:
+        lines.append(f"{k:<{width}}  {v['avg_jct']:>11.1f}  "
+                     f"{v['jain']:>16.3f}  {v['completion']:>4.0%}")
+    return "\n".join(lines)
 
 
 def format_report(report: dict[str, Any]) -> str:

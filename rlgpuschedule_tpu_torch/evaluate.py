@@ -14,7 +14,10 @@ JSON line on stdout: the numeric rows, ``percentiles`` with
 device, and a ``repro`` block of the config fields and the checkpoint
 step that regenerate it. ``--full-trace`` replaces the windows by the
 whole source trace, stitched through the job table
-(:func:`..eval.full_trace_report`); ``--drain-frac`` evaluates on
+(:func:`..eval.full_trace_report`); ``--fairness`` prints the
+multi-tenant fairness table instead (:func:`..eval.fairness_report`:
+per-tenant avg JCT and Jain's index, policy against the baselines; its
+JSON writes NaN as null); ``--drain-frac`` evaluates on
 backlog-drain copies of that fraction of the windows. Every other flag
 of the JAX CLI exits naming the slice it waits for.
 
@@ -28,12 +31,15 @@ Examples::
         --ckpt-dir out/run --seed 123 --full-trace --stitch-drain-jobs 8
     python -m rlgpuschedule_tpu_torch.evaluate --config ppo-mlp-synth64 \\
         --baselines-only --device cpu
+    python -m rlgpuschedule_tpu_torch.evaluate --config a2c-pai-fair \\
+        --ckpt-dir out/fair --fairness
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import math
 import os
 import sys
 
@@ -44,8 +50,8 @@ from .cli import (add_config_flags, check_source_jobs, config_overrides,
                   numeric_rows, refuse_unported)
 from .configs import CONFIGS, repro_tuple
 from .device import resolve_device
-from .eval import (baseline_jct_table, format_report, full_trace_report,
-                   jct_report)
+from .eval import (baseline_jct_table, fairness_report, format_fairness,
+                   format_report, full_trace_report, jct_report)
 from .experiment import (Experiment, build_env_params, load_source_trace,
                          make_env_windows)
 from .sim.core import validate_trace
@@ -64,7 +70,6 @@ UNPORTED_FLAGS: dict[str, str] = {
          "--matrix", "--matrix-regimes", "--matrix-baselines",
          "--matrix-seed", "--matrix-ckpt", "--faults", "--domains"),
         f"the chaos and domain slice ({_Q1}, item 17)"),
-    "--fairness": f"the fairness slice ({_Q1}, item 16)",
     **dict.fromkeys(("--pbt", "--n-pop", "--member"),
                     f"the hierarchical/PBT slice ({_Q1}, item 19)"),
     **dict.fromkeys(("--obs-dir", "--trace-spans", "--alarms"),
@@ -73,6 +78,18 @@ UNPORTED_FLAGS: dict[str, str] = {
     "--stall-guard": f"a caller that needs it ({_Q1}, item 11); the "
                      f"guard is on by default",
 }
+
+
+def _json_safe(v):
+    """NaN (the fairness table's nothing-completed value) as null: bare
+    NaN tokens are not JSON."""
+    if isinstance(v, float) and not math.isfinite(v):
+        return None
+    if isinstance(v, dict):
+        return {k: _json_safe(x) for k, x in v.items()}
+    if isinstance(v, list):
+        return [_json_safe(x) for x in v]
+    return v
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -105,6 +122,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--percentiles", action="store_true",
                    help="add p50/p90/p99 JCT columns per scheduler")
     p.add_argument("--baselines-only", action="store_true")
+    p.add_argument("--fairness", action="store_true",
+                   help="multi-tenant fairness table: per-tenant avg JCT "
+                        "+ Jain index, policy vs baselines (config 3)")
     p.add_argument("--full-trace", action="store_true",
                    help="evaluate over the entire source trace: the policy "
                         "by sequential windowed replay with residual "
@@ -152,14 +172,15 @@ def main(argv: "list[str] | None" = None) -> dict:
         over["drain_frac"] = args.drain_frac
     cfg = dataclasses.replace(CONFIGS[args.config], **over)
     check_source_jobs(args, cfg)
-    if args.percentiles and args.baselines_only:
-        sys.exit("--percentiles applies to the JCT table with a policy row "
-                 "(no --baselines-only)")
-    if args.eval_windows is not None and (args.baselines_only
-                                          or args.full_trace):
-        sys.exit("--eval-windows applies to the plain per-window JCT table "
-                 "(no --baselines-only or --full-trace, which define their "
-                 "own windows)")
+    if args.percentiles and (args.fairness or args.baselines_only):
+        sys.exit("--percentiles applies to the per-window and --full-trace "
+                 "JCT tables (flat configs, no --fairness/"
+                 "--baselines-only/--pbt)")
+    if args.eval_windows is not None and (args.fairness or args.full_trace
+                                          or args.baselines_only):
+        sys.exit("--eval-windows applies to the plain per-window JCT "
+                 "table (population views carry no source trace; the "
+                 "other modes define their own window batch)")
     if args.stitch_window_jobs is not None and not args.full_trace:
         sys.exit("--stitch-window-jobs applies to --full-trace stitched "
                  "replay only")
@@ -172,15 +193,19 @@ def main(argv: "list[str] | None" = None) -> dict:
     if args.backlog_gate < 0:
         sys.exit("--backlog-gate must be >= 0 (a negative gate would "
                  "silently run ungated)")
-    if args.backlog_gate and args.baselines_only:
-        sys.exit("--backlog-gate gates the policy row; --baselines-only "
-                 "has none")
-    if not args.stall_guard and (args.baselines_only
+    if args.backlog_gate and (args.fairness or args.baselines_only):
+        sys.exit("--backlog-gate applies to the flat per-window and "
+                 "--full-trace policy tables (the hierarchical action "
+                 "space has no single FIFO fall-through action; "
+                 "--baselines-only has no policy row)")
+    if not args.stall_guard and (args.baselines_only or args.fairness
                                  or cfg.preempt_len == 0):
-        sys.exit("--no-stall-guard applies to the policy row of a "
-                 "preemptive config: the guard only ever masks preempt "
-                 "actions, so it is a no-op elsewhere (refusing beats "
-                 "silently changing nothing)")
+        sys.exit("--no-stall-guard applies to flat PREEMPTIVE configs' "
+                 "policy rows (per-window, --full-trace, and flat --pbt "
+                 "members): the guard only ever masks preempt actions, "
+                 "so it is a no-op elsewhere, and the fairness path "
+                 "does not plumb it; refusing beats silently changing "
+                 "nothing)")
     dev = resolve_device(args.device)
     repro = repro_tuple(cfg, ckpt_dir=args.ckpt_dir)
 
@@ -208,6 +233,15 @@ def main(argv: "list[str] | None" = None) -> dict:
     else:
         print("note: no --ckpt-dir; evaluating untrained init weights",
               file=sys.stderr)
+    if args.fairness:
+        report = fairness_report(exp, max_steps=args.max_steps)
+        print(format_fairness(report), file=sys.stderr)
+        out = _json_safe({**report, "repro": repro})
+        out.update(device=str(dev),
+                   device_name=(torch.cuda.get_device_name(dev)
+                                if dev.type == "cuda" else "cpu"))
+        print(json.dumps(out), flush=True)
+        return report
     if args.full_trace:
         stitch_params = None
         if args.stitch_window_jobs is not None:

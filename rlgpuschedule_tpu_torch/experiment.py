@@ -4,12 +4,12 @@ optimizer and the training loop.
 Counterparts of ``build_env_params``, ``load_source_trace``,
 ``build_stack``, ``windows_per_pass``, ``drain_window``,
 ``make_env_windows`` (with the drain curriculum) and the single-run
-``Experiment`` (``build``, ``run`` with its eval, checkpoint and
-window-streaming cadences, ``advance_windows``, ``save_checkpoint``,
+``Experiment`` of PPO or A2C (``build``, ``run`` with its eval,
+checkpoint and window-streaming cadences and its ``fused_chunk``,
+``run_fused``, ``advance_windows``, ``save_checkpoint``,
 ``restore_checkpoint``, ``steps_per_iteration``) in the JAX package's
-``experiment.py``. ``run_fused``, meshes, faults and domains are not
-ported; the hierarchical config and A2C are refused here with
-``NotImplementedError``.
+``experiment.py``. Meshes, faults and domains are not ported; the
+hierarchical config is refused here with ``NotImplementedError``.
 
 Random streams: the rollout samples from the carry's generator (seeded
 ``cfg.seed``) and the update permutes with another (seeded
@@ -26,6 +26,11 @@ state before the re-cut, and the run that restores it re-cuts first:
 uninterrupted ones for any cadence. Within one ``run`` from a fresh
 build this is JAX's schedule; JAX counts each ``run`` call from 0 and
 skips the resample after a call's last iteration.
+
+``run_fused(k)`` is ``k`` train steps with no host sync and no hook in
+between. JAX scans them as one program and derives its keys otherwise
+than ``run``; the port's steps draw from the same generators either way,
+so ``run_fused(k)`` is ``k`` iterations of ``run`` bit for bit.
 """
 from __future__ import annotations
 
@@ -36,8 +41,8 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .algos.ppo import (PPOMetrics, TrainState, make_train_state,
-                        make_train_step)
+from .algos import a2c, ppo
+from .algos.ppo import RewardNormState, TrainState
 from .algos.rollout import (RolloutCarry, init_carry,
                             validate_rollout_geometry)
 from .algos.update import validate_update_geometry
@@ -63,7 +68,7 @@ def build_env_params(cfg: ExperimentConfig) -> EnvParams:
                     n_placements=cfg.n_placements,
                     preempt_len=cfg.preempt_len)
     return EnvParams(sim=sim, obs_kind=cfg.obs_kind,
-                     reward_kind=cfg.reward_kind,
+                     reward_kind=cfg.reward_kind, n_tenants=cfg.n_tenants,
                      time_scale=cfg.time_scale,
                      reward_scale=cfg.reward_scale,
                      place_bonus=cfg.place_bonus,
@@ -206,9 +211,14 @@ def restore_policy(ckpt: Checkpointer, net: torch.nn.Module,
     return meta
 
 
+def algo_config(cfg: ExperimentConfig):
+    """The config's ``PPOConfig`` or ``A2CConfig``."""
+    return cfg.ppo if cfg.algo == "ppo" else cfg.a2c
+
+
 @dataclasses.dataclass
 class Experiment:
-    """An assembled PPO run: the train step and its host loop."""
+    """An assembled PPO or A2C run: the train step and its host loop."""
     cfg: ExperimentConfig
     env_params: EnvParams
     windows: list            # host ArrayTrace windows
@@ -228,7 +238,7 @@ class Experiment:
 
     @property
     def step(self) -> int:
-        """The count of Adam updates taken (iterations x epochs x
+        """The count of optimizer updates taken (iterations x epochs x
         minibatches): JAX's ``train_state.step``, and the number a
         checkpoint is saved under."""
         state = self.train_state.opt.state
@@ -240,35 +250,31 @@ class Experiment:
     @staticmethod
     def build(cfg: ExperimentConfig,
               device: "torch.device | str | None" = None) -> "Experiment":
-        """Policy from ``cfg.seed``, optimizer, first env reset. The
-        rollout samples from a generator seeded ``cfg.seed`` and the
-        update permutes with one seeded ``cfg.seed + 1``, both on
-        ``device``."""
+        """Policy from ``cfg.seed``, optimizer (PPO's clipped Adam or
+        A2C's clipped RMSprop), first env reset. The rollout samples
+        from a generator seeded ``cfg.seed`` and the update permutes
+        with one seeded ``cfg.seed + 1``, both on ``device``."""
         dev = resolve_device(device)
-        if cfg.algo != "ppo":
-            raise NotImplementedError(
-                f"config {cfg.name!r} trains with algo={cfg.algo!r}: A2C "
-                f"(a2c-pai-fair) waits for the config-3 slice (ROADMAP.md "
-                f"queue 1, item 16)")
-        ppo = cfg.ppo
+        algo = algo_config(cfg)
         # fail fast on a geometry that cannot tile the rollout batch
-        validate_rollout_geometry(ppo.n_steps, cfg.n_envs)
-        validate_update_geometry(ppo.n_epochs, ppo.n_minibatches,
-                                 ppo.minibatch_size, n_steps=ppo.n_steps,
+        validate_rollout_geometry(algo.n_steps, cfg.n_envs)
+        validate_update_geometry(algo.n_epochs, algo.n_minibatches,
+                                 algo.minibatch_size, n_steps=algo.n_steps,
                                  n_envs=cfg.n_envs)
         env_params, windows, traces, net, source = build_stack(cfg, dev)
         carry = init_carry(env_params, traces,
                            torch.Generator(dev).manual_seed(cfg.seed))
+        lib = a2c if cfg.algo == "a2c" else ppo
         return Experiment(
             cfg=cfg, env_params=env_params, windows=windows, traces=traces,
-            train_state=make_train_state(net, ppo),
-            train_step=make_train_step(env_params, ppo), carry=carry,
+            train_state=lib.make_train_state(net, algo),
+            train_step=lib.make_train_step(env_params, algo), carry=carry,
             generator=torch.Generator(dev).manual_seed(cfg.seed + 1),
             source=source, device=dev)
 
     @property
     def steps_per_iteration(self) -> int:
-        return self.cfg.ppo.n_steps * self.cfg.n_envs
+        return algo_config(self.cfg).n_steps * self.cfg.n_envs
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -294,12 +300,16 @@ class Experiment:
     def save_checkpoint(self, ckpt: Checkpointer, step: int | None = None,
                         meta: dict | None = None,
                         force: bool = False) -> bool:
-        """Persist the policy, the optimizer (both Adam moments and its
-        step), the rollout carry (env state, obs, mask) and the states
-        of both generators under ``step`` (default :attr:`step`), all as
-        host tensors; ``meta`` gains the config, ``iteration`` (the last
-        one trained), ``window_cursor`` and the generators' device.
-        ``force=True`` overwrites an existing step."""
+        """Persist the policy, the optimizer (Adam's moments or
+        RMSprop's, and the step), the reward moments when
+        ``reward_norm`` is on, the rollout carry (env state, obs, mask)
+        and the states of both generators under ``step`` (default
+        :attr:`step`), all as host tensors; ``meta`` gains the config,
+        ``iteration`` (the last one trained), ``window_cursor`` and the
+        generators' device. ``force=True`` overwrites an existing step.
+        JAX's checkpoint holds no reward moments (a JAX resume restarts
+        them at zero); the port keeps them, so a resume continues the
+        run bit for bit."""
         step = self.step if step is None else step
         c = self.carry
         state = {
@@ -311,6 +321,9 @@ class Experiment:
             "generators": {"sampling": c.generator.get_state().clone(),
                            "update": self.generator.get_state().clone()},
         }
+        stats = self.train_state.reward_stats
+        if stats is not None:
+            state["reward_stats"] = _host_tree(stats._asdict())
         meta = dict(meta or {}, config=dataclasses.asdict(self.cfg),
                     iteration=self.iteration - 1,
                     window_cursor=self.window_cursor,
@@ -339,6 +352,9 @@ class Experiment:
         self.net.load_state_dict(state["policy"])
         if train:
             self.train_state.opt.load_state_dict(state["optimizer"])
+            if self.train_state.reward_stats is not None:
+                self.train_state = self.train_state._replace(
+                    reward_stats=RewardNormState(**state["reward_stats"]))
             c = state["carry"]
             gen = self.carry.generator
             gen.set_state(state["generators"]["sampling"].cpu())
@@ -352,13 +368,53 @@ class Experiment:
             self._cut_windows(cursor)
         return meta
 
+    def validate_fused_chunk(self, fused_chunk: int, iterations: int, *,
+                             log_every: int = 0, ckpt_every: int = 0,
+                             eval_every: int = 0) -> None:
+        """Raise ``ValueError`` unless ``fused_chunk`` divides every
+        active cadence (0 = off), the iteration count and
+        :attr:`iteration`, the run's start: :meth:`run`'s hooks then
+        fall on chunk boundaries."""
+        if fused_chunk <= 1:
+            return
+        cadences = {"log_every": log_every, "ckpt_every": ckpt_every,
+                    "eval_every": eval_every,
+                    "resample_every": self.cfg.resample_every,
+                    "iterations": iterations}
+        bad = {k: v for k, v in cadences.items() if v and v % fused_chunk}
+        if bad:
+            raise ValueError(
+                f"fused_chunk={fused_chunk} must divide every active "
+                f"cadence and the iteration count; offending: {bad}")
+        if self.iteration % fused_chunk:
+            raise ValueError(
+                f"fused_chunk={fused_chunk} must divide the iteration the "
+                f"run starts from ({self.iteration}), or the chunk "
+                f"boundaries miss the cadences")
+
+    def run_fused(self, iterations: int):
+        """Run ``iterations`` train steps with no host sync and no hook
+        (log, probe, checkpoint or window resample) between them;
+        returns the last iteration's metrics, on the device. The steps
+        are :meth:`run`'s on the same generators, so ``run_fused(k)`` is
+        ``k`` iterations of ``run`` bit for bit."""
+        if iterations < 1:
+            raise ValueError(f"run_fused needs iterations >= 1, got "
+                             f"{iterations}")
+        metrics = None
+        for _ in range(iterations):
+            self.train_state, self.carry, metrics = self.train_step(
+                self.train_state, self.carry, self.traces, self.generator)
+        self.iteration += iterations
+        return metrics
+
     def run(self, iterations: int | None = None, log_every: int = 0,
             logger: Callable[[int, dict], None] | None = None,
             ckpt: Checkpointer | None = None, ckpt_every: int = 0,
             eval_every: int = 0,
             eval_fn: "Callable[[int], dict] | None" = None,
             eval_logger: Callable[[int, dict], None] | None = None,
-            ) -> dict:
+            fused_chunk: int = 1) -> dict:
         """Run ``iterations`` (default ``cfg.iterations``) more training
         iterations; returns the summary (wall time, env steps per second,
         ``window_cursor``, logged history). Iteration ``g`` counts over
@@ -376,34 +432,58 @@ class Experiment:
         ``cfg.resample_every`` the windows are re-cut before every
         ``resample_every``-th iteration. Nothing else in the loop waits
         for the device. ``wall_s`` and env-steps/s include the probes'
-        and saves' time."""
+        and saves' time.
+
+        ``fused_chunk > 1`` runs that many iterations at a time through
+        :meth:`run_fused`, with the hooks at the chunk boundaries
+        ``b = k * fused_chunk - 1`` (counted over the experiment's
+        life), each cadence in the ``(b + 1) % L == 0`` form; every
+        active cadence, the iteration count and the iteration the call
+        starts from must be multiples of the chunk, so the hooks fire
+        where the unchunked loop fires them (JAX's rule). Logged metrics
+        are the boundary iteration's."""
         iterations = iterations or self.cfg.iterations
         every = self.cfg.resample_every
+        stride = max(fused_chunk, 1)
+        self.validate_fused_chunk(
+            stride, iterations, log_every=log_every,
+            ckpt_every=ckpt_every if ckpt is not None else 0,
+            eval_every=eval_every if eval_fn is not None else 0)
         history, eval_history = [], []
         self._sync()
         t0 = time.perf_counter()
-        for i in range(iterations):
+        done = 0
+        while done < iterations:
             g = self.iteration
             if every and g and g % every == 0:
                 self.advance_windows()
-            self.train_state, self.carry, metrics = self.train_step(
-                self.train_state, self.carry, self.traces, self.generator)
-            self.iteration = g + 1
-            last = i == iterations - 1
-            if log_every and (g % log_every == 0 or last):
-                m = dict(zip(PPOMetrics._fields,
+            if stride > 1:
+                metrics = self.run_fused(stride)
+            else:
+                self.train_state, self.carry, metrics = self.train_step(
+                    self.train_state, self.carry, self.traces,
+                    self.generator)
+                self.iteration = g + 1
+            done += stride
+            b = self.iteration - 1
+            last = done >= iterations
+            # unchunked, log at phase 0 (b % L); chunked, at the
+            # boundaries' phase ((b + 1) % L), as JAX does
+            phase = b + 1 if stride > 1 else b
+            if log_every and (phase % log_every == 0 or last):
+                m = dict(zip(type(metrics)._fields,
                              torch.stack(metrics).tolist()))
-                history.append({"iteration": g, **m})
+                history.append({"iteration": b, **m})
                 if logger is not None:
-                    logger(g, m)
+                    logger(b, m)
             if eval_fn is not None and eval_every and \
-                    ((g + 1) % eval_every == 0 or last):
-                em = dict(eval_fn(g))
-                eval_history.append({"iteration": g, **em})
+                    ((b + 1) % eval_every == 0 or last):
+                em = dict(eval_fn(b))
+                eval_history.append({"iteration": b, **em})
                 if eval_logger is not None:
-                    eval_logger(g, em)
+                    eval_logger(b, em)
             if ckpt is not None and ckpt_every and \
-                    ((g + 1) % ckpt_every == 0 or last):
+                    ((b + 1) % ckpt_every == 0 or last):
                 self.save_checkpoint(ckpt)
         self._sync()
         wall = time.perf_counter() - t0

@@ -1,10 +1,12 @@
 """Training CLI (L6) of the port:
 ``python -m rlgpuschedule_tpu_torch.train --config <name>``.
 
-Counterpart of the JAX package's ``train.py`` for single-run PPO. It
-takes the subset of that CLI's flags this port implements; every other
-flag of the JAX CLI is refused with a message that names the slice it
-waits for. One JSON line per logged iteration, one per ``--eval-every``
+Counterpart of the JAX package's ``train.py`` for single-run PPO and
+A2C (``--config a2c-pai-fair``). It takes the subset of that CLI's
+flags this port implements; every other flag of the JAX CLI is refused
+with a message that names the slice it waits for, and a refused pair of
+modes with the JAX CLI's message (:data:`..configs.MODE_REFUSALS`). One
+JSON line per logged iteration, one per ``--eval-every``
 probe (its keys start with ``eval_``), then a summary line with
 env-steps/s, the device it ran on and, with ``--report``, the
 JCT-vs-baselines table (also printed on stderr).
@@ -16,7 +18,12 @@ more, its iterations numbered on from the checkpoint's; ``--keep-best``
 also saves the policy whenever the held-out probe improves, under
 ``<ckpt-dir>/best``. ``--drain-frac`` trains that fraction of the envs
 on backlog-drain windows; ``--resample-every`` re-cuts the windows from
-the source trace every N iterations.
+the source trace every N iterations. ``--bf16-update``,
+``--reward-norm`` and ``--bf16-advantages`` set the algorithm's
+precision and advantage options, ``--correction`` PPO's (``vtrace``
+needs ``--async``, which waits for its slice); ``--fused-chunk N`` runs
+N iterations between hook boundaries with no host sync
+(:meth:`..experiment.Experiment.run_fused`).
 
 Examples::
 
@@ -28,6 +35,8 @@ Examples::
     python -m rlgpuschedule_tpu_torch.train --config ppo-mlp-synth64 \\
         --n-envs 2 --n-steps 16 --iterations 2 --eval-every 1 --report \\
         --device cpu
+    python -m rlgpuschedule_tpu_torch.train --config a2c-pai-fair \\
+        --iterations 100 --reward-norm --fused-chunk 10 --log-every 10
 """
 from __future__ import annotations
 
@@ -43,9 +52,11 @@ from . import eval as eval_lib
 from .checkpoint import Checkpointer
 from .cli import (add_config_flags, check_source_jobs, config_overrides,
                   numeric_rows, refuse_unported)
-from .configs import CONFIGS, ExperimentConfig
+from .configs import (CONFIGS, ExperimentConfig, ModeCombinationError,
+                      validate_mode_combination)
 from .env.env import stack_traces
-from .experiment import Experiment, load_source_trace, make_env_windows
+from .experiment import (Experiment, algo_config, load_source_trace,
+                         make_env_windows)
 from .sim.core import validate_trace
 
 _Q1 = "ROADMAP.md queue 1"
@@ -53,10 +64,6 @@ _Q1 = "ROADMAP.md queue 1"
 UNPORTED_FLAGS: dict[str, str] = {
     **dict.fromkeys(("--faults", "--domains"),
                     f"the chaos and domain slice ({_Q1}, item 17)"),
-    **dict.fromkeys(
-        ("--bf16-update", "--correction", "--reward-norm",
-         "--bf16-advantages"),
-        f"the off-policy and precision slice ({_Q1}, item 18)"),
     **dict.fromkeys(("--pbt", "--n-pop", "--pbt-ready"),
                     f"the hierarchical/PBT slice ({_Q1}, item 19)"),
     **dict.fromkeys(
@@ -69,7 +76,6 @@ UNPORTED_FLAGS: dict[str, str] = {
     **dict.fromkeys(("--continual", "--continual-trust",
                      "--continual-rho-max"),
                     f"the data-flywheel slice ({_Q1}, item 23)"),
-    "--fused-chunk": f"run_fused ({_Q1}, item 10)",
     **dict.fromkeys(
         ("--log-csv", "--tb-dir", "--profile-dir", "--obs-dir", "--alarms",
          "--alarm-slow-iter", "--trace-spans", "--debug-nans"),
@@ -81,7 +87,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m rlgpuschedule_tpu_torch.train",
         description="Train an RL GPU-cluster scheduling policy with PPO "
-                    "(PyTorch, on the GPU unless --device says otherwise).")
+                    "or A2C (PyTorch, on the GPU unless --device says "
+                    "otherwise).")
     p.add_argument("--config", default="ppo-mlp-synth64",
                    help="named preset (see --list-configs)")
     p.add_argument("--list-configs", action="store_true")
@@ -106,6 +113,35 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--minibatch-size", type=int, default=None,
                    help="explicit minibatch size (overrides "
                         "--n-minibatches; must tile n_steps * n_envs)")
+    p.add_argument("--bf16-update", action="store_true", default=None,
+                   help="bf16-compute / fp32-optimizer-state update path "
+                        "(NOT bit-identical to the fp32 default)")
+    p.add_argument("--correction", default=None,
+                   choices=["none", "vtrace"],
+                   help="off-policy advantage correction (PPO only). "
+                        "'vtrace' re-weights the advantage scan by "
+                        "rho/c-clipped importance ratios (algos.vtrace) "
+                        "so deep --staleness-bound queues train without "
+                        "bias; requires --async (on-policy ratios are "
+                        "identically 1 and the correction reduces "
+                        "bit-identically to the GAE path, so the sync "
+                        "combination is refused as a silent no-op)")
+    p.add_argument("--reward-norm", action="store_true", default=None,
+                   help="streaming reward standardization: scale rewards "
+                        "by a running inverse-std (Welford moments "
+                        "carried in the train state, scale-only — no "
+                        "centering, so sparse-reward signs survive) "
+                        "before the advantage scan")
+    p.add_argument("--bf16-advantages", action="store_true", default=None,
+                   help="store advantage/return targets in bfloat16 "
+                        "between the advantage scan and the minibatch "
+                        "epochs (halves the target buffer; NOT "
+                        "bit-identical — loss math upcasts to fp32)")
+    p.add_argument("--fused-chunk", type=int, default=1,
+                   help="run N train steps with no host sync between hook "
+                        "boundaries (every active log/eval/ckpt/resample "
+                        "cadence, the iteration count and a resumed "
+                        "run's start must be multiples of N)")
     p.add_argument("--lr", type=float, default=None)
     p.add_argument("--ent-coef", type=float, default=None)
     p.add_argument("--log-every", type=int, default=10)
@@ -153,14 +189,25 @@ def apply_overrides(cfg: ExperimentConfig,
         if getattr(args, k) is not None:
             over[k] = getattr(args, k)
     cfg = dataclasses.replace(cfg, **over)
-    ppo = {"lr": args.lr, "ent_coef": args.ent_coef,
-           "n_steps": args.n_steps, "n_epochs": args.n_epochs,
-           "n_minibatches": args.n_minibatches,
-           "minibatch_size": args.minibatch_size}
-    over = {k: v for k, v in ppo.items() if v is not None}
+    algo_fields = {"lr": args.lr, "ent_coef": args.ent_coef,
+                   "n_steps": args.n_steps, "n_epochs": args.n_epochs,
+                   "n_minibatches": args.n_minibatches,
+                   "minibatch_size": args.minibatch_size,
+                   "bf16_update": args.bf16_update,
+                   "reward_norm": args.reward_norm,
+                   "bf16_advantages": args.bf16_advantages}
+    over = {k: v for k, v in algo_fields.items() if v is not None}
+    # only PPO has an off-policy correction
+    if args.correction is not None:
+        if cfg.algo != "ppo":
+            sys.exit("--correction selects the PPO advantage pipeline "
+                     "(algos.vtrace); the A2C update has no importance-"
+                     "corrected variant")
+        over["correction"] = args.correction
     if over:
-        cfg = dataclasses.replace(cfg,
-                                  ppo=dataclasses.replace(cfg.ppo, **over))
+        cfg = dataclasses.replace(
+            cfg, **{cfg.algo: dataclasses.replace(algo_config(cfg),
+                                                  **over)})
     return cfg
 
 
@@ -277,6 +324,17 @@ def main(argv: "list[str] | None" = None) -> dict:
     if args.resume and not args.ckpt_dir:
         sys.exit("--resume requires --ckpt-dir")
     cfg = apply_overrides(CONFIGS[args.config], args)
+    # the one mode-combination gate (modes that wait for a slice were
+    # refused above, with their flags)
+    try:
+        validate_mode_combination({
+            "fused_chunk": args.fused_chunk > 1,
+            "hier": cfg.n_pods > 1,
+            "vtrace": cfg.algo == "ppo" and cfg.ppo.correction == "vtrace",
+            "sync": True,
+        })
+    except ModeCombinationError as e:
+        sys.exit(str(e))
     check_source_jobs(args, cfg)
     try:
         exp = Experiment.build(cfg, device=args.device)
@@ -301,6 +359,11 @@ def main(argv: "list[str] | None" = None) -> dict:
                 eval_every=args.eval_every, eval_fn=probe,
                 eval_logger=lambda i, m: print(
                     json.dumps({"iteration": i, **m}), flush=True))
+        exp.validate_fused_chunk(
+            args.fused_chunk, args.iterations or cfg.iterations,
+            log_every=args.log_every,
+            ckpt_every=args.ckpt_every if ckpt is not None else 0,
+            eval_every=args.eval_every)
     except (NotImplementedError, ValueError) as e:
         sys.exit(str(e))
 
@@ -308,11 +371,13 @@ def main(argv: "list[str] | None" = None) -> dict:
         print(json.dumps({"iteration": i, **m}), flush=True)
 
     out = exp.run(log_every=args.log_every, logger=logger, ckpt=ckpt,
-                  ckpt_every=args.ckpt_every, **eval_kw)
+                  ckpt_every=args.ckpt_every, fused_chunk=args.fused_chunk,
+                  **eval_kw)
     dev = exp.device
     summary = {k: v for k, v in out.items() if k != "history"}
     summary.update(
-        config=cfg.name, n_envs=cfg.n_envs, n_steps=cfg.ppo.n_steps,
+        config=cfg.name, algo=cfg.algo, n_envs=cfg.n_envs,
+        n_steps=algo_config(cfg).n_steps,
         device=str(dev),
         device_name=(torch.cuda.get_device_name(dev)
                      if dev.type == "cuda" else "cpu"))

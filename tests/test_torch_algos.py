@@ -430,10 +430,19 @@ def test_clip_by_global_norm_is_optax_rule():
     ("bf16_update", True), ("reward_norm", True), ("bf16_advantages", True),
     ("correction", "vtrace")])
 def test_ppo_config_refuses_unported_options(field, value):
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tppo.PPOConfig(**{field: value})
-    with pytest.raises(ValueError):
+    """The options once refused are taken as JAX takes them (and its
+    learn step builds with them); an unknown correction is still
+    refused with JAX's ValueError."""
+    cfg = tppo.PPOConfig(**{field: value})
+    assert getattr(cfg, field) == value
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(
+        jppo.PPOConfig(**{field: value}))
+    assert callable(tppo.make_learn_step(cfg))
+    with pytest.raises(ValueError) as want:
+        jppo.PPOConfig(correction="bogus")
+    with pytest.raises(ValueError) as got:
         tppo.PPOConfig(correction="bogus")
+    assert str(got.value) == str(want.value)
 
 
 # ---- vec_step with a reset built once ---------------------------------------

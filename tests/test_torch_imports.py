@@ -209,3 +209,49 @@ def test_unported_messages_name_open_roadmap_items():
         text = open(path, encoding="utf-8").read()
         named |= {int(n) for n in re.findall(r"item (\d+)", text)}
     assert named and named <= open_items, sorted(named - open_items)
+
+
+def test_importing_the_config_three_and_bench_path_leaves_jax_out():
+    _leaves_jax_out(("algos.a2c", "algos.vtrace", "bench", "configs",
+                     "env.rewards", "eval", "evaluate", "train"))
+
+
+def test_the_config_three_slice_has_its_pieces():
+    """A2C, V-trace, the reward options, the fairness reward and table,
+    the mode table and the bench are the port's own code."""
+    import importlib
+    sys.path.insert(0, ROOT)
+    try:
+        for mod, names in {
+                "algos.a2c": ("A2CConfig", "A2CMetrics", "make_optimizer",
+                              "a2c_loss", "make_a2c_grad_step",
+                              "run_a2c_update", "make_learn_step",
+                              "make_train_step", "make_train_state"),
+                "algos.vtrace": ("importance_ratios", "compute_vtrace"),
+                "algos.ppo": ("ClippedRMSprop", "RewardNormState",
+                              "init_reward_stats", "update_reward_stats",
+                              "reward_scale", "loss_and_backward"),
+                "algos.update": ("cast_floating",),
+                "env.rewards": ("tenant_counts", "reward_fair"),
+                "eval": ("jain_index", "fairness_report",
+                         "format_fairness"),
+                "configs": ("ModeCombinationError",
+                            "validate_mode_combination"),
+                "bench": ("build_parser", "geometry_from_sweep",
+                          "central_spread", "main")}.items():
+            m = importlib.import_module(f"rlgpuschedule_tpu_torch.{mod}")
+            for n in names:
+                assert getattr(m, n).__module__ == m.__name__, (mod, n)
+    finally:
+        sys.path.remove(ROOT)
+
+
+def test_the_mode_table_is_jaxs():
+    """The port's refusal table is the JAX package's, pair for pair and
+    word for word, so a refused combination reads the same in both."""
+    from rlgpuschedule_tpu import configs as jconfigs
+    from rlgpuschedule_tpu_torch import configs as tconfigs
+    assert tconfigs.MODE_FLAGS == jconfigs.MODE_FLAGS
+    assert tconfigs.MODE_REFUSALS == jconfigs.MODE_REFUSALS
+    with pytest.raises(KeyError):
+        tconfigs.validate_mode_combination({"bogus": True})

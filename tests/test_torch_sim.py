@@ -223,10 +223,17 @@ def test_advance_at_philly_clock_does_not_complete_early():
 
 @pytest.mark.parametrize("name", ["hier-pbt-member", "a2c-pai-fair"])
 def test_configs_outside_the_slice_are_refused(name):
+    """The hierarchical env (n_pods > 1, config 5) is the one config
+    shape the port refuses: config 5 itself, and config 3 made
+    hierarchical (config 3 as published builds)."""
+    import dataclasses
     from rlgpuschedule_tpu_torch.configs import CONFIGS
     from rlgpuschedule_tpu_torch.experiment import build_env_params
     with pytest.raises(NotImplementedError, match=f"{name}.*slice"):
-        build_env_params(CONFIGS[name])
+        build_env_params(dataclasses.replace(CONFIGS[name], n_pods=4))
+    if name == "a2c-pai-fair":
+        params = build_env_params(CONFIGS[name])
+        assert (params.reward_kind, params.n_tenants) == ("fair", 8)
 
 
 @pytest.mark.parametrize("name", ["gnn-gang-place", "ppo-mlp-preempt"])

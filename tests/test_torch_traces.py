@@ -83,13 +83,20 @@ def test_validate_trace_refuses_or_clamps_like_jax():
 
 def test_unported_trace_sources_are_refused():
     """Every trace source is ported now; what is still refused is a CSV
-    source with no file (JAX's error) and the config that trains on the
-    PAI proxy with A2C (at build, naming its slice)."""
+    source with no file (JAX's error) and the PAI-proxy config made
+    hierarchical (at build, naming its slice). Config 3 itself builds on
+    JAX's windows."""
     cfg = tconfigs.CONFIGS["a2c-pai-fair"]
     _same(jexp.load_source_trace(jconfigs.CONFIGS["a2c-pai-fair"]),
           texp.load_source_trace(cfg))
-    with pytest.raises(NotImplementedError, match="config-3 slice"):
-        texp.Experiment.build(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="config-5 slice"):
+        texp.Experiment.build(dataclasses.replace(cfg, n_pods=4),
+                              device="cpu")
+    exp = texp.Experiment.build(cfg, device="cpu")
+    jcfg = jconfigs.CONFIGS["a2c-pai-fair"]
+    jwins = jexp.make_env_windows(jcfg, jexp.load_source_trace(jcfg))
+    for jw, tw in zip(jwins, exp.windows):
+        _same(jw, tw)
     for trace in ("philly", "pai"):
         with pytest.raises(ValueError, match="no trace_path"):
             texp.load_source_trace(dataclasses.replace(cfg, trace=trace))

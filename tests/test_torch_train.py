@@ -454,13 +454,18 @@ def test_train_cli_prints_finite_metrics_on_the_cpu():
 
 
 def test_train_cli_refuses_a2c_with_the_slice_named():
-    with pytest.raises(SystemExit, match="config-3 slice"):
-        ttrain.main(["--config", "a2c-pai-fair", "--device", "cpu"])
+    """Config 3 trains (``tests/test_torch_fused.py``); what it still
+    cannot take is refused with the slice named: flight-log retraining
+    (item 23) and the async engine (item 20)."""
+    for argv, item in ((["--continual", "logs"], 23), (["--async"], 20)):
+        with pytest.raises(SystemExit, match=rf"waits for .*item {item}\)"):
+            ttrain.main(["--config", "a2c-pai-fair", *argv, "--device",
+                         "cpu"])
 
 
 @pytest.mark.parametrize("argv", [
-    ["--fused-chunk", "2"], ["--async"], ["--mesh=auto"],
-    ["--faults", "storm"], ["--correction", "vtrace"], ["--pbt"]])
+    ["--continual", "logs"], ["--async"], ["--mesh=auto"],
+    ["--faults", "storm"], ["--staleness-bound", "4"], ["--pbt"]])
 def test_train_cli_refuses_unported_flags_with_the_slice_named(argv):
     with pytest.raises(SystemExit, match=r"waits for .*item \d+"):
         ttrain.main(argv + ["--device", "cpu"])
@@ -630,7 +635,7 @@ def test_evaluate_cli_gate_and_windows_match_the_library(capsys):
     (["--config", "nope"], "unknown config"),
     (["--no-stall-guard"], "PREEMPTIVE|preemptive"),
     (["--config", "ppo-mlp-preempt", "--baselines-only",
-      "--no-stall-guard"], "preemptive"),
+      "--no-stall-guard"], "PREEMPTIVE|preemptive"),
 ])
 def test_evaluate_cli_refuses_what_jax_refuses(argv, match):
     with pytest.raises(SystemExit, match=match):
