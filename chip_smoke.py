@@ -202,6 +202,32 @@ imports nothing of JAX. Phases, each fatal on failure:
     (median env-steps/s, spread, the card's name and power limit)
     printed.
 
+19. Config 5, ``hier-pbt-member``, at its published width (16 nodes x 8
+    GPUs in 4 pods, 4 envs x 128 steps, 64-job windows, 4 x 4
+    minibatches, the hierarchical actor-critic with bf16 trunks). Card
+    against CPU at f32 with TF32 off on integer traces: a 32-step
+    hierarchical rollout sampled on the card and replayed on the CPU with
+    its joint actions (obs, mask, actions, reward, done and dt
+    bit-identical, some routes taken), then one member learn step on its
+    batch with the same permutations and hyperparameters (parameters
+    within atol 1e-5, metrics within phase 7's rule). One hierarchical
+    ``Experiment``: a warm-up and 3 timed iterations (env-steps/s), a
+    32-step rollout under ``torch.profiler`` (device ops per rollout
+    step, idle share), finite losses. A ``PopulationExperiment``
+    of 4 members exploiting every 2 iterations: 3 iterations, a
+    checkpoint (bytes, save ms), 2 more, a snapshot, 1 more; at least one
+    PBT round, finite fitness, every member exploited in the last round
+    holding its source's parameters (the ms of the exploit's weight
+    copy printed, and the env-steps/s over ``T*E*P`` per iteration); a
+    fresh population restored from the checkpoint (restore ms) and run 2
+    iterations must equal the snapshot bit for bit (parameters, Adam
+    state, carries, generators, hyperparameters, decisions). Then the
+    fittest member's ``jct_report`` on 16 held-out windows (seed
+    ``cfg.seed + 1000``) against FIFO, SJF, SRTF and Tiresias, every row
+    finite, completion and ``vs_tiresias`` printed; and ``python -m
+    rlgpuschedule_tpu_torch.evaluate --pbt`` from the population's
+    checkpoint in a subprocess, equal to it row for row.
+
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it is the card's name and power limit. Without a CUDA device, or
 without the ``rlgpuschedule_tpu_torch`` package beside it, the script
@@ -259,6 +285,15 @@ FAIR_REPLAY_STEPS = 32    # phase 16's rollout replayed on the CPU
 # dtype (the recompute is one [T*E] batch, the rollout's [E] per step)
 RHO_BAND = {"float32": 1e-5, "bfloat16": 5e-2}
 FUSED_ITERS = 4           # phase 18: run_fused(4) against run(4)
+HIER_CONFIG = "hier-pbt-member"
+HIER_REPLAY_STEPS = 32    # phase 19's rollout replayed on the CPU
+HIER_TIMED = 3            # phase 19: timed iterations after a warm-up
+HIER_PROFILE_STEPS = 32   # phase 19's profiled rollout
+HIER_POP = 4              # phase 19's population
+HIER_READY = 2            # its exploit/explore cadence
+HIER_POP_ITERS = 6
+HIER_RESUME = (3, 2)      # 3 iterations, a save, 2 more against 5
+HIER_WINDOWS = 16         # phase 19's held-out JCT table
 ROWS = ("policy", "random", "fifo", "sjf", "srtf", "tiresias")
 BASELINES = ("fifo", "sjf", "srtf", "tiresias")
 
@@ -2350,6 +2385,304 @@ def fused_phase(torch, dev):
         raise SystemExit(f"bench: {line}")
 
 
+def _pop_snapshot(torch, pop) -> dict:
+    """Clones of everything a population run carries: every member's
+    parameters, Adam state, carry and generators, the hyperparameters
+    and the PBT decisions so far."""
+    clone = lambda tree: [t.detach().clone() for t in _tensors(tree)]
+    return {
+        "params": [clone(m.net.state_dict()) for m in pop.members],
+        "optimizer": [clone(m.opt.state_dict()["state"])
+                      for m in pop.members],
+        "carry": [clone((tuple(c.env_state.pods), c.env_state.assignment,
+                         c.env_state.t, c.obs, c.mask))
+                  for c in pop.carries],
+        "generators": [(c.generator.get_state().clone(),
+                        g.get_state().clone())
+                       for c, g in zip(pop.carries, pop.generators)],
+        "hparams": [x.copy() for x in pop.hparams],
+        "decisions": [(d.src.tolist(), d.exploited.tolist(),
+                       [x.tolist() for x in d.hparams])
+                      for d in pop.controller.history]}
+
+
+def _pop_diff(torch, a: dict, b: dict) -> dict:
+    """Max abs difference per payload of two :func:`_pop_snapshot`s (0.0
+    = the same bits; integer payloads count differing elements)."""
+    def mx(xs, ys):
+        return max((float((u.double() - v.double()).abs().max())
+                    if u.is_floating_point() else float((u != v).sum())
+                    for x, y in zip(xs, ys) for u, v in zip(x, y)),
+                   default=0.0)
+    return {
+        "params": mx(a["params"], b["params"]),
+        "optimizer": mx(a["optimizer"], b["optimizer"]),
+        "carry": mx(a["carry"], b["carry"]),
+        "generators_equal": all(
+            torch.equal(x[0], y[0]) and torch.equal(x[1], y[1])
+            for x, y in zip(a["generators"], b["generators"])),
+        "hparams_equal": all((x == y).all() for x, y in
+                             zip(a["hparams"], b["hparams"])),
+        "decisions_equal": a["decisions"] == b["decisions"]}
+
+
+def hier_pbt_phase(torch, dev):
+    """Config 5, ``hier-pbt-member``, at its published width: the
+    hierarchical env and policy card against CPU, a single hierarchical
+    run, the PBT population with its checkpoint and resume, and the
+    fittest member's JCT table with ``evaluate --pbt`` (phase 19)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from rlgpuschedule_tpu_torch.algos import action_dist
+    from rlgpuschedule_tpu_torch.algos.ppo import PPOMetrics
+    from rlgpuschedule_tpu_torch.algos.rollout import init_carry, rollout
+    from rlgpuschedule_tpu_torch.algos.update import tree_map
+    from rlgpuschedule_tpu_torch.checkpoint import Checkpointer
+    from rlgpuschedule_tpu_torch.configs import CONFIGS
+    from rlgpuschedule_tpu_torch.env import stack_traces
+    from rlgpuschedule_tpu_torch.eval import format_report, jct_report
+    from rlgpuschedule_tpu_torch.experiment import (Experiment,
+                                                    PopulationExperiment,
+                                                    build_policy,
+                                                    load_source_trace,
+                                                    make_env_windows,
+                                                    trace_sim)
+    from rlgpuschedule_tpu_torch.parallel import (PBTConfig, gather_members,
+                                                  init_member,
+                                                  make_member_learn_step,
+                                                  member_hparams,
+                                                  sample_hparams)
+    from rlgpuschedule_tpu_torch.sim.core import validate_trace
+
+    t_phase = time.perf_counter()
+    cfg = CONFIGS[HIER_CONFIG]
+    ppo = cfg.ppo
+    cuda = torch.device(dev).type == "cuda"
+    old = _flags(torch, tf32=False, deterministic=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_hier_")
+    try:
+        # 1. card against CPU at f32 on integer traces: a rollout the
+        # CPU replays with the card's actions, then one member learn step
+        exp = Experiment.build(cfg, device=dev)
+        P = exp.env_params.n_pods
+        windows = _integer_windows(exp.windows)
+        side = {d: (build_policy(cfg, exp.env_params, dtype=torch.float32,
+                                 device=d),
+                    stack_traces(windows, exp.env_params, d))
+                for d in (dev, "cpu")}
+        net, traces = side[dev]
+        _, tr, last = rollout(net, exp.env_params, traces,
+                              init_carry(exp.env_params, traces,
+                                         torch.Generator(dev).manual_seed(
+                                             cfg.seed)), HIER_REPLAY_STEPS)
+        tr, last = tree_map(lambda x: x.cpu(), tr), last.cpu()
+        acts = iter(range(HIER_REPLAY_STEPS))
+
+        def replay(gen, logits):
+            i = next(acts)
+            a = {k: v[i] for k, v in tr.action.items()}
+            return a, action_dist.log_prob(logits, a)
+
+        net_c, traces_c = side["cpu"]
+        _, tr_c, _ = rollout(net_c, exp.env_params, traces_c,
+                             init_carry(exp.env_params, traces_c,
+                                        torch.Generator()),
+                             HIER_REPLAY_STEPS, sample_fn=replay)
+        differ = {f"{f}.{k}": int((getattr(tr, f)[k]
+                                   != getattr(tr_c, f)[k]).sum())
+                  for f in ("obs", "mask", "action") for k in ("top", "pods")}
+        differ.update({f: int((getattr(tr, f) != getattr(tr_c, f)).sum())
+                       for f in ("reward", "done", "env_steps_dt")})
+        routed = int((tr.action["top"] < P).sum())
+        lp_err = float((tr.log_prob - tr_c.log_prob).abs().max())
+        B = HIER_REPLAY_STEPS * cfg.n_envs
+        gen = torch.Generator().manual_seed(cfg.seed)
+        perms = [torch.randperm(B, generator=gen)
+                 for _ in range(ppo.n_epochs)]
+        hp = sample_hparams(ppo, 1, cfg.seed)
+        learn = make_member_learn_step(ppo)
+        res = {}
+        for d in (dev, "cpu"):
+            state, m = learn(init_member(side[d][0], ppo),
+                             tree_map(lambda x: x.to(d), tr), last.to(d),
+                             None, member_hparams(hp, 0, d), perms=perms)
+            res[d] = ({n: p.detach().cpu()
+                       for n, p in state.net.named_parameters()},
+                      {k: float(v) for k, v in m._asdict().items()})
+        (pg, mg), (pc, mc) = res[dev], res["cpu"]
+        err = max(float((pg[n] - pc[n]).abs().max()) for n in pc)
+        bad = {k: (mg[k], mc[k]) for k in mc if not abs(mg[k] - mc[k])
+               <= METRIC_ATOL + METRIC_RTOL * abs(mc[k])}
+        _line("hier_card_vs_cpu", elapsed_s=time.perf_counter() - t_phase,
+              config=cfg.name, dtype="float32",
+              tf32=False, n_pods=P, clusters=cfg.n_envs,
+              replay_steps=HIER_REPLAY_STEPS, routes=routed,
+              rewards_nonzero=int((tr.reward != 0).sum()),
+              elements_differing=differ, log_prob_max_abs_diff=lp_err,
+              learn_batch=B, learn_param_max_abs_diff=err,
+              metrics_card=mg, metrics_cpu=mc)
+        if any(differ.values()) or not routed:
+            raise SystemExit(f"config 5: card and CPU rollouts differ: "
+                             f"{differ} ({routed} routes)")
+        if not err <= PARAM_ATOL or bad:
+            raise SystemExit(f"config 5: member learn step card vs CPU: "
+                             f"parameters {err} (atol {PARAM_ATOL}), "
+                             f"metrics {bad}")
+        del side, net, net_c, tr, tr_c
+    finally:
+        _restore_flags(torch, old)
+
+    old = _flags(torch, tf32=True, deterministic=False)
+    try:
+        # 2. one hierarchical Experiment at the published geometry; the
+        # profile covers a short rollout (the profiler's own teardown
+        # grows with the events it holds)
+        warm = exp.run(1, log_every=1)
+        out = exp.run(HIER_TIMED, log_every=1)
+        (_, _, _), r_ops, r_busy, r_wall = _device_account(
+            torch, lambda: rollout(exp.net, exp.env_params, exp.traces,
+                                   exp.carry, HIER_PROFILE_STEPS))
+        rows = warm["history"] + out["history"]
+        _line("hier_train", elapsed_s=time.perf_counter() - t_phase,
+              config=cfg.name, dtype="bfloat16", n_pods=P,
+              n_nodes=cfg.n_nodes, gpus_per_node=cfg.gpus_per_node,
+              n_envs=cfg.n_envs, n_steps=ppo.n_steps,
+              n_epochs=ppo.n_epochs, n_minibatches=ppo.n_minibatches,
+              window_jobs=cfg.window_jobs,
+              params=sum(p.numel() for p in exp.net.parameters()),
+              warmup_s=warm["wall_s"], iterations=HIER_TIMED,
+              wall_s=out["wall_s"], env_steps_per_s=out["env_steps_per_sec"],
+              profiled_steps=HIER_PROFILE_STEPS,
+              rollout_device_ops_per_step=r_ops / HIER_PROFILE_STEPS,
+              rollout_busy_ms_per_step=r_busy / HIER_PROFILE_STEPS * 1e3,
+              rollout_wall_ms_per_step=r_wall / HIER_PROFILE_STEPS * 1e3,
+              rollout_device_idle_share=1.0 - r_busy / r_wall,
+              metrics=rows)
+        for m in rows:
+            if not _finite(m["total_loss"], m["entropy"], m["approx_kl"]):
+                raise SystemExit(f"config 5: non-finite metrics {m}")
+        del exp
+
+        # 3. the PBT population; 4. its checkpoint and a bit-for-bit
+        # resume (3 iterations, a save, 2 more, against a fresh build
+        # restored from the save and run 2)
+        pbt_cfg = PBTConfig(ready_iters=HIER_READY, seed=cfg.seed)
+        build = lambda: PopulationExperiment.build(
+            cfg, n_pop=HIER_POP, pbt_cfg=pbt_cfg, device=dev)
+        pop = build()
+        first = pop.run(HIER_RESUME[0], log_every=1)
+        ck_dir = os.path.join(tmp, "pop")
+        with Checkpointer(ck_dir) as ck:
+            t0 = _sync(torch)
+            pop.save_checkpoint(ck)
+            save_s = _sync(torch) - t0
+            step = ck.latest_step()
+        nbytes = sum(os.path.getsize(os.path.join(r, f))
+                     for r, _, fs in os.walk(os.path.join(ck_dir, str(step)))
+                     for f in fs)
+        second = pop.run(HIER_RESUME[1], log_every=1)
+        straight = _pop_snapshot(torch, pop)
+        third = pop.run(HIER_POP_ITERS - sum(HIER_RESUME), log_every=1)
+        hist = first["history"] + second["history"] + third["history"]
+        last = pop.controller.history[-1]
+        same_as_src = all(
+            all(torch.equal(a, b) for a, b in zip(
+                pop.members[i].net.parameters(),
+                pop.members[int(s)].net.parameters()))
+            for i, s in enumerate(last.src) if s != i)
+        t0 = _sync(torch)
+        gather_members(pop.members, last.src)
+        exploit_ms = (_sync(torch) - t0) * 1e3
+        wall = first["wall_s"] + second["wall_s"] + third["wall_s"]
+        fitness = third["final_fitness"]
+        _line("hier_pbt", elapsed_s=time.perf_counter() - t_phase,
+              config=cfg.name, n_pop=HIER_POP,
+              ready_iters=HIER_READY, iterations=HIER_POP_ITERS,
+              env_steps_per_iteration=pop.steps_per_iteration,
+              env_steps_per_s=HIER_POP_ITERS * pop.steps_per_iteration / wall,
+              wall_s=wall, pbt_events=len(pop.controller.history),
+              final_fitness=fitness,
+              decisions=[{"src": d.src.tolist(),
+                          "exploited": d.exploited.tolist()}
+                         for d in pop.controller.history],
+              hparams={k: v.tolist()
+                       for k, v in pop.hparams._asdict().items()},
+              exploited_equal_source=same_as_src,
+              exploit_gather_ms=exploit_ms,
+              mean_reward=[h["mean_reward_mean"] for h in hist])
+        if not (len(pop.controller.history) >= 1 and _finite(*fitness)
+                and last.exploited.any() and same_as_src):
+            raise SystemExit(f"config 5: PBT round(s) "
+                             f"{len(pop.controller.history)}, fitness "
+                             f"{fitness}, exploited members equal to "
+                             f"their sources: {same_as_src}")
+        with Checkpointer(ck_dir) as ck:
+            resumed = build()
+            t0 = _sync(torch)
+            resumed.restore_checkpoint(ck, step=step)
+            restore_s = _sync(torch) - t0
+        resumed.run(HIER_RESUME[1])
+        diff = _pop_diff(torch, straight, _pop_snapshot(torch, resumed))
+        _line("hier_pbt_checkpoint", elapsed_s=time.perf_counter() - t_phase,
+              step=step, bytes=nbytes,
+              save_ms=save_s * 1e3, restore_ms=restore_s * 1e3,
+              iterations=f"{HIER_RESUME[0]} + restore + {HIER_RESUME[1]} "
+                         f"against {sum(HIER_RESUME)} straight",
+              diff=diff)
+        if not (diff["generators_equal"] and diff["hparams_equal"]
+                and diff["decisions_equal"] and not diff["params"]
+                and not diff["optimizer"] and not diff["carry"]):
+            raise SystemExit(f"config 5: population resume differs: {diff}")
+        del resumed
+
+        # 5. the fittest member's table on held-out windows, and the
+        # evaluate CLI restoring the same population
+        with Checkpointer(os.path.join(tmp, "final")) as ck:
+            pop.save_checkpoint(ck)
+        held = dataclasses.replace(cfg, seed=cfg.seed + 1000,
+                                   n_envs=HIER_WINDOWS, source_jobs=None)
+        windows = make_env_windows(held, validate_trace(
+            trace_sim(pop.env_params), load_source_trace(held), clamp=True))
+        view = pop.member_eval_view()
+        report = jct_report(view, windows=windows, backend="native")
+        print(format_report(report), file=sys.stderr, flush=True)
+        rows = {k: report[k] for k in ROWS}
+        _line("hier_eval", elapsed_s=time.perf_counter() - t_phase,
+              config=cfg.name, windows=len(windows),
+              seed=held.seed, member=view.member,
+              weights=f"fittest of {HIER_POP} after {HIER_POP_ITERS} PBT "
+                      f"iterations (bf16)",
+              rows=rows, policy_completion=report["policy_completion"],
+              vs_tiresias=report["vs_tiresias"],
+              policy_steps=report["policy_steps"], wall_s=report["wall_s"])
+        if not _finite(*rows.values(), report["vs_tiresias"],
+                       report["policy_completion"]):
+            raise SystemExit(f"config 5: non-finite JCT table {report}")
+        lines, _, wall = _run_cli(
+            "rlgpuschedule_tpu_torch.evaluate",
+            ["--config", cfg.name, "--pbt", "--n-pop", str(HIER_POP),
+             "--ckpt-dir", os.path.join(tmp, "final"), "--seed",
+             str(held.seed), "--n-envs", str(HIER_WINDOWS)])
+        (line,) = lines
+        same = all(line[k] == report[k] for k in ROWS + (
+            "policy_completion", "vs_tiresias"))
+        _line("hier_evaluate_cli", elapsed_s=time.perf_counter() - t_phase,
+              wall_s=wall, device=line["device"],
+              member=line["repro"]["member"], equal_to_in_process=same,
+              rows={k: line[k] for k in ROWS})
+        if not (same and line["repro"]["member"] == view.member
+                and line["device"].startswith("cuda" if cuda else "cpu")):
+            raise SystemExit(f"evaluate --pbt differs from the in-process "
+                             f"report: {line}")
+        del pop
+    finally:
+        _restore_flags(torch, old)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2399,6 +2732,7 @@ def main() -> int:
     timed(fair_phase)
     timed(options_phase)
     timed(fused_phase)
+    timed(hier_pbt_phase)
     _line("done", total_s=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,9 +13,10 @@ same two entry points as the JAX package's serving layer:
   :class:`.serve.batching.PolicyServer` and ``python -m
   rlgpuschedule_tpu_torch.serve --bench/--soak/--host-path``;
 
-and trains it with PPO through :class:`.experiment.Experiment` and
-``python -m rlgpuschedule_tpu_torch.train``: rollout, GAE and the
-epoch x minibatch update on the device.
+and trains it with PPO or A2C through :class:`.experiment.Experiment`,
+or as a PBT population through :class:`.experiment
+.PopulationExperiment`, and ``python -m rlgpuschedule_tpu_torch.train``:
+rollout, GAE and the epoch x minibatch update on the device.
 
 The modules mirror the JAX package's layout (``sim/core.py`` here is
 the counterpart of ``sim/core.py`` there). Every function is batched
@@ -24,11 +25,11 @@ default device is ``cuda`` (:mod:`.device`). The port imports neither
 JAX nor the JAX package.
 
 The simulator has the JAX package's pack and pack|spread placement and
-its preemptive action space (the stall guard included), and the
-observations its flat, grid and topology-graph forms, for configs 1, 2
-and 4 and ``ppo-mlp-preempt``. Faults, domain randomization, the
-hierarchical env and A2C raise ``NotImplementedError`` naming the slice
-that will bring them.
+its preemptive action space (the stall guard included), the
+observations its flat, grid and topology-graph forms, and the
+hierarchical multi-pod env of config 5 (:mod:`.env.hier`), for all five
+configs and ``ppo-mlp-preempt``. Faults and domain randomization raise
+``NotImplementedError`` naming the slice that will bring them.
 """
 from .device import resolve_device
 

@@ -228,10 +228,13 @@ def make_train_state(net: nn.Module, config: PPOConfig,
 
 def ppo_loss(apply_fn: PolicyApply, batch: Transition,
              advantages: torch.Tensor, returns: torch.Tensor,
-             config: PPOConfig):
+             config: PPOConfig, clip_eps=None, ent_coef=None):
     """Returns ``(total, (pg_loss, v_loss, entropy, approx_kl,
-    clip_frac))``."""
-    clip_eps = config.clip_eps
+    clip_frac))``. ``clip_eps`` and ``ent_coef`` default to the config's
+    values; a population member passes its own (f32 scalar tensors on
+    the batch's device, :mod:`..parallel.population`)."""
+    clip_eps = config.clip_eps if clip_eps is None else clip_eps
+    ent_coef = config.ent_coef if ent_coef is None else ent_coef
     logits, value = apply_fn(batch.obs, batch.mask)
     log_prob = action_dist.log_prob(logits, batch.action)
     ratio = torch.exp(log_prob - batch.log_prob)
@@ -245,7 +248,7 @@ def ppo_loss(apply_fn: PolicyApply, batch: Transition,
                                             (v_clipped - returns) ** 2))
     entropy = torch.mean(action_dist.entropy(logits))
     total = (pg_loss + config.vf_coef * v_loss
-             - config.ent_coef * entropy)
+             - ent_coef * entropy)
     approx_kl = torch.mean(batch.log_prob - log_prob)
     clip_frac = torch.mean((torch.abs(ratio - 1.0) > clip_eps)
                            .to(torch.float32))
@@ -278,7 +281,8 @@ def compute_advantages(config: PPOConfig, state: TrainState,
     rho_stats = None
     if config.correction == "vtrace":
         T, E = tr.reward.shape[:2]
-        flat = lambda x: x.reshape(T * E, *x.shape[2:])
+        flat = lambda t: tree_map(lambda x: x.reshape(T * E, *x.shape[2:]),
+                                  t)
         # one batched forward under the learner's parameters; on-policy
         # data gives ratios of exactly 1.0 only where these [T*E] logits
         # are row-equal to the rollout's per-step [E] ones (the values
@@ -305,7 +309,7 @@ def compute_advantages(config: PPOConfig, state: TrainState,
 
 def loss_and_backward(loss_fn, net: nn.Module, mb: Transition,
                       adv: torch.Tensor, ret: torch.Tensor, config,
-                      bf16_update: bool):
+                      bf16_update: bool, **loss_kw):
     """Evaluate ``loss_fn(apply, mb, adv, ret, config) -> (loss, aux)``
     and backpropagate into ``net``'s ``.grad``. With ``bf16_update`` the
     loss runs on bf16 casts of the parameters and of the batch's
@@ -318,21 +322,23 @@ def loss_and_backward(loss_fn, net: nn.Module, mb: Transition,
         mb, adv, ret = cast_floating((mb, adv, ret), torch.bfloat16)
     else:
         apply = net
-    loss, aux = loss_fn(apply, mb, adv, ret, config)
+    loss, aux = loss_fn(apply, mb, adv, ret, config, **loss_kw)
     loss.backward()
     return (loss.detach().to(torch.float32),
             *(a.detach().to(torch.float32) for a in aux))
 
 
-def make_ppo_grad_step(config: PPOConfig):
+def make_ppo_grad_step(config: PPOConfig, clip_eps=None, ent_coef=None):
     """One clipped-surrogate update on one minibatch for the update
-    engine: ``(state, (mb, adv, ret)) -> (state, (loss, *aux))``."""
+    engine: ``(state, (mb, adv, ret)) -> (state, (loss, *aux))``;
+    ``clip_eps`` and ``ent_coef`` as :func:`ppo_loss`'s."""
 
     def grad_step(state: TrainState, mb_data):
         mb, adv, ret = mb_data
         state.opt.zero_grad(set_to_none=True)
         stats = loss_and_backward(ppo_loss, state.net, mb, adv, ret, config,
-                                  config.bf16_update)
+                                  config.bf16_update, clip_eps=clip_eps,
+                                  ent_coef=ent_coef)
         state.opt.step()
         return state, stats
 
@@ -343,15 +349,16 @@ def run_ppo_epochs(config: PPOConfig, state: TrainState, tr: Transition,
                    advantages: torch.Tensor, returns: torch.Tensor, *,
                    generator: torch.Generator | None = None,
                    perms: Sequence[torch.Tensor] | None = None,
-                   rho_stats: tuple | None = None,
-                   ) -> tuple[TrainState, PPOMetrics]:
+                   rho_stats: tuple | None = None, clip_eps=None,
+                   ent_coef=None) -> tuple[TrainState, PPOMetrics]:
     """Flatten ``[T, E]`` to ``[B]`` and run the config's
     ``n_epochs x n_minibatches`` geometry through the update engine
-    (permutations from ``generator``, or ``perms``)."""
+    (permutations from ``generator``, or ``perms``); ``clip_eps`` and
+    ``ent_coef`` as :func:`ppo_loss`'s."""
     B = tr.reward.shape[0] * tr.reward.shape[1]
     flat = tree_map(lambda x: x.reshape(B, *x.shape[2:]), tr)
     state, stats = run_minibatch_epochs(
-        make_ppo_grad_step(config), state,
+        make_ppo_grad_step(config, clip_eps, ent_coef), state,
         (flat, advantages.reshape(B), returns.reshape(B)),
         generator=generator, perms=perms, n_epochs=config.n_epochs,
         n_minibatches=config.n_minibatches,

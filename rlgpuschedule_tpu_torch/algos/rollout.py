@@ -10,6 +10,10 @@ the host inside the loop.
 The loop runs under ``torch.no_grad()`` and not ``inference_mode()``:
 the update later feeds the stored observations to the loss, and
 inference tensors cannot be saved for backward.
+
+On the hierarchical env (:class:`..env.hier.HierParams`) the
+observation, mask and action are dicts of per-head tensors; the buffer
+stacks them leaf by leaf.
 """
 from __future__ import annotations
 
@@ -17,10 +21,11 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from ..env import env as env_lib
 from ..env.env import EnvParams, EnvState
+from ..env.hier import env_module, vec_stepper
 from ..sim.core import Trace
 from . import action_dist
+from .update import tree_stack
 
 # (obs, mask) -> (masked_logits [E, A], value [E]): the policy module
 PolicyApply = Callable[[torch.Tensor, torch.Tensor],
@@ -31,9 +36,11 @@ SampleFn = Callable[[torch.Generator, torch.Tensor],
 
 
 class Transition(NamedTuple):
-    """The rollout buffer, ``[T, E, ...]``. ``log_prob`` is the log-prob
-    under the behaviour policy the rollout ran with; PPO's ratio divides
-    by exactly this stored value, so it is never recomputed."""
+    """The rollout buffer, ``[T, E, ...]`` (``obs``, ``action`` and
+    ``mask`` are dicts of such tensors on the hierarchical env).
+    ``log_prob`` is the log-prob under the behaviour policy the rollout
+    ran with; PPO's ratio divides by exactly this stored value, so it is
+    never recomputed."""
     obs: torch.Tensor
     action: torch.Tensor
     log_prob: torch.Tensor
@@ -45,7 +52,7 @@ class Transition(NamedTuple):
 
 
 class RolloutCarry(NamedTuple):
-    env_state: EnvState
+    env_state: EnvState    # or a HierState
     obs: torch.Tensor
     mask: torch.Tensor
     generator: torch.Generator  # the sampling stream, on the env's device
@@ -53,7 +60,7 @@ class RolloutCarry(NamedTuple):
 
 def init_carry(params: EnvParams, traces: Trace,
                generator: torch.Generator) -> RolloutCarry:
-    env_state, ts = env_lib.vec_reset(params, traces)
+    env_state, ts = env_module(params).vec_reset(params, traces)
     return RolloutCarry(env_state, ts.obs, ts.action_mask, generator)
 
 
@@ -84,18 +91,18 @@ def rollout(apply_fn: PolicyApply, env_params: EnvParams, traces: Trace,
     rollout's actions."""
     # the auto-reset bundle depends only on the traces: built once here
     # instead of a full reset every step
-    fresh = env_lib.vec_reset(env_params, traces)
+    fresh = env_module(env_params).vec_reset(env_params, traces)
+    env_step = vec_stepper(env_params, traces)
     env_state, obs, mask, gen = carry
     steps = []
     for _ in range(n_steps):
         logits, value = apply_fn(obs, mask)
         action, log_prob = sample_fn(gen, logits)
-        env_state, ts = env_lib.vec_step(env_params, env_state, traces,
-                                         action, fresh)
+        env_state, ts = env_step(env_state, action, fresh)
         steps.append(Transition(obs=obs, action=action, log_prob=log_prob,
                                 value=value, reward=ts.reward, done=ts.done,
                                 mask=mask, env_steps_dt=ts.info.dt))
         obs, mask = ts.obs, ts.action_mask
-    transitions = Transition(*(torch.stack(col) for col in zip(*steps)))
+    transitions = tree_stack(steps)
     _, last_value = apply_fn(obs, mask)
     return RolloutCarry(env_state, obs, mask, gen), transitions, last_value

@@ -76,12 +76,22 @@ def validate_update_geometry(n_epochs: int, n_minibatches: int,
                             n_steps * n_envs)
 
 
-def tree_map(fn: Callable[[torch.Tensor], torch.Tensor], tree: Any) -> Any:
-    """``fn`` on every tensor of a nested tuple/NamedTuple of tensors."""
+def tree_map(fn: Callable[..., torch.Tensor], tree: Any, *rest: Any) -> Any:
+    """``fn`` on every tensor of a nested tuple/NamedTuple/dict of
+    tensors; with ``rest``, on the matching leaves of every tree."""
     if isinstance(tree, tuple):
-        out = [tree_map(fn, x) for x in tree]
+        out = [tree_map(fn, *xs) for xs in zip(tree, *rest)]
         return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
-    return fn(tree)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_stack(trees: Sequence[Any]) -> Any:
+    """Stack a list of same-structured trees leaf by leaf along a new
+    leading axis."""
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
 
 
 def cast_floating(tree: Any, dtype: torch.dtype) -> Any:
@@ -92,10 +102,11 @@ def cast_floating(tree: Any, dtype: torch.dtype) -> Any:
 
 
 def _first_leaf(tree: Any) -> torch.Tensor:
-    while isinstance(tree, tuple):
+    while isinstance(tree, (tuple, dict)):
         if not tree:
             raise ValueError("update engine got an empty data tuple")
-        tree = tree[0]
+        tree = tree[0] if isinstance(tree, tuple) else next(iter(
+            tree.values()))
     return tree
 
 
@@ -106,7 +117,7 @@ def run_minibatch_epochs(grad_step: GradStep, state: Any, data: Any, *,
                          minibatch_size: int | None = None,
                          ) -> tuple[Any, tuple[torch.Tensor, ...]]:
     """Run ``grad_step`` over ``n_epochs`` shuffled passes of ``data`` (a
-    nested tuple of ``[B, ...]`` tensors) split into contiguous
+    nested tuple or dict of ``[B, ...]`` tensors) split into contiguous
     minibatches. Returns ``(state, stats)`` with every stat stacked to
     ``[n_epochs, n_minibatches]``.
 

@@ -4,8 +4,8 @@ fields, and the mode-combination refusal table.
 The port's copy of the JAX package's ``configs.py``; fault and domain
 regimes wait for their slice. The presets keep their names and the
 values of the fields kept here, so a config name means the same run in
-both packages; the preset this port cannot run (the hierarchical config
-5) is refused by :func:`..experiment.build_env_params`.
+both packages; every preset runs, the hierarchical config 5
+(``hier-pbt-member``, ``n_pods > 1``) through :mod:`.env.hier`.
 :data:`MODE_REFUSALS` is JAX's table word for word, so a refused pair
 gives the JAX CLI's message; modes that wait for a slice of the port are
 refused before it, by the CLIs' tables of unported flags.

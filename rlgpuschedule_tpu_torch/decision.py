@@ -17,9 +17,12 @@ from torch import nn
 def preempt_slice(env_params, device: "torch.device | str | None" = None,
                   ) -> torch.Tensor | None:
     """``bool[n_actions]`` on ``device`` marking the preempt actions, or
-    None if the action space has none (the stall gate is then a no-op).
-    Built once by the caller, never per step."""
-    sim = env_params.sim
+    None if the action space has none (the stall gate is then a no-op,
+    as on the hierarchical env, whose pods cannot preempt). Built once
+    by the caller, never per step."""
+    sim = getattr(env_params, "sim", None)
+    if sim is None:
+        return None
     if not sim.preempt_len:
         return None
     kp = sim.queue_len * sim.n_placements
@@ -45,13 +48,15 @@ def gate_stalled(mask: torch.Tensor, stall: torch.Tensor, thresh: int,
     return mask & ~((stall >= thresh)[:, None] & pre)
 
 
-def greedy_actions(logits: torch.Tensor) -> torch.Tensor:
-    """Argmax over the last axis (first index on ties, as jnp.argmax)."""
+def greedy_actions(logits):
+    """Argmax over the last axis (first index on ties, as jnp.argmax),
+    per head of a dict of logits."""
+    if isinstance(logits, dict):
+        return {k: torch.argmax(v, dim=-1) for k, v in logits.items()}
     return torch.argmax(logits, dim=-1)
 
 
-def policy_decision(policy: nn.Module, obs: torch.Tensor,
-                    mask: torch.Tensor) -> torch.Tensor:
+def policy_decision(policy: nn.Module, obs, mask):
     """The deterministic decision: masked logits -> greedy actions."""
     logits, _ = policy(obs, mask)
     return greedy_actions(logits)

@@ -165,9 +165,14 @@ def vec_step(params: EnvParams, state: EnvState, traces: Trace,
     return auto_reset(stepped, ts, fresh_state, fresh_ts)
 
 
-def stack_traces(traces: Sequence[ArrayTrace], params: EnvParams | SimParams,
+def stack_traces(traces: Sequence[ArrayTrace], params,
                  device: "torch.device | str | None" = None) -> Trace:
     """Stack per-cluster trace windows (one ``max_jobs``) into a batched
-    device Trace, checking gang sizes against capacity."""
-    sim_params = params.sim if isinstance(params, EnvParams) else params
+    device Trace, checking gang sizes against capacity: the cluster's
+    for ``EnvParams`` or ``SimParams``, one pod's for the hierarchical
+    env's ``HierParams``."""
+    if isinstance(params, EnvParams):
+        sim_params = params.sim
+    else:
+        sim_params = getattr(params, "pod_sim", params)
     return Trace.from_array_traces(traces, sim_params, device)

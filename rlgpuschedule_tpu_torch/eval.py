@@ -23,9 +23,17 @@ The full-trace replay stitches a whole source trace through E=1
 windows of a fixed-shape job table, carrying every job not yet done
 from one window to the next (:func:`full_trace_replay`).
 
+The hierarchical env of config 5 (:class:`.env.hier.HierParams`)
+replays per window through the same loop (:class:`_EnvOps` holds what
+differs: the step, the capacity, the busy GPUs, the JCT statistics and
+the makespan); its baselines run on the flat cluster, which gives them
+more placement freedom than the pods have. Its percentiles, backlog
+gate, stitched full-trace replay and fairness table are refused, as in
+JAX.
+
 Not here: fault replay (a stitched replay under a fault schedule
-included), the hierarchical env, and the chaos and matrix reports;
-they come with their slices (``ROADMAP.md`` queue 1).
+included) and the chaos and matrix reports; they come with their slices
+(``ROADMAP.md`` queue 1).
 """
 from __future__ import annotations
 
@@ -38,11 +46,14 @@ import torch
 from torch import nn
 
 from .algos import action_dist
+from .algos.update import tree_map
 from .decision import (gate_stalled, greedy_actions, preempt_slice,
                        stall_threshold)
 from .device import resolve_device
 from .env import env as env_lib
+from .env import hier as hier_lib
 from .env.env import EnvParams, stack_traces
+from .env.hier import HierParams
 from .sim import core
 from .sim.core import DONE, PENDING
 from .sim.schedulers import BASELINES, resolve_backend, run_baseline
@@ -73,14 +84,62 @@ class ReplayRecord(NamedTuple):
     gated: torch.Tensor     # bool: the stall guard masked a legal preempt
 
 
-def _random_actions(generator: torch.Generator,
-                    mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _random_actions(generator: torch.Generator, mask):
     """Masked-uniform actions drawn from ``generator`` (on the mask's
     device), and the logits they were drawn from (0 where legal, -1e9
-    elsewhere)."""
-    logits = torch.where(mask, 0.0, -1e9)
+    elsewhere); per head of a dict of masks."""
+    logits = tree_map(lambda m: torch.where(m, 0.0, -1e9), mask)
     actions, _ = action_dist.sample(generator, logits)
     return actions, logits
+
+
+class _EnvOps(NamedTuple):
+    """The env-specific slice of the replay loop (flat or
+    hierarchical), bound to one trace batch."""
+    reset: Any          # () -> (state, ts)
+    step: Any           # (state, action) -> (state', ts)
+    capacity: int
+    busy: Any           # state -> i32[E] allocated GPUs
+    jct_stats: Any      # (state, traces) -> {avg_jct, max_jct, n_done}
+    makespan: Any       # state -> f32[E]
+
+
+def _env_ops(params, traces: core.Trace) -> _EnvOps:
+    if isinstance(params, HierParams):
+        # the pod-repeated trace depends on the batch alone: built once
+        ptrace = hier_lib.pod_traces(traces, params.n_pods)
+        return _EnvOps(
+            reset=lambda: hier_lib.reset(params, traces, ptrace),
+            step=lambda s, a: hier_lib.step(params, s, traces, a, ptrace),
+            capacity=params.n_pods * params.pod_capacity,
+            busy=lambda s: s.pods.alloc.sum((1, 2, 3), dtype=torch.int32),
+            jct_stats=hier_lib.jct_stats,
+            makespan=lambda s: s.pods.clock[:, 0])
+    return _EnvOps(
+        reset=lambda: env_lib.reset(params, traces),
+        step=lambda s, a: env_lib.step(params, s, traces, a),
+        capacity=params.sim.capacity,
+        busy=lambda s: s.sim.alloc.sum((1, 2), dtype=torch.int32),
+        jct_stats=lambda s, tr: core.jct_stats(s.sim, tr),
+        makespan=lambda s: s.sim.clock)
+
+
+def check_modes(env_params, *, full_trace: bool = False,
+                fairness: bool = False, percentiles=None) -> None:
+    """Refuse, in JAX's words, the evaluation modes the hierarchical env
+    lacks: the full-trace stitched replay, the fairness table and the
+    percentile columns. A no-op on a flat env; the CLI calls it before
+    it builds anything."""
+    if not isinstance(env_params, HierParams):
+        return
+    if full_trace:
+        raise ValueError("full-trace evaluation supports flat configs; "
+                         "hierarchical pods replay per-window (jct_report)")
+    if fairness:
+        raise ValueError("fairness_report supports flat configs (tenant "
+                         "ids live in the flat sim's trace)")
+    if percentiles is not None:
+        raise ValueError("percentiles are supported for flat configs")
 
 
 def _fifo_preferences(env_params: EnvParams,
@@ -139,6 +198,10 @@ def replay(net: "nn.Module | None", env_params: EnvParams,
     replay is the unguarded one. The count lives on the device and adds
     no host sync.
 
+    A hierarchical ``env_params`` (config 5) replays its dict actions
+    the same way; it has no backlog gate, no stall guard (its pods cannot
+    preempt) and no ``record``.
+
     Returns the :class:`EvalResult`, followed by the final ``EnvState``
     with ``return_states`` and the per-step :class:`ReplayRecord` with
     ``record``."""
@@ -153,8 +216,17 @@ def replay(net: "nn.Module | None", env_params: EnvParams,
                          "only: gating the random control would overwrite "
                          "its actions with FIFO whenever the backlog is "
                          "shallow, silently inflating the baseline")
+    is_hier = isinstance(env_params, HierParams)
+    if backlog_gate and is_hier:
+        raise ValueError("backlog_gate applies to flat configs (the "
+                         "hierarchical action space has no single FIFO "
+                         "fall-through action)")
+    if record and is_hier:
+        raise ValueError("record= applies to flat configs (the margin "
+                         "rule reads one head's logits)")
     max_steps = int(max_steps or env_params.horizon)
-    capacity = env_params.sim.capacity
+    ops = _env_ops(env_params, traces)
+    capacity = ops.capacity
     dev = traces.submit.device
     if policy == "random" and generator is None:
         generator = torch.Generator(dev).manual_seed(0)
@@ -164,7 +236,7 @@ def replay(net: "nn.Module | None", env_params: EnvParams,
     thresh = stall_threshold(env_params) if pre is not None else 0
     acts, margins, gated = [], [], []
     with torch.inference_mode():
-        state, ts = env_lib.reset(env_params, traces)
+        state, ts = ops.reset()
         obs, mask = ts.obs, ts.action_mask
         done = torch.zeros_like(ts.done)
         busy_time = torch.zeros_like(ts.reward)
@@ -187,11 +259,9 @@ def replay(net: "nn.Module | None", env_params: EnvParams,
                 top2 = torch.topk(logits, 2, dim=-1).values
                 acts.append(actions)
                 margins.append(top2[:, 0] - top2[:, 1])
-            new_state, new_ts = env_lib.step(env_params, state, traces,
-                                             actions)
+            new_state, new_ts = ops.step(state, actions)
             dt = torch.where(done, 0.0, new_ts.info.dt)
-            busy = state.sim.alloc.sum((1, 2), dtype=torch.int32)
-            busy_time = busy_time + busy.to(torch.float32) * dt
+            busy_time = busy_time + ops.busy(state).to(torch.float32) * dt
             if pre is not None:
                 stall = torch.where(done | (new_ts.info.dt > 0.0), 0,
                                     stall + 1)
@@ -202,8 +272,8 @@ def replay(net: "nn.Module | None", env_params: EnvParams,
             done = done | new_ts.done
             if (i + 1) % _DONE_CHECK_EVERY == 0 and bool(done.all()):
                 break
-        stats = core.jct_stats(state.sim, traces)
-        makespan = state.sim.clock
+        stats = ops.jct_stats(state, traces)
+        makespan = ops.makespan(state)
         util = busy_time / (torch.clamp_min(makespan, 1e-6) * capacity)
         result = EvalResult(avg_jct=stats["avg_jct"],
                             n_done=stats["n_done"],
@@ -311,6 +381,7 @@ def full_trace_replay(net: "nn.Module | None", env_params: EnvParams,
     chaos slice. Returns ``{"avg_jct", "n_jobs", "jct", "finish",
     "tenant", "windows", "makespan", "drain_completions"}``, the last
     the value after the clamp."""
+    check_modes(env_params, full_trace=True)
     if faults is not None:
         raise NotImplementedError(
             "a stitched replay under a fault schedule (faults=, "
@@ -509,8 +580,12 @@ def jct_report(exp, windows: list[ArrayTrace] | None = None,
     around it (not counting a first-use build of the native engine).
     Wherever the stall guard can engage (a preemptive action space) the
     report records ``stall_guard``: guarded and unguarded rows come from
-    different schedulers."""
+    different schedulers. On a hierarchical experiment the policy
+    schedules gangs within pods while the baselines use the whole flat
+    cluster: they get more placement freedom, so the comparison is
+    conservative for the policy; ``percentiles`` is refused there."""
     dev = exp.device
+    check_modes(exp.env_params, percentiles=percentiles)
     if windows is None:
         windows, traces = exp.windows, exp.traces
     else:
@@ -520,7 +595,7 @@ def jct_report(exp, windows: list[ArrayTrace] | None = None,
     wall: dict[str, float] = {}
     if backlog_gate:
         report["backlog_gate"] = int(backlog_gate)
-    if exp.env_params.sim.preempt_len:
+    if preempt_slice(exp.env_params) is not None:
         report["stall_guard"] = bool(stall_guard)
     t0 = _clock(dev)
     # the gate is part of the scheduler under evaluation (policy + FIFO
@@ -595,6 +670,8 @@ def full_trace_report(exp, max_jobs: int | None = None,
         raise NotImplementedError(
             "a full-trace table under a fault schedule waits for the "
             "chaos and domain slice (ROADMAP.md queue 1, item 17)")
+    check_modes(exp.env_params, full_trace=True)
+    check_modes(env_params, full_trace=True)
     eval_params = env_params or exp.env_params
     if env_params is not None:
         normalized = dataclasses.replace(
@@ -714,6 +791,7 @@ def fairness_report(exp, windows: list[ArrayTrace] | None = None,
     "tenant_avg_jct": [...]}, ...}`` with ``policy`` one of the rows.
     Tenants are pooled over every id present in the windows, not only
     ``cfg.n_tenants`` bins (a CSV maps each user to its own id)."""
+    check_modes(exp.env_params, fairness=True)
     if windows is None:
         windows, traces = exp.windows, exp.traces
     else:

@@ -18,8 +18,12 @@ whole source trace, stitched through the job table
 multi-tenant fairness table instead (:func:`..eval.fairness_report`:
 per-tenant avg JCT and Jain's index, policy against the baselines; its
 JSON writes NaN as null); ``--drain-frac`` evaluates on
-backlog-drain copies of that fraction of the windows. Every other flag
-of the JAX CLI exits naming the slice it waits for.
+backlog-drain copies of that fraction of the windows. ``--pbt``
+restores a PBT population of ``--n-pop`` members from ``--ckpt-dir``
+and replays its fittest member (by the saved controller's fitness
+window), or ``--member``, per window; a hierarchical config (config 5,
+``hier-pbt-member``) replays per window with or without it. Every
+other flag of the JAX CLI exits naming the slice it waits for.
 
 Examples::
 
@@ -33,6 +37,8 @@ Examples::
         --baselines-only --device cpu
     python -m rlgpuschedule_tpu_torch.evaluate --config a2c-pai-fair \\
         --ckpt-dir out/fair --fairness
+    python -m rlgpuschedule_tpu_torch.evaluate --config hier-pbt-member \\
+        --pbt --n-pop 4 --ckpt-dir out/pbt
 """
 from __future__ import annotations
 
@@ -50,10 +56,12 @@ from .cli import (add_config_flags, check_source_jobs, config_overrides,
                   numeric_rows, refuse_unported)
 from .configs import CONFIGS, repro_tuple
 from .device import resolve_device
-from .eval import (baseline_jct_table, fairness_report, format_fairness,
-                   format_report, full_trace_report, jct_report)
-from .experiment import (Experiment, build_env_params, load_source_trace,
-                         make_env_windows)
+from .eval import (baseline_jct_table, check_modes, fairness_report,
+                   format_fairness, format_report, full_trace_report,
+                   jct_report)
+from .experiment import (Experiment, PopulationExperiment,
+                         build_env_params, load_source_trace,
+                         make_env_windows, trace_sim)
 from .sim.core import validate_trace
 
 # tail-latency columns --percentiles adds (keep the flag's help in sync)
@@ -70,8 +78,6 @@ UNPORTED_FLAGS: dict[str, str] = {
          "--matrix", "--matrix-regimes", "--matrix-baselines",
          "--matrix-seed", "--matrix-ckpt", "--faults", "--domains"),
         f"the chaos and domain slice ({_Q1}, item 17)"),
-    **dict.fromkeys(("--pbt", "--n-pop", "--member"),
-                    f"the hierarchical/PBT slice ({_Q1}, item 19)"),
     **dict.fromkeys(("--obs-dir", "--trace-spans", "--alarms"),
                     f"the observability slice ({_Q1}, item 24)"),
     # a no-op switch here: the guard is on unless --no-stall-guard
@@ -121,6 +127,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "tiling instead of --n-envs")
     p.add_argument("--percentiles", action="store_true",
                    help="add p50/p90/p99 JCT columns per scheduler")
+    p.add_argument("--pbt", action="store_true",
+                   help="evaluate a PBT population checkpoint (config 5): "
+                        "restores the population from --ckpt-dir and "
+                        "replays one member")
+    p.add_argument("--n-pop", type=int, default=4,
+                   help="with --pbt: population size of the training run")
+    p.add_argument("--member", type=int, default=None,
+                   help="with --pbt: member index to evaluate (default: "
+                        "fittest by the controller's windowed fitness)")
     p.add_argument("--baselines-only", action="store_true")
     p.add_argument("--fairness", action="store_true",
                    help="multi-tenant fairness table: per-tenant avg JCT "
@@ -172,12 +187,19 @@ def main(argv: "list[str] | None" = None) -> dict:
         over["drain_frac"] = args.drain_frac
     cfg = dataclasses.replace(CONFIGS[args.config], **over)
     check_source_jobs(args, cfg)
-    if args.percentiles and (args.fairness or args.baselines_only):
+    if args.member is not None and not args.pbt:
+        sys.exit("--member picks a member of a --pbt population; pass "
+                 "--pbt with it")
+    if args.n_pop < 1:
+        sys.exit("--n-pop must be >= 1")
+    if args.percentiles and (args.fairness or args.baselines_only
+                             or args.pbt):
         sys.exit("--percentiles applies to the per-window and --full-trace "
                  "JCT tables (flat configs, no --fairness/"
                  "--baselines-only/--pbt)")
-    if args.eval_windows is not None and (args.fairness or args.full_trace
-                                          or args.baselines_only):
+    if args.eval_windows is not None and (args.pbt or args.fairness or
+                                          args.full_trace or
+                                          args.baselines_only):
         sys.exit("--eval-windows applies to the plain per-window JCT "
                  "table (population views carry no source trace; the "
                  "other modes define their own window batch)")
@@ -193,12 +215,14 @@ def main(argv: "list[str] | None" = None) -> dict:
     if args.backlog_gate < 0:
         sys.exit("--backlog-gate must be >= 0 (a negative gate would "
                  "silently run ungated)")
-    if args.backlog_gate and (args.fairness or args.baselines_only):
+    if args.backlog_gate and (args.pbt or args.fairness or
+                              args.baselines_only or cfg.n_pods > 1):
         sys.exit("--backlog-gate applies to the flat per-window and "
                  "--full-trace policy tables (the hierarchical action "
                  "space has no single FIFO fall-through action; "
                  "--baselines-only has no policy row)")
     if not args.stall_guard and (args.baselines_only or args.fairness
+                                 or cfg.n_pods > 1
                                  or cfg.preempt_len == 0):
         sys.exit("--no-stall-guard applies to flat PREEMPTIVE configs' "
                  "policy rows (per-window, --full-trace, and flat --pbt "
@@ -210,8 +234,12 @@ def main(argv: "list[str] | None" = None) -> dict:
     repro = repro_tuple(cfg, ckpt_dir=args.ckpt_dir)
 
     try:
+        # the library's refusals, before anything is built
+        check_modes(build_env_params(cfg), full_trace=args.full_trace,
+                    fairness=args.fairness,
+                    percentiles=PERCENTILES if args.percentiles else None)
         if args.baselines_only:
-            sim = build_env_params(cfg).sim
+            sim = trace_sim(build_env_params(cfg))
             windows = make_env_windows(cfg, validate_trace(
                 sim, load_source_trace(cfg), clamp=True))
             report = baseline_jct_table(windows, cfg.n_nodes,
@@ -219,20 +247,35 @@ def main(argv: "list[str] | None" = None) -> dict:
             print(format_report(report), file=sys.stderr)
             print(json.dumps({**report, "repro": repro}), flush=True)
             return report
-        exp = Experiment.build(cfg, device=dev)
+        if args.pbt and (args.fairness or args.full_trace):
+            sys.exit("--pbt supports the per-window JCT table "
+                     "(hierarchical members replay per-window)")
+        exp = (PopulationExperiment.build(cfg, n_pop=args.n_pop,
+                                          device=dev)
+               if args.pbt else Experiment.build(cfg, device=dev))
+        if args.ckpt_dir:
+            with Checkpointer(os.path.abspath(args.ckpt_dir)) as ckpt:
+                exp.restore_checkpoint(ckpt, step=args.ckpt_step,
+                                       train=False)
+            # resolved, not requested: the integrity fallback may restore
+            # an older retained step than asked for
+            repro["ckpt_step"] = ckpt.last_restored_step
+            print(f"{'population' if args.pbt else 'policy'} restored "
+                  f"from {args.ckpt_dir} (step {repro['ckpt_step']})",
+                  file=sys.stderr)
+        else:
+            print("note: no --ckpt-dir; evaluating untrained init weights",
+                  file=sys.stderr)
+        if args.pbt:
+            # an untrained population has no fitness record to rank by
+            member = args.member if args.member is not None else \
+                (None if args.ckpt_dir else 0)
+            exp = exp.member_eval_view(member)
+            repro["member"] = exp.member
+            print(f"evaluating member {exp.member} of {args.n_pop}",
+                  file=sys.stderr)
     except (NotImplementedError, ValueError) as e:
         sys.exit(str(e))
-    if args.ckpt_dir:
-        with Checkpointer(os.path.abspath(args.ckpt_dir)) as ckpt:
-            exp.restore_checkpoint(ckpt, step=args.ckpt_step, train=False)
-        # resolved, not requested: the integrity fallback may restore an
-        # older retained step than asked for
-        repro["ckpt_step"] = ckpt.last_restored_step
-        print(f"policy restored from {args.ckpt_dir} (step "
-              f"{repro['ckpt_step']})", file=sys.stderr)
-    else:
-        print("note: no --ckpt-dir; evaluating untrained init weights",
-              file=sys.stderr)
     if args.fairness:
         report = fairness_report(exp, max_steps=args.max_steps)
         print(format_fairness(report), file=sys.stderr)

@@ -8,8 +8,11 @@ Counterparts of ``build_env_params``, ``load_source_trace``,
 checkpoint and window-streaming cadences and its ``fused_chunk``,
 ``run_fused``, ``advance_windows``, ``save_checkpoint``,
 ``restore_checkpoint``, ``steps_per_iteration``) in the JAX package's
-``experiment.py``. Meshes, faults and domains are not ported; the
-hierarchical config is refused here with ``NotImplementedError``.
+``experiment.py``, and its ``PopulationExperiment`` (config 5's PBT
+population, :class:`PopulationExperiment`). A config with ``n_pods >
+1`` builds the hierarchical env and policy (:mod:`.env.hier`,
+:mod:`.models.hier`) and trains, streams windows and checkpoints as the
+flat ones do. Meshes, faults and domains are not ported.
 
 Random streams: the rollout samples from the carry's generator (seeded
 ``cfg.seed``) and the update permutes with another (seeded
@@ -49,20 +52,59 @@ from .algos.update import validate_update_geometry
 from .checkpoint import Checkpointer
 from .configs import ExperimentConfig
 from .device import resolve_device
-from .env.env import EnvParams, EnvState, stack_traces
+from .env.env import EnvParams, stack_traces
+from .env.hier import HierParams
 from .env.obs import build_adjacency
-from .models import ActorCritic, GNNActorCritic, make_policy
-from .sim.core import SimParams, SimState, Trace, validate_trace
+from .models import (ActorCritic, GNNActorCritic, HierActorCritic,
+                     make_hier_policy, make_policy)
+from .sim.core import SimParams, Trace, validate_trace
 from .traces import (ArrayTrace, gen_pai_proxy_trace, gen_philly_proxy_trace,
                      gen_poisson_trace, load_pai, load_philly)
 
 
-def build_env_params(cfg: ExperimentConfig) -> EnvParams:
+def build_hier_params(cfg: ExperimentConfig) -> HierParams:
+    """The hierarchical env of a config with ``n_pods > 1``, with the
+    JAX package's refusals word for word (the port's config has no
+    fault or domain fields, so those two cannot arise). Each pod is
+    ``n_nodes // n_pods`` nodes; traces are validated against one
+    pod."""
+    if cfg.n_nodes % cfg.n_pods != 0:
+        raise ValueError(f"n_nodes={cfg.n_nodes} not divisible by "
+                         f"n_pods={cfg.n_pods}")
+    if cfg.obs_kind != "flat" or cfg.reward_kind != "jct":
+        raise ValueError(
+            f"hierarchical configs use flat pod observations and the "
+            f"JCT reward; got obs_kind={cfg.obs_kind!r}, "
+            f"reward_kind={cfg.reward_kind!r}")
+    if cfg.preempt_len:
+        raise ValueError(
+            "hierarchical configs do not support the preemptive action "
+            "space (pod actions are queue-slot×placement + no-op); set "
+            "preempt_len=0")
+    pod_sim = SimParams(n_nodes=cfg.n_nodes // cfg.n_pods,
+                        gpus_per_node=cfg.gpus_per_node,
+                        max_jobs=cfg.window_jobs, queue_len=cfg.queue_len,
+                        n_placements=cfg.n_placements)
+    return HierParams(n_pods=cfg.n_pods, pod_sim=pod_sim,
+                      time_scale=cfg.time_scale,
+                      reward_scale=cfg.reward_scale,
+                      place_bonus=cfg.place_bonus, horizon=cfg.horizon)
+
+
+def trace_sim(env_params: "EnvParams | HierParams") -> SimParams:
+    """The geometry traces are validated against: the cluster, or one
+    pod of the hierarchical env (gangs do not span pods)."""
+    if isinstance(env_params, HierParams):
+        return env_params.pod_sim
+    return env_params.sim
+
+
+def build_env_params(cfg: ExperimentConfig) -> "EnvParams | HierParams":
+    """The config's env: :class:`.env.env.EnvParams`, or
+    :class:`.env.hier.HierParams` when ``n_pods > 1``
+    (:func:`build_hier_params`)."""
     if cfg.n_pods > 1:
-        raise NotImplementedError(
-            f"config {cfg.name!r} has n_pods={cfg.n_pods}: the "
-            f"hierarchical env (hier-pbt-member) waits for the config-5 "
-            f"slice")
+        return build_hier_params(cfg)
     sim = SimParams(n_nodes=cfg.n_nodes, gpus_per_node=cfg.gpus_per_node,
                     max_jobs=cfg.window_jobs, queue_len=cfg.queue_len,
                     n_placements=cfg.n_placements,
@@ -148,13 +190,21 @@ def make_env_windows(cfg: ExperimentConfig, source: ArrayTrace,
     return windows
 
 
-def build_policy(cfg: ExperimentConfig, env_params: EnvParams, *,
+def build_policy(cfg: ExperimentConfig,
+                 env_params: "EnvParams | HierParams", *,
                  dtype: torch.dtype = torch.bfloat16,
                  device: "torch.device | str | None" = None,
-                 ) -> "ActorCritic | GNNActorCritic":
-    """The config's actor-critic, seeded ``cfg.seed``, on ``device``; a
-    graph config's holds the adjacency of ``build_adjacency(n_nodes,
-    queue_len, nodes_per_rack, preempt_len)``."""
+                 seed: int | None = None,
+                 ) -> "ActorCritic | GNNActorCritic | HierActorCritic":
+    """The config's actor-critic, seeded ``seed`` (default ``cfg.seed``),
+    on ``device``; a graph config's holds the adjacency of
+    ``build_adjacency(n_nodes, queue_len, nodes_per_rack,
+    preempt_len)``, a hierarchical config's is the
+    :class:`.models.hier.HierActorCritic`."""
+    seed = cfg.seed if seed is None else seed
+    if isinstance(env_params, HierParams):
+        return make_hier_policy(env_params, dtype=dtype, seed=seed,
+                                device=device)
     kw = {}
     if cfg.obs_kind == "graph":
         kw = dict(adjacency=build_adjacency(cfg.n_nodes, cfg.queue_len,
@@ -164,7 +214,7 @@ def build_policy(cfg: ExperimentConfig, env_params: EnvParams, *,
                   n_placements=cfg.n_placements,
                   preempt_len=cfg.preempt_len)
     return make_policy(cfg.obs_kind, env_params.n_actions,
-                       env_params.obs_shape(), dtype=dtype, seed=cfg.seed,
+                       env_params.obs_shape(), dtype=dtype, seed=seed,
                        device=device, **kw)
 
 
@@ -176,7 +226,7 @@ def build_stack(cfg: ExperimentConfig,
     policy holds its adjacency) and ``source`` the full validated source
     trace."""
     env_params = build_env_params(cfg)
-    source = validate_trace(env_params.sim, load_source_trace(cfg),
+    source = validate_trace(trace_sim(env_params), load_source_trace(cfg),
                             clamp=True)
     windows = make_env_windows(cfg, source)
     traces = stack_traces(windows, env_params, device)
@@ -198,17 +248,65 @@ def _host_tree(tree):
     return _host(tree) if isinstance(tree, torch.Tensor) else tree
 
 
+def _as_dicts(tree):
+    """NamedTuples as dicts, recursively: what a checkpoint holds (an
+    ``EnvState`` becomes ``{"sim": {...}, "t": ...}``, a ``HierState``
+    ``{"pods": {...}, "assignment": ..., "t": ...}``)."""
+    if hasattr(tree, "_asdict"):
+        tree = tree._asdict()
+    if isinstance(tree, dict):
+        return {k: _as_dicts(v) for k, v in tree.items()}
+    return tree
+
+
+def _like(template, tree):
+    """``tree`` (nested dicts) rebuilt into ``template``'s NamedTuples;
+    keys the template does not have are ignored."""
+    if hasattr(template, "_fields"):
+        return type(template)(*(_like(getattr(template, f), tree[f])
+                                for f in template._fields))
+    if isinstance(template, dict):
+        return {k: _like(v, tree[k]) for k, v in template.items()}
+    return tree
+
+
+def carry_payload(carry: RolloutCarry) -> dict:
+    """The checkpointed form of a rollout carry (its generator aside):
+    the env state's fields, ``obs`` and ``mask``, as host tensors."""
+    return _host_tree({**_as_dicts(carry.env_state), "obs": carry.obs,
+                       "mask": carry.mask})
+
+
+def carry_from_payload(template: RolloutCarry, c: dict,
+                       generator: torch.Generator) -> RolloutCarry:
+    """The inverse of :func:`carry_payload`, shaped like ``template``."""
+    return RolloutCarry(_like(template.env_state, c),
+                        _like(template.obs, c["obs"]),
+                        _like(template.mask, c["mask"]), generator)
+
+
 def restore_policy(ckpt: Checkpointer, net: torch.nn.Module,
                    step: int | None = None) -> dict:
     """Load the policy weights of checkpoint ``step`` (default: the
     newest that restores, :meth:`..checkpoint.Checkpointer.restore`)
     into ``net``, on its device; returns the checkpoint's meta. What a
-    replay or a server needs of a checkpoint, whatever device wrote
-    it."""
+    replay or a server needs of a checkpoint, whatever device wrote it.
+    From a population's checkpoint it loads the fittest member by the
+    saved controller's fitness window, and the meta gains ``member``."""
+    from .parallel.pbt import PBTController, best_member_index
     dev = next(net.parameters()).device
     state, meta = ckpt.restore(step, map_location=dev)
-    net.load_state_dict(state["policy"])
-    return meta
+    if "members" not in state:
+        net.load_state_dict(state["policy"])
+        return meta
+    ctrl = PBTController(len(state["members"]))
+    ctrl.load_state_dict(meta.get("pbt_controller"))
+    if not ctrl.has_fitness:
+        raise ValueError("the population checkpoint holds no fitness "
+                         "record, so it has no fittest member to load")
+    member = best_member_index(ctrl.mean_fitness)
+    net.load_state_dict(state["members"][member]["policy"])
+    return dict(meta, member=member)
 
 
 def algo_config(cfg: ExperimentConfig):
@@ -233,7 +331,7 @@ class Experiment:
     iteration: int = 0       # iterations trained over all run() calls
 
     @property
-    def net(self) -> "ActorCritic | GNNActorCritic":
+    def net(self) -> "ActorCritic | GNNActorCritic | HierActorCritic":
         return self.train_state.net
 
     @property
@@ -315,9 +413,7 @@ class Experiment:
         state = {
             "policy": _host_tree(self.net.state_dict()),
             "optimizer": _host_tree(self.train_state.opt.state_dict()),
-            "carry": {"sim": _host_tree(c.env_state.sim._asdict()),
-                      "t": _host(c.env_state.t), "obs": _host(c.obs),
-                      "mask": _host(c.mask)},
+            "carry": carry_payload(c),
             "generators": {"sampling": c.generator.get_state().clone(),
                            "update": self.generator.get_state().clone()},
         }
@@ -355,13 +451,10 @@ class Experiment:
             if self.train_state.reward_stats is not None:
                 self.train_state = self.train_state._replace(
                     reward_stats=RewardNormState(**state["reward_stats"]))
-            c = state["carry"]
             gen = self.carry.generator
             gen.set_state(state["generators"]["sampling"].cpu())
             self.generator.set_state(state["generators"]["update"].cpu())
-            self.carry = RolloutCarry(
-                EnvState(sim=SimState(**c["sim"]), t=c["t"]), c["obs"],
-                c["mask"], gen)
+            self.carry = carry_from_payload(self.carry, state["carry"], gen)
             self.iteration = int(meta["iteration"]) + 1
         cursor = int(meta.get("window_cursor", 0))
         if cursor != self.window_cursor:
@@ -492,6 +585,317 @@ class Experiment:
                "env_steps": env_steps,
                "env_steps_per_sec": env_steps / wall,
                "window_cursor": self.window_cursor,
+               "history": history}
+        if eval_history:
+            out["eval_history"] = eval_history
+        return out
+
+
+def member_seeds(seed: int, member: int) -> tuple[int, int, int]:
+    """Population member ``member``'s seeds: its policy's
+    initialization, its sampling generator and its update generator
+    (three draws of ``np.random.SeedSequence([seed, member])``)."""
+    return tuple(int(x) for x in
+                 np.random.SeedSequence([seed, member]).generate_state(3))
+
+
+
+@dataclasses.dataclass
+class PopulationExperiment:
+    """Config 5's assembly: a population of PPO members (each running the
+    per-member config ``cfg``, for config 5 the hierarchical 4-pod agent)
+    trained in turn on one device over the same env windows, with
+    host-side PBT exploit/explore (:mod:`.parallel.pbt`).
+
+    Member ``p`` owns its policy (seeded ``member_seeds(cfg.seed, p)[0]``),
+    its clipped Adam, its rollout carry (sampling from a generator seeded
+    ``member_seeds(...)[1]``) and its update generator
+    (``member_seeds(...)[2]``); the ``Trace`` batch is one for all. The
+    initial hyperparameters are :func:`.parallel.population
+    .sample_hparams`'s, JAX's values. JAX splits one key into the
+    members' streams instead, so the two packages' populations agree in
+    distribution only (weights carried from JAX give the same replays).
+    Cadences count iterations over the population's life
+    (:attr:`iteration`), as :class:`Experiment`'s do; the windows are
+    fixed (JAX's population has no window streaming)."""
+    cfg: ExperimentConfig
+    n_pop: int
+    env_params: "EnvParams | HierParams"
+    windows: list
+    traces: Trace
+    members: list            # MemberState per member
+    carries: list            # RolloutCarry per member
+    generators: list         # each member's update permutation stream
+    hparams: object          # HParams, f32 [P] host arrays
+    controller: object       # PBTController
+    member_step: Callable
+    source: ArrayTrace
+    device: torch.device
+    iteration: int = 0
+
+    def __post_init__(self):
+        self._refresh_hparams()
+
+    def _refresh_hparams(self) -> None:
+        from .parallel.population import member_hparams
+        self.member_hp = [member_hparams(self.hparams, p, self.device)
+                          for p in range(self.n_pop)]
+
+    @staticmethod
+    def build(cfg: ExperimentConfig, n_pop: int = 4, pbt_cfg=None,
+              device: "torch.device | str | None" = None,
+              mesh=None) -> "PopulationExperiment":
+        """The population on ``device`` (default ``cuda``). Refuses an A2C
+        config in JAX's words; a population mesh (``mesh``) waits for
+        the data-parallel slice."""
+        from .parallel.pbt import PBTConfig, PBTController
+        from .parallel.population import (init_member, make_member_step,
+                                          sample_hparams)
+        if mesh is not None:
+            raise NotImplementedError(
+                "a population mesh (member stacks over a pop axis) is not "
+                "in the PyTorch port yet: it waits for the data-parallel "
+                "slice (ROADMAP.md queue 1, item 21)")
+        if cfg.algo != "ppo":
+            raise ValueError(
+                f"PopulationExperiment trains PPO members (PBT explores "
+                f"PPO hyperparameters); config {cfg.name!r} has "
+                f"algo={cfg.algo!r}")
+        if cfg.resample_every:
+            raise ValueError(
+                "PopulationExperiment trains every member on fixed "
+                "windows (the population has no window streaming); unset "
+                "resample_every")
+        if n_pop < 1:
+            raise ValueError(f"n_pop must be >= 1, got {n_pop}")
+        dev = resolve_device(device)
+        pbt_cfg = pbt_cfg or PBTConfig(seed=cfg.seed)
+        validate_rollout_geometry(cfg.ppo.n_steps, cfg.n_envs)
+        validate_update_geometry(cfg.ppo.n_epochs, cfg.ppo.n_minibatches,
+                                 cfg.ppo.minibatch_size,
+                                 n_steps=cfg.ppo.n_steps, n_envs=cfg.n_envs)
+        env_params = build_env_params(cfg)
+        source = validate_trace(trace_sim(env_params), load_source_trace(cfg),
+                                clamp=True)
+        windows = make_env_windows(cfg, source)
+        traces = stack_traces(windows, env_params, dev)
+        members, carries, gens = [], [], []
+        for p in range(n_pop):
+            s_init, s_sample, s_update = member_seeds(cfg.seed, p)
+            members.append(init_member(
+                build_policy(cfg, env_params, device=dev, seed=s_init),
+                cfg.ppo))
+            carries.append(init_carry(
+                env_params, traces, torch.Generator(dev).manual_seed(
+                    s_sample)))
+            gens.append(torch.Generator(dev).manual_seed(s_update))
+        return PopulationExperiment(
+            cfg=cfg, n_pop=n_pop, env_params=env_params, windows=windows,
+            traces=traces, members=members, carries=carries,
+            generators=gens,
+            hparams=sample_hparams(cfg.ppo, n_pop, cfg.seed),
+            controller=PBTController(n_pop, pbt_cfg),
+            member_step=make_member_step(env_params, cfg.ppo),
+            source=source, device=dev)
+
+    @property
+    def steps_per_iteration(self) -> int:
+        return self.cfg.ppo.n_steps * self.cfg.n_envs * self.n_pop
+
+    @property
+    def step(self) -> int:
+        """The most Adam updates any member has taken (JAX's
+        ``max(states.step)``): the number a checkpoint is saved under."""
+        steps = [0]
+        for m in self.members:
+            for p in m.net.parameters():
+                if p in m.opt.state:
+                    steps.append(int(m.opt.state[p]["step"]))
+                break
+        return max(steps)
+
+    def best_member(self) -> int:
+        """Index of the fittest member by windowed mean fitness (NaN ranks
+        worst, the exploit's ordering). Raises when no fitness has been
+        recorded: an argmax over zeros would crown member 0."""
+        from .parallel.pbt import best_member_index
+        if not self.controller.has_fitness:
+            raise ValueError(
+                "population has no recorded fitness (pre-controller-state "
+                "checkpoint, or no training iterations ran); pass an "
+                "explicit member index instead")
+        return best_member_index(self.controller.mean_fitness)
+
+    def member_eval_view(self, m: int | None = None):
+        """An :class:`Experiment`-like view of member ``m`` (default: the
+        fittest) for the eval harness (``eval.jct_report(pop
+        .member_eval_view())``): the member's policy beside the
+        population's config, env, windows, traces and source."""
+        import types
+        m = self.best_member() if m is None else m
+        if not 0 <= m < self.n_pop:
+            raise ValueError(f"member {m} out of range [0, {self.n_pop})")
+        return types.SimpleNamespace(
+            cfg=self.cfg, env_params=self.env_params, windows=self.windows,
+            traces=self.traces, source=self.source, device=self.device,
+            net=self.members[m].net, member=m, window_cursor=0)
+
+    def save_checkpoint(self, ckpt: Checkpointer, step: int | None = None,
+                        meta: dict | None = None,
+                        force: bool = False) -> bool:
+        """Persist the whole population in one checkpoint: every member's
+        policy, optimizer (Adam's moments and step), rollout carry and
+        both generators' states, and the hyperparameters; ``meta`` gains
+        the config, ``iteration``, ``n_pop``, ``pbt_events`` and the
+        full controller state (``pbt_controller``: RNG, fitness window,
+        decision history), so a resumed run decides as the uninterrupted
+        one does, bit for bit."""
+        step = self.step if step is None else step
+        state = {
+            "members": [
+                {"policy": _host_tree(m.net.state_dict()),
+                 "optimizer": _host_tree(m.opt.state_dict()),
+                 "carry": carry_payload(c),
+                 "generators": {"sampling": c.generator.get_state().clone(),
+                                "update": g.get_state().clone()}}
+                for m, c, g in zip(self.members, self.carries,
+                                   self.generators)],
+            "hparams": {k: torch.from_numpy(np.array(v, np.float32))
+                        for k, v in self.hparams._asdict().items()},
+        }
+        meta = dict(meta or {}, config=dataclasses.asdict(self.cfg),
+                    iteration=self.iteration - 1, n_pop=self.n_pop,
+                    generator_device=self.device.type,
+                    pbt_events=len(self.controller.history),
+                    pbt_controller=self.controller.state_dict())
+        return ckpt.save(step, state, meta=meta, force=force)
+
+    def restore_checkpoint(self, ckpt: Checkpointer, step: int | None = None,
+                           train: bool = True) -> dict:
+        """Restore checkpoint ``step`` (default: the newest that restores)
+        in place and return its meta. The policies, the hyperparameters
+        and the controller always come back; with ``train`` (the
+        default) also the optimizers, the carries, the generators and the
+        iteration count, so a resumed :meth:`run` is the uninterrupted
+        run bit for bit (same config, same kind of device).
+        ``train=False`` is what a replay needs, from any device."""
+        from .parallel.population import HParams
+        state, meta = ckpt.restore(step, map_location=self.device)
+        if len(state["members"]) != self.n_pop:
+            raise ValueError(
+                f"checkpoint {ckpt.last_restored_step} holds "
+                f"{len(state['members'])} members; this population has "
+                f"{self.n_pop} (pass --n-pop {len(state['members'])})")
+        wrote = meta.get("generator_device")
+        if train and wrote != self.device.type:
+            raise ValueError(
+                f"checkpoint {ckpt.last_restored_step} holds {wrote} "
+                f"generator states, which a {self.device.type} run cannot "
+                f"continue; restore with train=False to replay its "
+                f"policies")
+        for p, saved in enumerate(state["members"]):
+            self.members[p].net.load_state_dict(saved["policy"])
+            if train:
+                self.members[p].opt.load_state_dict(saved["optimizer"])
+                gen = self.carries[p].generator
+                gen.set_state(saved["generators"]["sampling"].cpu())
+                self.generators[p].set_state(
+                    saved["generators"]["update"].cpu())
+                self.carries[p] = carry_from_payload(
+                    self.carries[p], saved["carry"], gen)
+        self.hparams = HParams(**{k: v.cpu().numpy()
+                                  for k, v in state["hparams"].items()})
+        self._refresh_hparams()
+        self.controller.load_state_dict(meta.get("pbt_controller"))
+        if train:
+            self.iteration = int(meta["iteration"]) + 1
+        return meta
+
+    def run(self, iterations: int | None = None, log_every: int = 0,
+            logger: Callable[[int, dict], None] | None = None,
+            ckpt: Checkpointer | None = None, ckpt_every: int = 0,
+            eval_every: int = 0,
+            eval_fn: "Callable[[int], dict] | None" = None,
+            eval_logger: Callable[[int, dict], None] | None = None,
+            watchdog=None, injector=None, telemetry=None) -> dict:
+        """Train the population ``iterations`` (default ``cfg.iterations``)
+        more iterations; PBT exploit/explore fires every
+        ``controller.cfg.ready_iters`` recorded iterations. Each
+        iteration steps the members in turn, records their fitness (the
+        mean reward, left on the device) and asks the controller.
+
+        Iteration ``g`` (over the population's life) is logged when ``g %
+        log_every == 0`` and at the call's last iteration, with one
+        column per member (``{metric}_{p}``) and the mean
+        (``{metric}_mean``), in one transfer. ``eval_fn(g)`` runs when
+        ``(g + 1) % eval_every == 0`` and at the last iteration, after
+        the fitness record (so it may rank members with
+        :meth:`best_member`); then the checkpoint, at ``ckpt_every``'s
+        cadence and at the last iteration. Returns the summary: wall
+        time, env steps per second, each member's final fitness, the
+        count of PBT rounds (``pbt_events``) and the logged history.
+        ``watchdog`` and ``injector`` wait for the resilience slice,
+        ``telemetry`` for the observability slice."""
+        from .algos.ppo import PPOMetrics
+        from .parallel.population import stack_members
+        if watchdog is not None or injector is not None:
+            raise NotImplementedError(
+                "the population's divergence watchdog and fault injector "
+                "are not in the PyTorch port yet: they wait for the "
+                "resilience slice (ROADMAP.md queue 1, item 21)")
+        if telemetry is not None:
+            raise NotImplementedError(
+                "run telemetry is not in the PyTorch port yet: it waits "
+                "for the observability slice (ROADMAP.md queue 1, item 24)")
+        iterations = iterations or self.cfg.iterations
+        history, eval_history = [], []
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        for k in range(iterations):
+            g = self.iteration
+            per_member = []
+            for p in range(self.n_pop):
+                self.members[p], self.carries[p], m = self.member_step(
+                    self.members[p], self.carries[p], self.traces,
+                    self.generators[p], self.member_hp[p])
+                per_member.append(m)
+            metrics = stack_members(per_member)
+            self.controller.record(metrics.mean_reward)
+            out = self.controller.maybe_update(g, self.members, self.hparams)
+            if out is not None:
+                self.members, self.hparams, _ = out
+                self._refresh_hparams()
+            self.iteration = g + 1
+            last = k == iterations - 1
+            if log_every and (g % log_every == 0 or last):
+                vals = torch.stack(list(metrics)).tolist()   # one transfer
+                row = {}
+                for name, v in zip(PPOMetrics._fields, vals):
+                    row.update({f"{name}_{p}": x for p, x in enumerate(v)})
+                    row[f"{name}_mean"] = sum(v) / len(v)
+                history.append({"iteration": g, **row})
+                if logger is not None:
+                    logger(g, row)
+            if eval_fn is not None and eval_every and \
+                    ((g + 1) % eval_every == 0 or last):
+                em = dict(eval_fn(g))
+                eval_history.append({"iteration": g, **em})
+                if eval_logger is not None:
+                    eval_logger(g, em)
+            if ckpt is not None and ckpt_every and \
+                    ((g + 1) % ckpt_every == 0 or last):
+                self.save_checkpoint(ckpt)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        wall = time.perf_counter() - t0
+        env_steps = iterations * self.steps_per_iteration
+        out = {"wall_s": wall, "iterations": iterations,
+               "env_steps": env_steps,
+               "env_steps_per_sec": env_steps / wall,
+               "final_fitness": [float(f) for f in
+                                 self.controller.mean_fitness],
+               "pbt_events": len(self.controller.history),
                "history": history}
         if eval_history:
             out["eval_history"] = eval_history

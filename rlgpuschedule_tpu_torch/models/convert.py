@@ -15,11 +15,16 @@ The mapping, leaf by leaf (Flax scope -> port module):
 - ``.../Conv_i/kernel`` HWIO -> ``.weight`` OIHW;
 - ``.../LayerNorm_i/scale`` -> ``.weight``;
 - the heads' ``kernel`` -> ``.weight`` (transposed): ``policy`` and
-  ``value``, and for the GNN ``slot_policy``, ``preempt_policy``,
-  ``noop_policy`` and ``value``;
+  ``value``, for the GNN ``slot_policy``, ``preempt_policy``,
+  ``noop_policy`` and ``value``, and for the hierarchical policy
+  ``top_policy``, ``pod_policy`` and ``value``;
 - every ``bias`` -> ``.bias``.
 
-The GNN's adjacency is not a parameter on either side.
+The trunk is ``encoder`` in the flat policies and the two trunks
+``top_trunk`` and ``pod_trunk`` in the hierarchical one. The GNN's
+adjacency is not a parameter on either side. :func:`member_params`
+takes one member out of a JAX population's stacked ``[P, ...]``
+parameters.
 """
 from __future__ import annotations
 
@@ -29,11 +34,13 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-_HEADS = "policy|value|slot_policy|preempt_policy|noop_policy"
-_DENSE = re.compile(rf"(encoder/Dense_\d+|{_HEADS})/kernel")
+_HEADS = ("policy|value|slot_policy|preempt_policy|noop_policy|top_policy|"
+          "pod_policy")
+_TRUNK = "(encoder|top_trunk|pod_trunk)"
+_DENSE = re.compile(rf"({_TRUNK}/Dense_\d+|{_HEADS})/kernel")
 _CONV = re.compile(r"encoder/Conv_\d+/kernel")
-_SCALE = re.compile(r"encoder/LayerNorm_\d+/scale")
-_BIAS = re.compile(rf"(encoder/(Dense|Conv|LayerNorm)_\d+|{_HEADS})/bias")
+_SCALE = re.compile(rf"{_TRUNK}/LayerNorm_\d+/scale")
+_BIAS = re.compile(rf"({_TRUNK}/(Dense|Conv|LayerNorm)_\d+|{_HEADS})/bias")
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> dict[str, Any]:
@@ -66,11 +73,20 @@ def params_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
         else:
             raise ValueError(
                 f"no port counterpart for Flax parameter {path!r} "
-                f"(shape {a.shape}); the port maps the MLP, CNN and GNN "
-                f"actor-critics")
+                f"(shape {a.shape}); the port maps the MLP, CNN, GNN and "
+                f"hierarchical actor-critics")
         out[name.replace("/", ".")] = torch.from_numpy(
             np.ascontiguousarray(a))
     return out
+
+
+def member_params(tree: Mapping[str, Any], member: int) -> dict:
+    """Member ``member``'s parameter tree out of a population's stacked
+    tree (every leaf ``[P, ...]``, e.g. ``PopulationExperiment.states
+    .params`` after ``jax.device_get``), as nested dicts of numpy
+    arrays for :func:`params_from_jax`."""
+    return {k: member_params(v, member) if isinstance(v, Mapping)
+            else np.asarray(v)[member] for k, v in tree.items()}
 
 
 def load_npz(path: str) -> dict[str, torch.Tensor]:

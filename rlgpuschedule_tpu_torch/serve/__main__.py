@@ -33,7 +33,11 @@ the router (``--engines`` > 1, ``--scaleout``, ``--autoscale``,
 ``--chaos-faults``), the network front door (``--frontend-port``,
 ``--wire-requests``), the flywheel (``--flight-log``, ``--promote``,
 ``--promote-noise``) and fault-regime fleet replays
-(``--fleet-regime``).
+(``--fleet-regime``). A hierarchical config (``n_pods > 1``, config 5)
+runs ``--fleet`` only: the engine and the policy server take one
+observation row per request, and serving the hierarchical policy's
+dict observations waits for the serving item (22). From a population's
+checkpoint the fittest member is served.
 
 Example::
 
@@ -236,11 +240,20 @@ def main(argv: "list[str] | None" = None) -> dict:
     check_source_jobs(args, cfg)
     dev = resolve_device(args.device)
     env_params = build_env_params(cfg)
+    hier = cfg.n_pods > 1
+    if hier and (args.bench or args.soak is not None or args.host_path):
+        raise NotImplementedError(
+            "serving a hierarchical policy (n_pods > 1) through the engine "
+            "and the policy server (--bench/--soak/--host-path) is not in "
+            "the PyTorch port yet: it waits for the serving item "
+            "(ROADMAP.md queue 1, item 22); --fleet N replays it")
     policy = build_policy(cfg, env_params, device=dev)
     repro = repro_tuple(cfg, ckpt_dir=args.ckpt_dir)
     if args.ckpt_dir:
         with Checkpointer(os.path.abspath(args.ckpt_dir)) as ckpt:
-            restore_policy(ckpt, policy, args.ckpt_step)
+            meta = restore_policy(ckpt, policy, args.ckpt_step)
+        if "member" in meta:
+            repro["member"] = meta["member"]
         # resolved, not requested: the integrity fallback may restore an
         # older retained step than asked for
         repro["ckpt_step"] = ckpt.last_restored_step
@@ -267,9 +280,10 @@ def main(argv: "list[str] | None" = None) -> dict:
             scraper = serve_http(registry, port=args.metrics_port)
             print(f"metrics scrape endpoint: {scraper.url}",
                   file=sys.stderr)
-        engine = InferenceEngine(policy, max_bucket=args.bucket, device=dev,
-                                 env_params=env_params, registry=registry,
-                                 bus=bus, tracer=tracer)
+        engine = None if hier else InferenceEngine(
+            policy, max_bucket=args.bucket, device=dev,
+            env_params=env_params, registry=registry, bus=bus,
+            tracer=tracer)
         pool = None
         if args.bench or args.soak is not None or args.host_path:
             _, traces = fleet_windows(cfg, cfg.n_envs, device=dev)

@@ -5,7 +5,9 @@ package's ``serve/fleet.py``: the policy is replayed greedily against
 ``N`` seeded simulated clusters with the cluster index as the batch
 axis, and the result is reported as throughput and fleet JCT. It is
 :func:`..eval.replay` on the first ``N`` windows of the config's
-tiling. Per-cluster fault regimes wait for the faults slice.
+tiling, the hierarchical config's (``n_pods > 1``) included: its
+windows are validated against one pod. Per-cluster fault regimes wait
+for the faults slice.
 """
 from __future__ import annotations
 
@@ -19,7 +21,8 @@ from torch import nn
 from ..device import resolve_device
 from ..env.env import EnvParams, stack_traces
 from ..eval import pooled_avg_jct, replay
-from ..experiment import build_env_params, load_source_trace, make_env_windows
+from ..experiment import (build_env_params, load_source_trace,
+                          make_env_windows, trace_sim)
 from ..sim.core import Trace, validate_trace
 
 
@@ -32,7 +35,8 @@ def fleet_windows(cfg, n_clusters: int, source=None, start: int = 0, *,
     traces)``."""
     if n_clusters <= 0:
         raise ValueError(f"n_clusters must be positive, got {n_clusters}")
-    sim_params = build_env_params(cfg).sim
+    # the hierarchical env windows against the per-pod simulator shape
+    sim_params = trace_sim(build_env_params(cfg))
     if source is None:
         source = validate_trace(sim_params, load_source_trace(cfg),
                                 clamp=True)

@@ -122,11 +122,13 @@ class StepInfo(NamedTuple):
 
 
 def select(cond: torch.Tensor, a, b):
-    """``cond ? a : b`` per cluster over a (nested) tuple of tensors;
-    ``cond`` is ``bool[E]`` and broadcasts over each leaf's trailing
-    axes."""
+    """``cond ? a : b`` per cluster over (nested) tuples and dicts of
+    tensors; ``cond`` is ``bool[E]`` and broadcasts over each leaf's
+    trailing axes."""
     if isinstance(a, tuple):
         return type(a)(*(select(cond, x, y) for x, y in zip(a, b)))
+    if isinstance(a, dict):
+        return {k: select(cond, a[k], b[k]) for k in a}
     c = cond.reshape(cond.shape + (1,) * (a.ndim - cond.ndim))
     return torch.where(c, a, b)
 

@@ -11,6 +11,13 @@ probe (its keys start with ``eval_``), then a summary line with
 env-steps/s, the device it ran on and, with ``--report``, the
 JCT-vs-baselines table (also printed on stderr).
 
+``--pbt`` trains a PBT population of ``--n-pop`` members, exploiting
+every ``--pbt-ready`` iterations (:class:`..experiment
+.PopulationExperiment`; config 5, ``hier-pbt-member``, the hierarchical
+4-pod agent, runs with or without it). Its logged rows carry one column
+per member and the mean; ``--eval-every``, ``--keep-best`` and
+``--report`` follow the fittest member (:class:`FittestMemberView`).
+
 ``--ckpt-dir`` keeps the last ``--ckpt-keep`` checkpoints, written every
 ``--ckpt-every`` iterations and at the last (:mod:`.checkpoint`);
 ``--resume`` restores the newest that loads and trains ``--iterations``
@@ -37,6 +44,8 @@ Examples::
         --device cpu
     python -m rlgpuschedule_tpu_torch.train --config a2c-pai-fair \\
         --iterations 100 --reward-norm --fused-chunk 10 --log-every 10
+    python -m rlgpuschedule_tpu_torch.train --config hier-pbt-member \\
+        --pbt --n-pop 4 --pbt-ready 10 --ckpt-dir out/pbt
 """
 from __future__ import annotations
 
@@ -55,8 +64,9 @@ from .cli import (add_config_flags, check_source_jobs, config_overrides,
 from .configs import (CONFIGS, ExperimentConfig, ModeCombinationError,
                       validate_mode_combination)
 from .env.env import stack_traces
-from .experiment import (Experiment, algo_config, load_source_trace,
-                         make_env_windows)
+from .experiment import (Experiment, PopulationExperiment, algo_config,
+                         load_source_trace, make_env_windows, trace_sim)
+from .parallel import PBTConfig
 from .sim.core import validate_trace
 
 _Q1 = "ROADMAP.md queue 1"
@@ -64,8 +74,6 @@ _Q1 = "ROADMAP.md queue 1"
 UNPORTED_FLAGS: dict[str, str] = {
     **dict.fromkeys(("--faults", "--domains"),
                     f"the chaos and domain slice ({_Q1}, item 17)"),
-    **dict.fromkeys(("--pbt", "--n-pop", "--pbt-ready"),
-                    f"the hierarchical/PBT slice ({_Q1}, item 19)"),
     **dict.fromkeys(
         ("--async", "--actor-devices", "--learner-devices",
          "--staleness-bound", "--queue-capacity"),
@@ -142,6 +150,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "boundaries (every active log/eval/ckpt/resample "
                         "cadence, the iteration count and a resumed "
                         "run's start must be multiples of N)")
+    p.add_argument("--pbt", action="store_true",
+                   help="train a PBT population instead of a single run")
+    p.add_argument("--n-pop", type=int, default=4)
+    p.add_argument("--pbt-ready", type=int, default=10,
+                   help="iterations between exploit/explore rounds")
     p.add_argument("--lr", type=float, default=None)
     p.add_argument("--ent-coef", type=float, default=None)
     p.add_argument("--log-every", type=int, default=10)
@@ -244,7 +257,7 @@ def make_eval_probe(cfg: ExperimentConfig, exp: Experiment, n_windows: int,
     ecfg = dataclasses.replace(cfg, n_envs=n_windows, seed=seed,
                                source_jobs=None,
                                drain_frac=1.0 if regime == "drain" else 0.0)
-    sim_params = exp.env_params.sim
+    sim_params = trace_sim(exp.env_params)
     windows = make_env_windows(ecfg, validate_trace(
         sim_params, load_source_trace(ecfg), clamp=True))
     traces = stack_traces(windows, sim_params, exp.device)
@@ -261,6 +274,23 @@ def make_eval_probe(cfg: ExperimentConfig, exp: Experiment, n_windows: int,
         return out
 
     return eval_fn
+
+
+class FittestMemberView:
+    """An :class:`..experiment.Experiment`-like view of a
+    :class:`..experiment.PopulationExperiment` for :func:`make_eval_probe`
+    and the report: ``net`` is the fittest member's policy at the time it
+    is read (a population run calls its probe after recording the
+    iteration's fitness), so the probe and ``--keep-best`` follow the
+    population's best member rather than a fixed index."""
+
+    def __init__(self, pop: PopulationExperiment):
+        self._pop = pop
+
+    def __getattr__(self, name):
+        if name == "net":
+            return self._pop.members[self._pop.best_member()].net
+        return getattr(self._pop, name)
 
 
 def _keep_best(exp: Experiment, ckpt: Checkpointer, probe):
@@ -326,8 +356,13 @@ def main(argv: "list[str] | None" = None) -> dict:
     cfg = apply_overrides(CONFIGS[args.config], args)
     # the one mode-combination gate (modes that wait for a slice were
     # refused above, with their flags)
+    if args.n_pop < 1:
+        sys.exit("--n-pop must be >= 1")
+    if args.pbt_ready < 1:
+        sys.exit("--pbt-ready must be >= 1")
     try:
         validate_mode_combination({
+            "pbt": args.pbt,
             "fused_chunk": args.fused_chunk > 1,
             "hier": cfg.n_pods > 1,
             "vtrace": cfg.algo == "ppo" and cfg.ppo.correction == "vtrace",
@@ -337,7 +372,12 @@ def main(argv: "list[str] | None" = None) -> dict:
         sys.exit(str(e))
     check_source_jobs(args, cfg)
     try:
-        exp = Experiment.build(cfg, device=args.device)
+        if args.pbt:
+            exp = PopulationExperiment.build(
+                cfg, n_pop=args.n_pop, device=args.device,
+                pbt_cfg=PBTConfig(ready_iters=args.pbt_ready, seed=cfg.seed))
+        else:
+            exp = Experiment.build(cfg, device=args.device)
         ckpt = None
         if args.ckpt_dir:
             ckpt = Checkpointer(os.path.abspath(args.ckpt_dir),
@@ -346,12 +386,15 @@ def main(argv: "list[str] | None" = None) -> dict:
             meta = exp.restore_checkpoint(ckpt)
             # last_restored_step, not latest_step: the integrity fallback
             # may have restored an older retained step than the newest
+            where = (f"{meta['pbt_events']} PBT rounds" if args.pbt
+                     else f"window cursor {meta['window_cursor']}")
             print(f"resumed from step {ckpt.last_restored_step} "
-                  f"(iteration {meta['iteration']}, window cursor "
-                  f"{meta['window_cursor']})", file=sys.stderr)
+                  f"(iteration {meta['iteration']}, {where})",
+                  file=sys.stderr)
+        view = FittestMemberView(exp) if args.pbt else exp
         eval_kw = {}
         if args.eval_every:
-            probe = make_eval_probe(cfg, exp, args.eval_windows,
+            probe = make_eval_probe(cfg, view, args.eval_windows,
                                     args.eval_seed, args.eval_probe)
             if args.keep_best:
                 probe = _keep_best(exp, ckpt, probe)
@@ -359,20 +402,25 @@ def main(argv: "list[str] | None" = None) -> dict:
                 eval_every=args.eval_every, eval_fn=probe,
                 eval_logger=lambda i, m: print(
                     json.dumps({"iteration": i, **m}), flush=True))
-        exp.validate_fused_chunk(
-            args.fused_chunk, args.iterations or cfg.iterations,
-            log_every=args.log_every,
-            ckpt_every=args.ckpt_every if ckpt is not None else 0,
-            eval_every=args.eval_every)
+        if not args.pbt:
+            exp.validate_fused_chunk(
+                args.fused_chunk, args.iterations or cfg.iterations,
+                log_every=args.log_every,
+                ckpt_every=args.ckpt_every if ckpt is not None else 0,
+                eval_every=args.eval_every)
     except (NotImplementedError, ValueError) as e:
         sys.exit(str(e))
 
     def logger(i: int, m: dict) -> None:
         print(json.dumps({"iteration": i, **m}), flush=True)
 
-    out = exp.run(log_every=args.log_every, logger=logger, ckpt=ckpt,
-                  ckpt_every=args.ckpt_every, fused_chunk=args.fused_chunk,
-                  **eval_kw)
+    if args.pbt:
+        out = exp.run(log_every=args.log_every, logger=logger, ckpt=ckpt,
+                      ckpt_every=args.ckpt_every, **eval_kw)
+    else:
+        out = exp.run(log_every=args.log_every, logger=logger, ckpt=ckpt,
+                      ckpt_every=args.ckpt_every,
+                      fused_chunk=args.fused_chunk, **eval_kw)
     dev = exp.device
     summary = {k: v for k, v in out.items() if k != "history"}
     summary.update(
@@ -381,8 +429,11 @@ def main(argv: "list[str] | None" = None) -> dict:
         device=str(dev),
         device_name=(torch.cuda.get_device_name(dev)
                      if dev.type == "cuda" else "cpu"))
+    if args.pbt:
+        summary.update(n_pop=args.n_pop, pbt_ready=args.pbt_ready,
+                       fittest_member=exp.best_member())
     if args.report:
-        report = eval_lib.jct_report(exp)
+        report = eval_lib.jct_report(view)
         print(eval_lib.format_report(report), file=sys.stderr)
         summary["jct_report"] = numeric_rows(report)
     print(json.dumps(summary), flush=True)

@@ -377,7 +377,7 @@ def test_train_refusals_are_jaxs_word_for_word(argv):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--async"], 20), (["--mesh", "auto"], 21), (["--pbt"], 19),
+    (["--async"], 20), (["--mesh", "auto"], 21), (["--pbt", "--async"], 20),
     (["--continual", "x"], 23),
     (["--correction", "vtrace", "--async"], 20)])
 def test_train_modes_still_refused_name_their_item(argv, item):

@@ -255,3 +255,45 @@ def test_the_mode_table_is_jaxs():
     assert tconfigs.MODE_REFUSALS == jconfigs.MODE_REFUSALS
     with pytest.raises(KeyError):
         tconfigs.validate_mode_combination({"bogus": True})
+
+
+def test_importing_the_config_five_path_leaves_jax_out():
+    _leaves_jax_out(("env.hier", "models.hier", "parallel",
+                     "parallel.population", "parallel.pbt", "experiment",
+                     "train", "evaluate", "serve.fleet"))
+
+
+def test_the_config_five_slice_has_its_pieces():
+    """The hierarchical env and policy, the population and the PBT
+    controller are the port's own code."""
+    import importlib
+    sys.path.insert(0, ROOT)
+    try:
+        names = {os.path.relpath(p, ROOT) for p in _port_files()}
+        for f in ("env/hier.py", "models/hier.py", "parallel/__init__.py",
+                  "parallel/population.py", "parallel/pbt.py"):
+            assert f"rlgpuschedule_tpu_torch/{f}" in names, f
+        for mod, names in {
+                "env.hier": ("HierParams", "HierState", "pod_init",
+                             "head_unassigned", "apply_route", "pod_place",
+                             "next_event_time", "advance_all",
+                             "forced_progress", "build_obs", "action_mask",
+                             "reset", "step", "vec_reset", "vec_step",
+                             "jct_stats", "validate_hier_trace"),
+                "models.hier": ("HierActorCritic", "make_hier_policy"),
+                "models.convert": ("member_params",),
+                "parallel.population": ("HParams", "MemberState",
+                                        "init_member", "sample_hparams",
+                                        "make_member_learn_step",
+                                        "make_member_step",
+                                        "stack_members"),
+                "parallel.pbt": ("PBTConfig", "PBTDecision",
+                                 "PBTController", "exploit_explore",
+                                 "gather_members"),
+                "experiment": ("PopulationExperiment", "build_hier_params"),
+                "train": ("FittestMemberView",)}.items():
+            m = importlib.import_module(f"rlgpuschedule_tpu_torch.{mod}")
+            for n in names:
+                assert getattr(m, n).__module__ == m.__name__, (mod, n)
+    finally:
+        sys.path.remove(ROOT)

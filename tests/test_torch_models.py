@@ -119,10 +119,10 @@ def test_init_draws_from_the_flax_distributions(key):
 
 def test_convert_refuses_unmapped_leaves():
     _, params, _, _, _ = _pair("flat", jnp.float32, torch.float32)
-    # the hierarchical actor-critic's router head has no port counterpart
+    # a head no actor-critic of the port has
     params = {"params": dict(params["params"],
-                             top_policy={"kernel": np.zeros((4, 1))})}
-    with pytest.raises(ValueError, match="top_policy"):
+                             aux_policy={"kernel": np.zeros((4, 1))})}
+    with pytest.raises(ValueError, match="aux_policy"):
         params_from_jax(params)
 
 

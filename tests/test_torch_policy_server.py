@@ -189,7 +189,7 @@ def _shed_story(server_cls, plane, obs, mask):
     for f in futs:
         e = f.exception(timeout=10)
         if e is None:
-            outcomes.append(("served", int(f.result().action)))
+            outcomes.append(("served", int(f.result(timeout=10).action)))
         else:
             # each package raises its own DeadlineSheddedError
             assert type(e).__name__ == "DeadlineSheddedError", e
@@ -461,8 +461,8 @@ def test_scatter_copies_an_engine_buffer_that_aliases_the_slab():
     futs2 = [server.submit(o, m, stall=0) for o, m in rows]   # reuses slabs
     while server.pump():
         pass
-    assert [int(f.result().action) for f in futs] == list(range(10, 18))
-    assert all(int(f.result().action) == 0 for f in futs2)
+    assert [int(f.result(timeout=10).action) for f in futs] == list(range(10, 18))
+    assert all(int(f.result(timeout=10).action) == 0 for f in futs2)
     server.close()
 
 
@@ -516,7 +516,7 @@ def test_close_refuses_later_submits_and_flushes_the_queue():
                           example_mask=rows[0][1])
     futs = [server.submit(o, m) for o, m in rows]
     server.close()                     # inline mode: close flushes
-    assert all(f.done() and f.result().action is not None for f in futs)
+    assert all(f.done() and f.result(timeout=10).action is not None for f in futs)
     with pytest.raises(ServerClosedError):
         server.submit(*rows[0])
     with pytest.raises(ServerClosedError):
@@ -542,13 +542,13 @@ def test_stall_gate_is_served_through_the_server():
     server = PolicyServer(engine, example_obs=obs[0], example_mask=mask[0])
     stalled = [server.submit(obs[i], mask[i], stall=thresh) for i in range(8)]
     assert server.pump() == 8
-    assert not pre[[int(f.result().action) for f in stalled]].any()
+    assert not pre[[int(f.result(timeout=10).action) for f in stalled]].any()
     calm = [server.submit(obs[i], mask[i]) for i in range(8)]
     assert server.pump() == 8
     with torch.no_grad():
         want = policy_decision(policy, torch.from_numpy(obs),
                                torch.from_numpy(mask))
-    assert [int(f.result().action) for f in calm] == want.tolist()
+    assert [int(f.result(timeout=10).action) for f in calm] == want.tolist()
     server.close()
 
 

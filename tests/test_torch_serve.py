@@ -221,8 +221,9 @@ DEFERRED_FLAGS = [
 
 def test_serve_cli_refuses_what_the_slice_lacks():
     """Each flag of the JAX CLI that a later slice brings fails with
-    NotImplementedError naming its ROADMAP.md item; so does a preset the
-    port cannot run, in a subprocess as a user meets it."""
+    NotImplementedError naming its ROADMAP.md item; so does serving the
+    hierarchical preset through the engine (its --fleet runs), in a
+    subprocess as a user meets it."""
     for extra, item in DEFERRED_FLAGS:
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP.md queue 1, {item}"):
@@ -232,9 +233,9 @@ def test_serve_cli_refuses_what_the_slice_lacks():
               "--fleet-regime", "storm"])
     assert p.returncode != 0 and "NotImplementedError" in p.stderr
     p = _run(["-m", "rlgpuschedule_tpu_torch.serve", "--config",
-              "hier-pbt-member", "--fleet", "2", "--device", "cpu"])
+              "hier-pbt-member", "--bench", "--device", "cpu"])
     assert p.returncode != 0 and "NotImplementedError" in p.stderr
-    assert "hier-pbt-member" in p.stderr
+    assert "hierarchical policy" in p.stderr and "item 22" in p.stderr
 
 
 @pytest.mark.parametrize("name", ["gnn-gang-place", "ppo-mlp-preempt"])

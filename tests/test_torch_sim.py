@@ -223,17 +223,26 @@ def test_advance_at_philly_clock_does_not_complete_early():
 
 @pytest.mark.parametrize("name", ["hier-pbt-member", "a2c-pai-fair"])
 def test_configs_outside_the_slice_are_refused(name):
-    """The hierarchical env (n_pods > 1, config 5) is the one config
-    shape the port refuses: config 5 itself, and config 3 made
-    hierarchical (config 3 as published builds)."""
+    """Both presets build as published (config 5 as the hierarchical
+    env); what the hierarchical env cannot run is refused in JAX's
+    words: config 3 made hierarchical (the fairness reward) and config 5
+    on the grid observation."""
     import dataclasses
     from rlgpuschedule_tpu_torch.configs import CONFIGS
+    from rlgpuschedule_tpu_torch.env.hier import HierParams
     from rlgpuschedule_tpu_torch.experiment import build_env_params
-    with pytest.raises(NotImplementedError, match=f"{name}.*slice"):
-        build_env_params(dataclasses.replace(CONFIGS[name], n_pods=4))
+    cfg = CONFIGS[name]
+    bad = (dataclasses.replace(cfg, n_pods=4) if name == "a2c-pai-fair"
+           else dataclasses.replace(cfg, obs_kind="grid"))
+    with pytest.raises(ValueError, match="flat pod observations and the "
+                                         "JCT reward"):
+        build_env_params(bad)
+    params = build_env_params(cfg)
     if name == "a2c-pai-fair":
-        params = build_env_params(CONFIGS[name])
         assert (params.reward_kind, params.n_tenants) == ("fair", 8)
+    else:
+        assert isinstance(params, HierParams)
+        assert (params.n_pods, params.pod_sim.n_nodes) == (4, 4)
 
 
 @pytest.mark.parametrize("name", ["gnn-gang-place", "ppo-mlp-preempt"])

@@ -84,12 +84,12 @@ def test_validate_trace_refuses_or_clamps_like_jax():
 def test_unported_trace_sources_are_refused():
     """Every trace source is ported now; what is still refused is a CSV
     source with no file (JAX's error) and the PAI-proxy config made
-    hierarchical (at build, naming its slice). Config 3 itself builds on
-    JAX's windows."""
+    hierarchical (at build, in JAX's words: the fairness reward has no
+    hierarchical form). Config 3 itself builds on JAX's windows."""
     cfg = tconfigs.CONFIGS["a2c-pai-fair"]
     _same(jexp.load_source_trace(jconfigs.CONFIGS["a2c-pai-fair"]),
           texp.load_source_trace(cfg))
-    with pytest.raises(NotImplementedError, match="config-5 slice"):
+    with pytest.raises(ValueError, match="JCT reward"):
         texp.Experiment.build(dataclasses.replace(cfg, n_pods=4),
                               device="cpu")
     exp = texp.Experiment.build(cfg, device="cpu")

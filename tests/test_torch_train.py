@@ -465,7 +465,8 @@ def test_train_cli_refuses_a2c_with_the_slice_named():
 
 @pytest.mark.parametrize("argv", [
     ["--continual", "logs"], ["--async"], ["--mesh=auto"],
-    ["--faults", "storm"], ["--staleness-bound", "4"], ["--pbt"]])
+    ["--faults", "storm"], ["--staleness-bound", "4"],
+    ["--max-rollbacks", "2"]])
 def test_train_cli_refuses_unported_flags_with_the_slice_named(argv):
     with pytest.raises(SystemExit, match=r"waits for .*item \d+"):
         ttrain.main(argv + ["--device", "cpu"])
