@@ -127,8 +127,11 @@ imports nothing of JAX. Phases, each fatal on failure:
     stall vector equals eager ``gate_stalled`` + ``policy_decision``;
     (7) an 8 s soak at 2,000 requests/s through the dispatcher thread,
     50 ms deadlines: every request served or shed (the registry's
-    counts agree), 0 recompiles, 0 dispatch errors, shed rate, p99 per
-    half, drift and the rate achieved printed (steps 3 and 7 also print
+    counts agree), some served in the second half (a server locked out
+    by its admission estimate serves none there), at most 1 % shed (a
+    pause learned as service time sheds thousands), 0 recompiles, 0
+    dispatch errors, shed rate, p99 per half, drift and the rate
+    achieved printed (steps 3 and 7 also print
     the garbage collector's full collections and longest pause);
     (8) ``run_host_path``
     (bucket 256, 300 rounds): the arena arm allocates nothing; (9)
@@ -228,6 +231,36 @@ imports nothing of JAX. Phases, each fatal on failure:
     rlgpuschedule_tpu_torch.evaluate --pbt`` from the population's
     checkpoint in a subprocess, equal to it row for row.
 
+20. The multi-engine router of config 2 at full width (bf16, seeded
+    weights; phase 13's 320-row pool) with its engines sharing the card,
+    each on its own CUDA stream, and config 5 through one engine and the
+    server, each check fatal: (1) ``run_scaleout`` with 1 and 2 engines
+    (sizes 129, 200, 256 for 64 rounds, every arm's engines warmed one
+    after another before its dispatchers start): per-engine rows,
+    occupancy and recompiles (all 0), decisions/s per arm, every request
+    served; (2) a 2-engine router and a lone engine decide phase 4's
+    batches: the actions equal under phase 3's margin rule; (3) a 4 s
+    routed soak at 2,000 requests/s (50 ms deadlines) over 2
+    dispatchers with the autoscale advisor (p99 target 1 ms, hysteresis
+    2) and engine 1 cold at the start: the advisor spins it up under
+    load (its graphs captured while engine 0 replays), it serves rows,
+    every request is served or shed, some in the second half, 0
+    recompiles on both engines; (4) a 4 s chaos soak at 1,000
+    requests/s paced by config 2's fitted trace with ``engine-raise``,
+    ``engine-hang`` and ``engine-slow`` on engine 1: every fault fires,
+    ``submitted == served + shed + failed`` with ``failed == 0``, the
+    hedges and failures printed, 0 recompiles; (5) config 5
+    (``hier-pbt-member``, f32, the first of 8 seeds whose greedy top
+    head routes a row and plays two actions on its own 32-row pool of
+    the env, its policy heads scaled by 300): a graph engine's per-head
+    actions equal an eager engine's on the card and a CPU engine's
+    under phase 3's margin rule, at sizes 5, 17 and 32, and some rows
+    are routed to a pod (the routable rows and routes served printed;
+    a pool where every row plays no-op would hold the top head to one
+    constant action); then ``python -m rlgpuschedule_tpu_torch.serve
+    --config hier-pbt-member --bench --soak 2 --bucket 64`` exits 0 with
+    0 recompiles and every soak request served or shed.
+
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it is the card's name and power limit. Without a CUDA device, or
 without the ``rlgpuschedule_tpu_torch`` package beside it, the script
@@ -270,6 +303,7 @@ NEW_EVAL_WINDOWS = 16
 SERVE_SIZES = (5, 7, 8, 100, 129, 200, 256)   # phase 13's bench
 SERVE_ROUNDS = 48
 SOAK_S, SOAK_RATE, SOAK_DEADLINE_S = 8.0, 2000.0, 0.05
+SOAK_MAX_SHED = 0.01      # of phase 13's soak requests (fatal above)
 HOST_ROUNDS = 300
 CKPT_DRAIN, CKPT_RESAMPLE, CKPT_ITERS = 0.5, 2, 4   # phase 14
 CKPT_FLEET = 64           # serve --ckpt-dir --fleet 64
@@ -294,6 +328,15 @@ HIER_READY = 2            # its exploit/explore cadence
 HIER_POP_ITERS = 6
 HIER_RESUME = (3, 2)      # 3 iterations, a save, 2 more against 5
 HIER_WINDOWS = 16         # phase 19's held-out JCT table
+ROUTER_SIZES = (129, 200, 256)  # phase 20's scale-out request sizes
+ROUTER_ROUNDS = 64
+ROUTER_SOAK_S, ROUTER_RATE = 4.0, 2000.0
+ROUTER_P99_TARGET_MS = 1.0      # low on purpose: the advisor must spin up
+CHAOS_S, CHAOS_RATE = 4.0, 1000.0
+CHAOS_FAULTS = ("engine-raise@20:engine=1,engine-hang@60:engine=1,"
+                "engine-slow@100:engine=1")
+HIER_SERVE_SIZES = (5, 17, 32)
+HIER_SERVE_SEEDS = 8      # phase 20 (5): seeds tried for weights that route
 ROWS = ("policy", "random", "fifo", "sjf", "srtf", "tiresias")
 BASELINES = ("fifo", "sjf", "srtf", "tiresias")
 
@@ -1590,6 +1633,14 @@ def policy_server_phase(torch, dev, eager_latency):
             and errors == 0 and engine.post_warmup_recompiles == 0):
         raise SystemExit("soak: a request was neither served nor shed, or "
                          "a dispatch failed or recompiled")
+    if not soak["served_second_half"]:
+        raise SystemExit("soak: nothing served in the second half (the "
+                         "admission estimate locked the server out)")
+    if soak["shed"] > SOAK_MAX_SHED * soak["requests"]:
+        # sound soaks shed 0-2 of 16,000; a lockout, or a pause learned
+        # as service time, sheds thousands
+        raise SystemExit(f"soak: shed {soak['shed']} of {soak['requests']}"
+                         f" (over {SOAK_MAX_SHED:.0%})")
     server.close()
 
     # (8) the host path: stub engine, both data planes
@@ -2683,6 +2734,327 @@ def hier_pbt_phase(torch, dev):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _margin_ok(torch, got, want, logits, what):
+    """Per head, actions that differ must sit below ``MARGIN`` of the
+    reference's top-two logits (phase 3's rule). Returns the count of
+    differing actions."""
+    import numpy as np
+
+    off = 0
+    for k in (got if isinstance(got, dict) else {None: got}):
+        g = got[k] if k is not None else got
+        w = want[k] if k is not None else want
+        lg = logits[k] if k is not None else logits
+        top2 = torch.topk(lg.float(), 2, -1).values.cpu().numpy()
+        margin = (top2[..., 0] - top2[..., 1])[:g.shape[0]]
+        diff = np.asarray(g) != np.asarray(w)
+        if (diff & (margin >= MARGIN)).any():
+            raise SystemExit(f"{what}: head {k} differs at a margin >= "
+                             f"{MARGIN}")
+        off += int(diff.sum())
+    return off
+
+
+def router_phase(torch, dev):
+    """Phase 20: the multi-engine router on one card, and config 5
+    through one engine and the server."""
+    import numpy as np
+
+    from rlgpuschedule_tpu_torch.configs import CONFIGS
+    from rlgpuschedule_tpu_torch.experiment import (build_env_params,
+                                                    build_policy)
+    from rlgpuschedule_tpu_torch.obs import Registry
+    from rlgpuschedule_tpu_torch.serve import (
+        AutoscaleAdvisor, EngineRouter, InferenceEngine, PolicyServer,
+        ServeFaultInjector, build_request_pool, pad_batch,
+        parse_serve_fault, run_chaos_soak, run_scaleout, run_soak)
+    from rlgpuschedule_tpu_torch.serve.fleet import fleet_windows
+    from rlgpuschedule_tpu_torch.traces.fit import domain_fit
+
+    cfg = CONFIGS[CONFIG]
+    env_params = build_env_params(cfg)
+    policy = build_policy(cfg, env_params, device=dev)
+    _, traces = fleet_windows(cfg, 64, device=dev)
+    pool = build_request_pool(policy, env_params, traces, steps=4)
+    del traces
+    obs = np.stack([o for o, _ in pool])
+    mask = np.stack([m for _, m in pool])
+
+    # (1) scale-out: 1 against 2 engines sharing the card
+    so = run_scaleout(policy, env_params, pool, max_bucket=256,
+                      rounds=ROUTER_ROUNDS, request_sizes=ROUTER_SIZES,
+                      engine_counts=(1, 2), device=dev)
+    for arm in so["arms"]:
+        _line("router_scaleout", **arm, caveat=so["caveat"])
+        if (arm["served"] != arm["requests"]
+                or sum(arm["per_engine_rows"]) != arm["served"]
+                or any(arm["per_engine_recompiles"])
+                or not all(arm["per_engine_rows"])):
+            raise SystemExit(f"scale-out arm {arm['engines']}: a request "
+                             f"unserved, an idle engine or a recompile")
+
+    # (2) routed actions against one engine on the same batches
+    single = InferenceEngine(policy, max_bucket=256, device=dev)
+    router = EngineRouter(policy, env_params, max_bucket=256,
+                          registry=Registry(), n_engines=2, device=dev)
+    for e in (single, router):
+        e.warmup(obs[0], mask[0])
+    differ = 0
+    for sizes in BUCKETS.values():
+        for n in sizes:
+            for shift in (0, 1):      # each batch through both engines
+                rows = (np.arange(n) * 7 + shift) % obs.shape[0]
+                a_r, b = router.decide(obs[rows], mask[rows])
+                a_s, _ = single.decide(obs[rows], mask[rows])
+                with torch.no_grad():
+                    logits, _ = single.policy(
+                        torch.from_numpy(pad_batch(obs[rows], b)).to(dev),
+                        torch.from_numpy(pad_batch(mask[rows], b,
+                                                   True)).to(dev))
+                differ += _margin_ok(torch, a_r, a_s, logits,
+                                     f"routed {n} requests")
+    _line("router_vs_one_engine", rows_differing_below_margin=differ,
+          per_engine_rows=[s.rows for s in router.stats()],
+          recompiles=router.per_engine_recompiles())
+    if not all(s.rows for s in router.stats()) or any(
+            router.per_engine_recompiles()):
+        raise SystemExit("routed decisions: an engine idle or recompiling")
+    del router, single
+
+    # (3) the routed soak with the advisor: engine 1 spun up under load
+    reg = Registry()
+    router = EngineRouter(policy, env_params, max_bucket=256, registry=reg,
+                          n_engines=2, device=dev)
+    router.set_active(1)
+    router.warmup(obs[0], mask[0])              # engine 0 only
+    cold = router.engines[1].warmed_buckets
+    advisor = AutoscaleAdvisor(reg, n_max=2, initial=1,
+                               p99_target_ms=ROUTER_P99_TARGET_MS,
+                               hysteresis=2)
+    server = PolicyServer(router, registry=reg)
+    server.start(dispatchers=2)
+    try:
+        with _GcPauses() as gcp:
+            soak = run_soak(server, pool, duration_s=ROUTER_SOAK_S,
+                            rate_hz=ROUTER_RATE, deadline_s=SOAK_DEADLINE_S,
+                            router=router, advisor=advisor)
+    finally:
+        server.stop()
+    errors = reg.counter("serve_dispatch_errors_total").value
+    submitted = reg.counter("serve_requests_total").value
+    _line("router_autoscale_soak", **soak, **gcp.fields(),
+          engine1_cold_at_start=cold == (),
+          engine1_warmed=list(router.engines[1].warmed_buckets),
+          advisor_desired=advisor.desired, dispatch_errors=errors,
+          registry_requests=submitted)
+    if not (soak["served"] + soak["shed"] == soak["requests"] == submitted
+            and errors == 0 and soak["served_second_half"]
+            and soak["autoscale_resizes"] and cold == ()
+            and soak["per_engine_rows"][1] > 0
+            and not any(soak["per_engine_recompiles"])):
+        raise SystemExit("autoscale soak: a request lost, a dispatch "
+                         "failed, no spin-up, or a recompile")
+    server.close()
+    del router, server
+
+    # (4) the chaos soak: faults on engine 1, the hedge absorbs them
+    reg = Registry()
+    specs = [parse_serve_fault(x) for x in CHAOS_FAULTS.split(",")]
+    router = EngineRouter(policy, env_params, max_bucket=256, registry=reg,
+                          n_engines=2, device=dev,
+                          fault_injector=ServeFaultInjector(specs))
+    router.warmup(obs[0], mask[0])
+    server = PolicyServer(router, registry=reg)
+    server.start(dispatchers=2)
+    try:
+        chaos = run_chaos_soak(server, pool, fit=domain_fit(cfg),
+                               duration_s=CHAOS_S, rate_hz=CHAOS_RATE,
+                               deadline_s=SOAK_DEADLINE_S, router=router,
+                               seed=cfg.seed)
+    finally:
+        server.stop()
+    errors = reg.counter("serve_dispatch_errors_total").value
+    _line("router_chaos_soak", faults=CHAOS_FAULTS,
+          fired=[x.fired for x in specs], dispatch_errors=errors,
+          **{k: v for k, v in chaos.items() if k != "slo"},
+          slo_alerting={k: v["alerting"] for k, v in chaos["slo"].items()})
+    if not (chaos["conservation_ok"] and chaos["failed"] == 0
+            and all(x.fired for x in specs) and errors == 0
+            and chaos["registry_shed_total"] == chaos["shed"]
+            and not any(chaos["per_engine_recompiles"])):
+        raise SystemExit("chaos soak: conservation broken, a request "
+                         "failed, a fault never fired, or a recompile")
+    server.close()
+    del router, server, policy
+
+    # (5) config 5 through one engine: graph, eager and CPU at f32, TF32
+    # off (phase 7's switches, put back after)
+    old = _flags(torch, tf32=False, deterministic=True)
+    try:
+        _hier_serve(torch, dev)
+    finally:
+        _restore_flags(torch, old)
+
+
+def _hier_serve(torch, dev):
+    """Phase 20 (5): config 5 through one engine and the serve CLI."""
+    import copy
+
+    from rlgpuschedule_tpu_torch.configs import CONFIGS
+    from rlgpuschedule_tpu_torch.decision import policy_decision
+    from rlgpuschedule_tpu_torch.experiment import (build_env_params,
+                                                    build_policy)
+    from rlgpuschedule_tpu_torch.serve import (InferenceEngine,
+                                               build_request_pool,
+                                               stack_requests)
+    from rlgpuschedule_tpu_torch.serve.fleet import fleet_windows
+
+    hcfg = CONFIGS[HIER_CONFIG]
+    hparams = build_env_params(hcfg)
+    _, htraces = fleet_windows(hcfg, hcfg.n_envs, device=dev)
+    # the first seed from the config's whose greedy top head routes some
+    # row of its pool and plays more than one action there: a pool where
+    # every row plays no-op would hold the top head to one constant
+    # action, and the margin rule would pass a wrong router head (the
+    # orthogonal init goes through LAPACK, so which seed routes differs
+    # between machines)
+    for seed in range(hcfg.seed, hcfg.seed + HIER_SERVE_SEEDS):
+        hpolicy = build_policy(hcfg, hparams, dtype=torch.float32,
+                               device=dev, seed=seed)
+        with torch.no_grad():
+            # heads scaled up from their 0.01-gain init, as the parity
+            # tests do
+            hpolicy.top_policy.weight.mul_(300)
+            hpolicy.pod_policy.weight.mul_(300)
+        hpool = build_request_pool(hpolicy, hparams, htraces, steps=7)
+        with torch.no_grad():
+            top = policy_decision(
+                hpolicy,
+                {k: torch.from_numpy(v).to(dev) for k, v in
+                 stack_requests([o for o, _ in hpool]).items()},
+                {k: torch.from_numpy(v).to(dev) for k, v in
+                 stack_requests([m for _, m in hpool]).items()},
+            )["top"].cpu().numpy()
+        if (top < hparams.n_pods).any() and len(set(top.tolist())) > 1:
+            break
+    else:
+        raise SystemExit(f"config 5: no seed of {HIER_SERVE_SEEDS} routes "
+                         f"a row of its pool")
+    del htraces
+    engines = {
+        "graph": InferenceEngine(hpolicy, max_bucket=64, device=dev,
+                                 env_params=hparams),
+        "eager": InferenceEngine(hpolicy, max_bucket=64, device=dev,
+                                 env_params=hparams, eager=True),
+        "cpu": InferenceEngine(copy.deepcopy(hpolicy).cpu(), max_bucket=64,
+                               device="cpu", env_params=hparams)}
+    for e in engines.values():
+        e.warmup(*hpool[0])
+    differ = {"eager": 0, "cpu": 0}
+    routes = routable = 0
+    for n in HIER_SERVE_SIZES:
+        rows = [hpool[(i * 5) % len(hpool)] for i in range(n)]
+        ho = stack_requests([o for o, _ in rows])
+        hm = stack_requests([m for _, m in rows])
+        got = {k: e.decide(ho, hm)[0] for k, e in engines.items()}
+        with torch.no_grad():
+            logits, _ = engines["cpu"].policy(
+                {k: torch.from_numpy(v) for k, v in ho.items()},
+                {k: torch.from_numpy(v) for k, v in hm.items()})
+        for other in differ:
+            differ[other] += _margin_ok(torch, got["graph"], got[other],
+                                        logits, f"config 5 graph vs "
+                                        f"{other}, {n} requests")
+        routes += int((got["graph"]["top"] < hparams.n_pods).sum())
+        routable += int(hm["top"][:, :-1].any(-1).sum())
+    _line("hier_serve_engine", seed=seed, pool_rows=len(hpool),
+          sizes=list(HIER_SERVE_SIZES), graphs=engines["graph"].graphs,
+          differing_below_margin=differ, routable_rows=routable,
+          routes_served=routes,
+          recompiles=engines["graph"].post_warmup_recompiles)
+    if not engines["graph"].graphs or engines["graph"].post_warmup_recompiles:
+        raise SystemExit("config 5: no graph, or a recompile")
+    if not routes:
+        # every row no-op: the top head's comparison would hold one
+        # constant action
+        raise SystemExit(f"config 5: no row routed ({routable} could)")
+    lines, err, wall = _run_cli(
+        "rlgpuschedule_tpu_torch.serve",
+        ["--config", HIER_CONFIG, "--bench", "--bucket", "64", "--soak",
+         "2", "--rate", "1000", "--deadline-ms", "50"])
+    (line,) = lines
+    b, sk = line["bench"], line["soak"]
+    _line("hier_serve_cli", wall_s=wall, graphs=b["graphs"],
+          bench_p50_ms=b["latency_p50_ms"], bench_p99_ms=b["latency_p99_ms"],
+          bench_decisions_per_s=b["decisions_per_s"],
+          bench_recompiles=b["post_warmup_recompiles"],
+          soak_requests=sk["requests"], soak_served=sk["served"],
+          soak_shed=sk["shed"], soak_p99_ms=[sk["p99_first_half_ms"],
+                                             sk["p99_second_half_ms"]],
+          soak_recompiles=sk["post_warmup_recompiles"])
+    if (b["post_warmup_recompiles"] or not b["graphs"]
+            or sk["post_warmup_recompiles"] or sk["dispatch_errors"]
+            or sk["served"] + sk["shed"] != sk["requests"]
+            or not sk["served_second_half"]):
+        raise SystemExit(f"config 5 serve CLI: {b} {sk}")
+
+
+def decide_latency(torch, tree: str) -> dict:
+    """Graph ``decide`` latency (ms) of one tree's engine: config 2 at
+    full width (bf16, seeded), phase 13's sizes, 300 calls a bucket; and
+    phase 13's host-path bench (decisions/s of both data planes over the
+    stub engine, bucket 256) on the same pool; one JSON line. Compares
+    trees on one card, one process per run (the tree's package must be
+    the one imported)::
+
+        python3 -c "import sys, torch; sys.path.insert(0, '.');
+            import chip_smoke as cs; cs.decide_latency(torch, TREE)"
+    """
+    import numpy as np
+
+    sys.path.insert(0, os.path.abspath(tree))
+    import rlgpuschedule_tpu_torch
+    from rlgpuschedule_tpu_torch.configs import CONFIGS
+    from rlgpuschedule_tpu_torch.experiment import (build_env_params,
+                                                    build_policy)
+    from rlgpuschedule_tpu_torch.serve import (InferenceEngine,
+                                               build_request_pool,
+                                               run_host_path)
+    from rlgpuschedule_tpu_torch.serve.fleet import fleet_windows
+
+    if not rlgpuschedule_tpu_torch.__file__.startswith(
+            os.path.abspath(tree)):
+        raise SystemExit(f"imported {rlgpuschedule_tpu_torch.__file__}, "
+                         f"not {tree}'s package")
+    cfg = CONFIGS[CONFIG]
+    env_params = build_env_params(cfg)
+    policy = build_policy(cfg, env_params, device="cuda")
+    _, traces = fleet_windows(cfg, 64, device="cuda")
+    pool = build_request_pool(policy, env_params, traces, steps=4)
+    obs = np.stack([o for o, _ in pool])
+    mask = np.stack([m for _, m in pool])
+    engine = InferenceEngine(policy, max_bucket=256, device="cuda")
+    engine.warmup(obs[0], mask[0])
+    out = {"tree": tree}
+    for bucket, sizes in BUCKETS.items():
+        lat = []
+        for _ in range(100):
+            for n in sizes:
+                rows = np.arange(n) * 7 % obs.shape[0]
+                o, m = obs[rows], mask[rows]
+                t0 = time.perf_counter()
+                engine.decide(o, m)
+                lat.append((time.perf_counter() - t0) * 1e3)
+        out[f"p50_{bucket}"] = float(np.percentile(lat, 50))
+        out[f"p99_{bucket}"] = float(np.percentile(lat, 99))
+    hp = run_host_path(pool, max_bucket=256, rounds=HOST_ROUNDS)
+    for arm in hp["arms"]:
+        out[f"host_{arm['data_plane']}_decisions_per_s"] = arm[
+            "decisions_per_s"]
+    _line("decide_latency", **out)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2733,6 +3105,7 @@ def main() -> int:
     timed(options_phase)
     timed(fused_phase)
     timed(hier_pbt_phase)
+    timed(router_phase)
     _line("done", total_s=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

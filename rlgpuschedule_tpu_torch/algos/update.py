@@ -22,6 +22,8 @@ from typing import Any, Callable, Sequence
 
 import torch
 
+from ..tree import tree_map
+
 # grad_step(state, minibatch_data) -> (state, stats): one optimizer update
 # on one minibatch; ``stats`` is a tuple of scalar tensors, which the
 # engine stacks to [n_epochs, n_minibatches].
@@ -74,18 +76,6 @@ def validate_update_geometry(n_epochs: int, n_minibatches: int,
             f"group size ({n_devices}) to shard the trajectory batch")
     return resolve_geometry(n_epochs, n_minibatches, minibatch_size,
                             n_steps * n_envs)
-
-
-def tree_map(fn: Callable[..., torch.Tensor], tree: Any, *rest: Any) -> Any:
-    """``fn`` on every tensor of a nested tuple/NamedTuple/dict of
-    tensors; with ``rest``, on the matching leaves of every tree."""
-    if isinstance(tree, tuple):
-        out = [tree_map(fn, *xs) for xs in zip(tree, *rest)]
-        return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
-    return fn(tree, *rest)
 
 
 def tree_stack(trees: Sequence[Any]) -> Any:

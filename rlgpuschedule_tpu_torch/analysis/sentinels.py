@@ -13,10 +13,11 @@ captured on the card (an eager build on the CPU), so
   capture or CPU build). It is not a torch compile listener;
 - :func:`no_implicit_transfers` is ``torch.cuda.set_sync_debug_mode(
   "error")`` scoped as a context: inside it, any operation that makes
-  the host wait for the card (``.item()``, a blocking device-to-host
-  copy, a pageable upload) raises, while ``non_blocking`` copies from
-  pinned memory and graph replays stay legal. Explicit downloads belong
-  outside it, as ``jax.device_get`` is outside the transfer guard.
+  the host wait for the card (``.item()``, a blocking copy either way,
+  ``Stream.synchronize``) raises, while ``non_blocking`` copies, graph
+  replays and waits on a ``torch.cuda.Event`` stay legal. The mode is
+  process-wide, so the guard is refcounted across threads: the first
+  thread in sets it, the last one out restores it.
 """
 from __future__ import annotations
 
@@ -102,24 +103,40 @@ def assert_no_recompiles(what: str = "region"):
             f"warmup never saw)")
 
 
+# the refcounted sync guard: threads inside it, and the mode it replaced
+_guard_lock = threading.Lock()
+_guard_depth = 0
+_guard_prev = 0
+
+
 @contextlib.contextmanager
 def no_implicit_transfers(device: "torch.device | str" = "cuda"):
     """Inside, a host<->device synchronization on ``device`` raises.
 
     On a CUDA device this is ``torch.cuda.set_sync_debug_mode("error")``
-    for the scope, restored on exit. Unlike ``jax.transfer_guard`` the
-    mode is PROCESS-WIDE, not thread-local: while one thread is inside
-    the guard, a synchronizing call on any other thread raises too. So
-    keep one dispatching thread per engine and do no device work on
-    other threads while it serves (the serving stack does exactly
-    that). On the CPU there is no device to wait for: the context does
-    nothing, on purpose."""
+    for the scope. Unlike ``jax.transfer_guard`` the mode is
+    PROCESS-WIDE, not thread-local: while one thread is inside the
+    guard, a synchronizing call on any other thread raises too. Several
+    dispatcher threads may hold the guard at once: it is refcounted, so
+    the first entry sets the mode and the last exit restores the one it
+    found, and no thread turns it off under another. Code that runs
+    beside serving dispatchers must therefore make no blocking call
+    either (the engine waits on events and copies non-blocking). On the
+    CPU there is no device to wait for: the context does nothing, on
+    purpose."""
+    global _guard_depth, _guard_prev
     if torch.device(device).type != "cuda":
         yield
         return
-    prev = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode("error")
+    with _guard_lock:
+        if _guard_depth == 0:
+            _guard_prev = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+        _guard_depth += 1
     try:
         yield
     finally:
-        torch.cuda.set_sync_debug_mode(prev)
+        with _guard_lock:
+            _guard_depth -= 1
+            if _guard_depth == 0:
+                torch.cuda.set_sync_debug_mode(_guard_prev)

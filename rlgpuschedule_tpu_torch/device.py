@@ -21,3 +21,26 @@ def resolve_device(device: "torch.device | str | None" = None
             "torch.cuda.is_available() is False; pass device='cpu' "
             "(--device cpu on the command line) to run on the CPU")
     return dev
+
+
+def serve_devices(n: "int | None" = None,
+                  device: "torch.device | str | None" = None
+                  ) -> "list[torch.device]":
+    """The devices of ``n`` serving engines: round-robin over the visible
+    devices of ``device``'s type (``cuda:0``, ``cuda:1``, ... back to
+    ``cuda:0``; the CPU's one device for ``cpu``, or the one device an
+    index names); ``n=None`` means one engine per visible device. The
+    counterpart of the JAX package's ``parallel.mesh.serve_devices``,
+    which gives one engine per data-axis device and refuses more
+    engines than devices: here engines beyond the device count share a
+    device, so N engines on one H100 share ``cuda:0``, each with its own
+    stream, graphs, buffers and policy copy."""
+    dev = resolve_device(device)
+    visible = ([torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+               if dev.type == "cuda" and dev.index is None else [dev])
+    if n is None:
+        n = len(visible)
+    if n < 1:
+        raise ValueError(f"n_engines={n} must be >= 1")
+    return [visible[i % len(visible)] for i in range(n)]

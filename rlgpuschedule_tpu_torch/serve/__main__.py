@@ -9,12 +9,24 @@ Modes, composable in one invocation (at least one is required):
   steady-state contract, zero post-warmup recompiles across request
   sizes (``--request-sizes``, default three sizes inside ``--bucket``).
 - ``--soak SECONDS``: paced load (``--rate``, default 200/s) through the
-  live dispatcher thread, with ``--deadline-ms`` shedding and
-  ``--adaptive-wait``: first-half against second-half p99, shed rate.
+  live dispatcher threads, with ``--deadline-ms`` shedding,
+  ``--adaptive-wait`` and, over ``--engines N``, ``--autoscale`` (the
+  advisor resizes the router live) or ``--chaos-faults SPEC`` (engine
+  faults injected mid-run, arrivals paced by the config's fitted trace,
+  every request served, shed or failed: ``failed`` must be 0):
+  first-half against second-half p99, shed rate.
+- ``--scaleout``: decisions/s and shed rate, 1 engine against
+  ``--engines`` routed engines on the same request stream.
 - ``--host-path``: the data-plane bench, a zero-work stub engine
   isolating submit/coalesce/seal/scatter, legacy plane against arena
   plane, the arena's steady-state numpy allocations counted (must be 0).
 - ``--fleet N``: greedy replay against N seeded simulated clusters.
+
+``--engines N`` serves every mode but ``--fleet`` through the
+:class:`.router.EngineRouter` (N engines, least-loaded dispatch, one
+labeled sentinel series per engine). The engines take their devices
+round-robin over the visible ones, so on one card they share it; the
+reports say so.
 
 The weights come from a checkpoint of the port's ``train``
 (``--ckpt-dir``, at ``--ckpt-step`` or the newest step that restores),
@@ -29,14 +41,12 @@ spans) and a ``metrics.prom`` snapshot. The device is ``cuda`` unless
 block of the config.
 
 Refused with ``NotImplementedError`` naming their ``ROADMAP.md`` item:
-the router (``--engines`` > 1, ``--scaleout``, ``--autoscale``,
-``--chaos-faults``), the network front door (``--frontend-port``,
-``--wire-requests``), the flywheel (``--flight-log``, ``--promote``,
-``--promote-noise``) and fault-regime fleet replays
-(``--fleet-regime``). A hierarchical config (``n_pods > 1``, config 5)
-runs ``--fleet`` only: the engine and the policy server take one
-observation row per request, and serving the hierarchical policy's
-dict observations waits for the serving item (22). From a population's
+the network front door (``--frontend-port``, ``--wire-requests``), the
+flywheel (``--flight-log``, ``--promote``, ``--promote-noise``) and
+fault-regime fleet replays (``--fleet-regime``). A hierarchical config
+(``n_pods > 1``, config 5) is served through one engine (dict
+observations, per-head actions); ``--engines > 1`` with it exits with
+the mode table's refusal, in JAX's words. From a population's
 checkpoint the fittest member is served.
 
 Example::
@@ -56,22 +66,24 @@ import torch
 
 from ..checkpoint import Checkpointer
 from ..cli import add_config_flags, check_source_jobs, config_overrides
-from ..configs import CONFIGS, repro_tuple
+from ..configs import (CONFIGS, ModeCombinationError, repro_tuple,
+                       validate_mode_combination)
 from ..device import resolve_device
 from ..experiment import build_env_params, build_policy, restore_policy
 from ..models import load_npz
 from ..obs import EventBus, Registry, Tracer, serve_http
 from ..obs.trace import NULL_TRACER
 from .batching import PolicyServer
-from .bench import build_request_pool, run_bench, run_host_path, run_soak
+from .bench import (build_request_pool, run_bench, run_chaos_soak,
+                    run_host_path, run_scaleout, run_soak)
 from .engine import InferenceEngine
 from .fleet import fleet_replay, fleet_windows
+from .router import (AutoscaleAdvisor, EngineRouter, ServeFaultInjector,
+                     parse_serve_fault)
 
 # flags of the JAX package's CLI this slice refuses, and what they wait
 # for
 DEFERRED = {
-    **dict.fromkeys(("scaleout", "autoscale", "chaos_faults"),
-                    "the router slice (ROADMAP.md queue 1, item 22)"),
     **dict.fromkeys(("frontend_port", "wire_requests"),
                     "the network front door slice (ROADMAP.md queue 1, "
                     "item 22)"),
@@ -86,8 +98,9 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m rlgpuschedule_tpu_torch.serve",
         description="Greedy policy serving on the GPU: the "
-                    "continuous-batching bench, soak and host-path bench, "
-                    "and fleet replay.")
+                    "continuous-batching bench, soak, scale-out and "
+                    "host-path bench over one engine or a router of "
+                    "several, and fleet replay.")
     p.add_argument("--config", default="ppo-mlp-synth64",
                    choices=sorted(CONFIGS))
     p.add_argument("--seed", type=int, default=None,
@@ -121,12 +134,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pool-steps", type=int, default=4,
                    help="env decision steps that build the request pool")
     p.add_argument("--soak", type=float, default=None, metavar="SECONDS",
-                   help="paced load through the live dispatcher thread")
+                   help="paced load through the live dispatcher threads")
     p.add_argument("--rate", type=float, default=None, metavar="HZ",
                    help="soak arrival rate (default 200/s)")
     p.add_argument("--deadline-ms", type=float, default=None,
-                   help="soak: per-request latency SLO; requests that "
-                        "cannot meet it are shed with a typed rejection")
+                   help="per-request latency SLO for --soak/--scaleout "
+                        "submissions; requests that cannot meet it are "
+                        "shed with a typed rejection")
     p.add_argument("--adaptive-wait", action="store_true",
                    help="learn the partial-bucket hold from the arrival "
                         "rate and the head-of-line deadline")
@@ -151,12 +165,31 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--trace-spans", action="store_true",
                    help="record the request lifecycle as spans on the "
                         "event bus (needs --obs-dir)")
-    # the JAX CLI's flags that later slices bring
+    # the router
     p.add_argument("--engines", type=int, default=1,
-                   help="routed engines (only 1 in this slice)")
-    p.add_argument("--scaleout", action="store_true")
-    p.add_argument("--autoscale", action="store_true")
-    p.add_argument("--chaos-faults", default=None, metavar="SPEC")
+                   help="serve through N routed engines (round-robin over "
+                        "the visible devices: N engines share one card; "
+                        "least-loaded dispatch; N=1 keeps the single "
+                        "engine). Refused for hierarchical configs")
+    p.add_argument("--scaleout", action="store_true",
+                   help="decisions/s + shed rate vs engine count: "
+                        "isolated 1-engine and --engines-engine arms "
+                        "serving the same stream")
+    p.add_argument("--autoscale", action="store_true",
+                   help="with --soak: run the AutoscaleAdvisor loop (SLO "
+                        "gauges -> desired engine count, applied live by "
+                        "the router with hysteresis)")
+    p.add_argument("--chaos-faults", default=None,
+                   metavar="SPEC[,SPEC...]",
+                   help="with --soak: inject engine faults mid-run "
+                        "(kind@N[:engine=E], kind in engine-raise / "
+                        "engine-hang / engine-slow; N = router dispatch "
+                        "sequence, fires on the target engine's first "
+                        "dispatch >= N). The soak paces arrivals by the "
+                        "config's fitted trace arrival process and "
+                        "reports request conservation; needs "
+                        "--engines >= 2")
+    # the JAX CLI's flags that later slices bring
     p.add_argument("--frontend-port", type=int, default=None)
     p.add_argument("--wire-requests", type=int, default=None)
     p.add_argument("--flight-log", default=None, metavar="DIR")
@@ -166,37 +199,37 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _check(args) -> "tuple[int, ...] | None":
-    """Refuse the deferred flags and the silent no-ops; returns the
-    parsed ``--request-sizes``."""
+def _check(args) -> "tuple[tuple[int, ...] | None, list | None]":
+    """Refuse the deferred flags and the silent no-ops (the router's
+    checks are JAX's, word for word); returns the parsed
+    ``--request-sizes`` and ``--chaos-faults``."""
     for dest, what in DEFERRED.items():
         value = getattr(args, dest)
         if value is not None and value is not False:   # 0 is a value
             flag = "--" + dest.replace("_", "-")
             raise NotImplementedError(f"{flag} is not in the PyTorch port "
                                       f"yet: it waits for {what}")
-    if args.engines != 1:
-        if args.engines < 1:
-            sys.exit("--engines must be >= 1")
-        raise NotImplementedError(
-            "--engines > 1 is not in the PyTorch port yet: it waits for "
-            "the router slice (ROADMAP.md queue 1, item 22)")
     if args.weights and args.ckpt_dir:
         sys.exit("--weights and --ckpt-dir both name the served weights; "
                  "pass one")
     if args.ckpt_step is not None and not args.ckpt_dir:
         sys.exit("--ckpt-step picks a step of --ckpt-dir; pass --ckpt-dir "
                  "with it")
-    if not (args.bench or args.soak is not None or args.host_path
-            or args.fleet is not None):
-        sys.exit("nothing to do: pass --bench, --soak S, --host-path "
-                 "and/or --fleet N")
+    if not (args.bench or args.soak is not None or args.scaleout
+            or args.host_path or args.fleet is not None):
+        sys.exit("nothing to do: pass --bench, --soak S, --scaleout, "
+                 "--host-path and/or --fleet N")
     if args.fleet is not None and args.fleet <= 0:
         sys.exit("--fleet must be a positive cluster count")
     if args.max_steps is not None and args.max_steps <= 0:
         sys.exit("--max-steps must be positive")
     if args.bucket <= 0 or (args.bucket & (args.bucket - 1)):
         sys.exit("--bucket must be a positive power of two")
+    if args.engines < 1:
+        sys.exit("--engines must be >= 1")
+    if args.scaleout and args.engines < 2:
+        sys.exit("--scaleout compares 1 engine vs --engines; pass "
+                 "--engines >= 2 with it")
     if args.soak is not None and args.soak <= 0:
         sys.exit("--soak must be a positive duration in seconds")
     if args.rate is not None and args.soak is None:
@@ -204,11 +237,46 @@ def _check(args) -> "tuple[int, ...] | None":
                  "(refusing the silent no-op)")
     if args.rate is not None and args.rate <= 0:
         sys.exit("--rate must be positive requests/s")
-    if args.deadline_ms is not None and args.soak is None:
-        sys.exit("--deadline-ms attaches SLOs to --soak submissions; pass "
-                 "--soak S with it (refusing the silent no-op)")
+    if args.autoscale and args.soak is None:
+        sys.exit("--autoscale runs the advisor loop during --soak; "
+                 "pass --soak S with it (refusing the silent no-op)")
+    if args.autoscale and args.engines < 2:
+        sys.exit("--autoscale resizes a multi-engine router; pass "
+                 "--engines >= 2 with it (one engine cannot scale)")
+    chaos_specs = None
+    if args.chaos_faults is not None:
+        if args.soak is None:
+            sys.exit("--chaos-faults injects engine faults during "
+                     "--soak; pass --soak S with it (refusing the "
+                     "silent no-op)")
+        if args.engines < 2:
+            sys.exit("--chaos-faults needs --engines >= 2: the retry "
+                     "hedge moves a failed dispatch to a DIFFERENT "
+                     "healthy engine (one engine has nowhere to go)")
+        if args.autoscale:
+            sys.exit("--chaos-faults runs the chaos soak, which does "
+                     "not drive the autoscale loop; drop --autoscale "
+                     "(refusing the silent no-op)")
+        try:
+            chaos_specs = [parse_serve_fault(s)
+                           for s in args.chaos_faults.split(",") if s]
+        except ValueError as e:
+            sys.exit(str(e))
+        if not chaos_specs:
+            sys.exit("--chaos-faults got no specs")
+        bad_engine = [s for s in chaos_specs
+                      if not 0 <= s.engine < args.engines]
+        if bad_engine:
+            sys.exit(f"--chaos-faults targets engine(s) "
+                     f"{sorted({s.engine for s in bad_engine})} outside "
+                     f"[0, {args.engines})")
     if args.deadline_ms is not None and args.deadline_ms <= 0:
         sys.exit("--deadline-ms must be positive")
+    if (args.deadline_ms is not None and args.soak is None
+            and not args.scaleout):
+        sys.exit("--deadline-ms attaches SLOs to --soak/--scaleout "
+                 "submissions; pass one of them (refusing the silent "
+                 "no-op)")
     if args.host_rounds <= 0:
         sys.exit("--host-rounds must be positive")
     if args.pool_steps < 0:
@@ -217,7 +285,7 @@ def _check(args) -> "tuple[int, ...] | None":
         sys.exit("--trace-spans records spans on the event bus; pass "
                  "--obs-dir with it (refusing the silent no-op)")
     if args.request_sizes is None:
-        return None
+        return None, chaos_specs
     if not args.bench:
         sys.exit("--request-sizes configures --bench (refusing the silent "
                  "no-op)")
@@ -230,23 +298,21 @@ def _check(args) -> "tuple[int, ...] | None":
     too_big = [s for s in sizes if s > args.bucket]
     if too_big:
         sys.exit(f"--request-sizes {too_big} exceed --bucket {args.bucket}")
-    return sizes
+    return sizes, chaos_specs
 
 
 def main(argv: "list[str] | None" = None) -> dict:
     args = build_parser().parse_args(argv)
-    sizes = _check(args)
+    sizes, chaos_specs = _check(args)
     cfg = dataclasses.replace(CONFIGS[args.config], **config_overrides(args))
+    try:
+        validate_mode_combination({"router": args.engines > 1,
+                                   "hier": cfg.n_pods > 1})
+    except ModeCombinationError as e:
+        sys.exit(str(e))
     check_source_jobs(args, cfg)
     dev = resolve_device(args.device)
     env_params = build_env_params(cfg)
-    hier = cfg.n_pods > 1
-    if hier and (args.bench or args.soak is not None or args.host_path):
-        raise NotImplementedError(
-            "serving a hierarchical policy (n_pods > 1) through the engine "
-            "and the policy server (--bench/--soak/--host-path) is not in "
-            "the PyTorch port yet: it waits for the serving item "
-            "(ROADMAP.md queue 1, item 22); --fleet N replays it")
     policy = build_policy(cfg, env_params, device=dev)
     repro = repro_tuple(cfg, ckpt_dir=args.ckpt_dir)
     if args.ckpt_dir:
@@ -280,12 +346,26 @@ def main(argv: "list[str] | None" = None) -> dict:
             scraper = serve_http(registry, port=args.metrics_port)
             print(f"metrics scrape endpoint: {scraper.url}",
                   file=sys.stderr)
-        engine = None if hier else InferenceEngine(
-            policy, max_bucket=args.bucket, device=dev,
-            env_params=env_params, registry=registry, bus=bus,
-            tracer=tracer)
+        injector = (ServeFaultInjector(chaos_specs, bus=bus)
+                    if chaos_specs is not None else None)
+        if args.engines > 1:
+            engine = EngineRouter(policy, env_params, max_bucket=args.bucket,
+                                  registry=registry, bus=bus, tracer=tracer,
+                                  n_engines=args.engines, device=dev,
+                                  fault_injector=injector)
+            print(f"engine router: {args.engines} engines on "
+                  f"{[str(e.device) for e in engine.engines]}"
+                  + (" (CPU: dispatch serialized)"
+                     if engine.serialized_dispatch() else ""),
+                  file=sys.stderr)
+        else:
+            engine = InferenceEngine(policy, max_bucket=args.bucket,
+                                     device=dev, env_params=env_params,
+                                     registry=registry, bus=bus,
+                                     tracer=tracer)
         pool = None
-        if args.bench or args.soak is not None or args.host_path:
+        if (args.bench or args.soak is not None or args.scaleout
+                or args.host_path):
             _, traces = fleet_windows(cfg, cfg.n_envs, device=dev)
             pool = build_request_pool(policy, env_params, traces,
                                       steps=args.pool_steps)
@@ -304,7 +384,24 @@ def main(argv: "list[str] | None" = None) -> dict:
                   f"recompiles: {b['post_warmup_recompiles']}",
                   file=sys.stderr)
         if args.soak is not None:
-            report["soak"] = _soak(args, engine, pool, registry, tracer, bus)
+            report["soak"] = _soak(args, cfg, engine, pool, registry,
+                                   tracer, bus, chaos_specs)
+        if args.scaleout:
+            so = report["scaleout"] = run_scaleout(
+                policy, env_params, pool, max_bucket=args.bucket,
+                rounds=args.rounds, request_sizes=sizes,
+                engine_counts=(1, args.engines),
+                deadline_s=(args.deadline_ms / 1e3
+                            if args.deadline_ms is not None else None),
+                device=dev)
+            for arm in so["arms"]:
+                print(f"scaleout[{arm['engines']} engine(s)]: "
+                      f"{arm['decisions_per_s']:.0f} decisions/s, shed "
+                      f"{arm['shed_rate']:.1%}, rows/engine "
+                      f"{arm['per_engine_rows']}, recompiles "
+                      f"{arm['per_engine_recompiles']}", file=sys.stderr)
+            if so["caveat"]:
+                print(f"scaleout caveat: {so['caveat']}", file=sys.stderr)
         if args.host_path:
             hp = report["host_path"] = run_host_path(
                 pool, max_bucket=args.bucket, rounds=args.host_rounds)
@@ -349,21 +446,35 @@ def main(argv: "list[str] | None" = None) -> dict:
     return report
 
 
-def _soak(args, engine, pool, registry, tracer, bus) -> dict:
-    """``--soak``: every bucket warmed, then paced load through the
-    dispatcher thread."""
+def _soak(args, cfg, engine, pool, registry, tracer, bus,
+          chaos_specs) -> dict:
+    """``--soak``: every bucket of every engine warmed, then paced load
+    through one dispatcher thread per engine (the autoscale loop or the
+    chaos soak over a router)."""
+    from ..traces.fit import domain_fit
     obs0, mask0 = pool[0]
     engine.warmup(obs0, mask0)
     server = PolicyServer(engine, registry=registry, tracer=tracer,
                           bus=bus, adaptive_wait=args.adaptive_wait)
-    server.start()
+    router = engine if args.engines > 1 else None
+    advisor = (AutoscaleAdvisor(registry, n_max=args.engines,
+                                initial=args.engines)
+               if args.autoscale else None)
+    deadline_s = (args.deadline_ms / 1e3 if args.deadline_ms is not None
+                  else None)
+    server.start(dispatchers=args.engines)
     try:
-        soak = run_soak(server, pool, duration_s=args.soak,
-                        rate_hz=args.rate if args.rate is not None
-                        else 200.0,
-                        deadline_s=(args.deadline_ms / 1e3
-                                    if args.deadline_ms is not None
-                                    else None))
+        if chaos_specs is not None:
+            soak = run_chaos_soak(
+                server, pool, fit=domain_fit(cfg), duration_s=args.soak,
+                rate_hz=args.rate if args.rate is not None else 150.0,
+                deadline_s=deadline_s, router=router, seed=cfg.seed)
+        else:
+            soak = run_soak(server, pool, duration_s=args.soak,
+                            rate_hz=args.rate if args.rate is not None
+                            else 200.0,
+                            deadline_s=deadline_s, router=router,
+                            advisor=advisor)
     finally:
         server.stop()
     soak["post_warmup_recompiles"] = engine.post_warmup_recompiles
@@ -377,6 +488,17 @@ def _soak(args, engine, pool, registry, tracer, bus) -> dict:
           f"(drift " + (f"{drift:.2f}x" if drift is not None else "n/a")
           + f"), post-warmup recompiles: {soak['post_warmup_recompiles']}",
           file=sys.stderr)
+    if chaos_specs is not None:
+        fs = soak["fault_stats"]
+        fired = sum(s.fired for s in chaos_specs)
+        soak["chaos_faults"] = args.chaos_faults
+        soak["faults_fired"] = int(fired)
+        conserved = soak["conservation_ok"] and soak["failed"] == 0
+        print(f"chaos: {fired}/{len(chaos_specs)} faults fired, engine "
+              f"failures {fs['failures']}, ejections {fs['ejections']}, "
+              f"readmissions {fs['readmissions']}, retry hedges "
+              f"{fs['retry_hedges']}, conservation "
+              + ("ok" if conserved else "VIOLATED"), file=sys.stderr)
     return soak
 
 

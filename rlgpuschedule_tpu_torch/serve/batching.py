@@ -3,7 +3,7 @@ scatter, in front of one :class:`~.engine.InferenceEngine`.
 
 Counterpart of the JAX package's ``serve/batching.py`` (pure numpy and
 threads: it ports as it stands, with the flight log left for the
-flywheel slice). Many independent decision streams become ONE dispatch
+flywheel slice; its ``jax.tree`` calls are :mod:`..tree`'s). Many independent decision streams become ONE dispatch
 when their observations are stacked along a batch axis:
 
 - **coalesce**: pending requests are drained FIFO and rounded up to the
@@ -19,9 +19,12 @@ when their observations are stacked along a batch axis:
 The hot path is the **arena data plane** (``data_plane="arena"``, the
 default): requests land directly in preallocated bucket-sized slabs
 (one memcpy into the slot row -- ``submit`` IS the stack), ``pump``
-seals a slab in place (tail rows neutralized by slice assignment) and
-dispatches a contiguous view, and the scatter hands back the actions of
-the engine's download buffer. Steady state allocates no host ndarray
+seals a slab in place and dispatches a contiguous view of its live rows
+(the engine pads them to the bucket in its own staging buffers), and
+the scatter hands back the actions of the engine's download buffer.
+JAX's server dispatches the whole padded bucket instead, so its router
+counts padding rows as served rows; the port's router sees, and counts,
+only the live ones. Steady state allocates no host ndarray
 per batch (``serve_arena_allocs_total`` counts slab allocations and
 must stay flat after warmup). Producers take one O(1) critical section
 to reserve a slot; the row memcpy and the publish flag happen outside
@@ -30,10 +33,30 @@ O(batch) work. The pre-arena plane survives as ``data_plane="legacy"``
 (stack per batch, the engine pads): the "before" arm of
 :func:`.bench.run_host_path`.
 
-The port's observations and masks are single arrays (flat, grid and
-graph observations alike), so a request is one ``obs`` row and one
-``mask`` row, host numpy, no leading axis; device placement is the
-engine's job.
+A request is one ``obs`` row and one ``mask`` row, host numpy, no
+leading axis: single arrays for the flat, grid and graph observations,
+dicts of arrays for the hierarchical env (``{"top", "pods"}``). The
+arena keeps one slab per leaf; device placement is the engine's job.
+Several dispatchers (:meth:`PolicyServer.start`) keep that many
+dispatches in flight over a multi-engine router
+(:class:`.router.EngineRouter`).
+
+**Admission after a stall.** Admission sheds a deadlined request when
+the queued dispatches ahead of it, times the learned service time,
+exceed its deadline; the estimate learns only from finished
+dispatches. JAX's server stays locked once one stretched dispatch (a
+long garbage collection) lifts the estimate above the deadline: every
+later request is shed, no dispatch runs, and the estimate never falls.
+Here a request that would be shed, but finds the queue empty, no
+dispatch in flight and the last dispatch ended more than one estimate
+ago, is admitted as a *probe*, and the dispatch that serves it
+replaces the estimate with its own time, so one probe relearns it.
+Where the estimate is fresh (a dispatch ended less than one estimate
+ago) the server sheds as JAX's does. Besides, one dispatch counts at
+most :data:`SAMPLE_CAP` times the estimate it updates: a lone pause
+(a full collection holds every thread) then cannot shed the burst of
+requests it held back, while a lasting slowdown is still learned,
+by a factor of up to 1.6 a dispatch.
 """
 from __future__ import annotations
 
@@ -51,6 +74,7 @@ import numpy as np
 from ..obs.metrics import Registry
 from ..obs.slo import SLOEngine, SLOSpec, histogram_sli
 from ..obs.trace import NULL_TRACER
+from ..tree import leaves, stack, structure, tree_map, unflatten
 
 
 class Reservoir:
@@ -107,42 +131,47 @@ def next_bucket(n: int, max_bucket: int) -> int:
     return 1 << (n - 1).bit_length()
 
 
-def pad_batch(batch: np.ndarray, bucket: int,
-              fill_mask_true: bool = False) -> np.ndarray:
-    """Pad a host batch from n rows up to ``bucket`` rows.
+def pad_batch(batch, bucket: int, fill_mask_true: bool = False):
+    """Pad a host batch (an array or a tree of arrays, leading axis n)
+    from n rows up to ``bucket`` rows, leaf by leaf.
 
-    Padding rows are zeros, except a boolean batch with
+    Padding rows are zeros, except boolean leaves with
     ``fill_mask_true``: action masks pad with every action legal, so the
     padding rows' logits stay finite. A full bucket is returned as is."""
-    x = np.asarray(batch)
-    n = x.shape[0]
-    if n > bucket:
-        raise ValueError(f"batch of {n} rows exceeds bucket {bucket}")
-    if n == bucket:
-        return x
-    value = True if (fill_mask_true and x.dtype == np.bool_) else 0
-    return np.concatenate([x, np.full((bucket - n,) + x.shape[1:], value,
-                                      x.dtype)])
+    def pad(x):
+        x = np.asarray(x)
+        n = x.shape[0]
+        if n > bucket:
+            raise ValueError(f"batch of {n} rows exceeds bucket {bucket}")
+        if n == bucket:
+            return x
+        value = True if (fill_mask_true and x.dtype == np.bool_) else 0
+        return np.concatenate([x, np.full((bucket - n,) + x.shape[1:],
+                                          value, x.dtype)])
+
+    return tree_map(pad, batch)
 
 
-def stack_requests(rows: "list[np.ndarray]") -> np.ndarray:
-    """Stack per-request rows (no leading axis) into one batch (leading
-    axis = len(rows), FIFO order kept). The legacy plane's stack; the
-    arena plane never stacks."""
-    return np.stack([np.asarray(x) for x in rows])
+def stack_requests(rows: list):
+    """Stack per-request rows (arrays or trees of arrays, no leading
+    axis) into one batch, leaf by leaf (leading axis = len(rows), FIFO
+    order kept). The legacy plane's stack, and the router's probe
+    batch; the arena plane never stacks."""
+    return stack(rows)
 
 
-def scatter_results(actions: np.ndarray, n: int) -> list:
-    """Split batched actions back into ``n`` per-request values in
-    submission order, dropping the padding tail."""
-    a = np.asarray(actions)
-    return [a[i] for i in range(n)]
+def scatter_results(actions, n: int) -> list:
+    """Split batched actions (an array, or a dict of per-head arrays)
+    back into ``n`` per-request values in submission order, dropping
+    the padding tail."""
+    return [tree_map(lambda x: np.asarray(x)[i], actions)
+            for i in range(n)]
 
 
 @dataclasses.dataclass
 class ServeResult:
     """What a request's future resolves to."""
-    action: object         # the request's action (numpy)
+    action: object         # the request's action (numpy, or a dict of heads)
     latency_s: float       # submit -> result, queue wait included
     req_id: int = 0        # request-causality id; 0 = unassigned
 
@@ -199,11 +228,17 @@ class Ewma:
                       else self.alpha * x + (1 - self.alpha) * self.value)
         return self.value
 
+    def reset(self) -> None:
+        """Forget the estimate (back to ``value is None``): the world it
+        described is gone, e.g. a router's fleet changed."""
+        self.value = None
+        self.count = 0
+
 
 @dataclasses.dataclass
 class _Pending:
-    obs: np.ndarray
-    mask: np.ndarray
+    obs: object            # a request row: an array or a tree of arrays
+    mask: object
     stall: int
     t_submit: float
     future: Future
@@ -223,9 +258,9 @@ class _SlotRef:
 
 
 class _ArenaBlock:
-    """One bucket-sized slab of the request ring: preallocated obs and
-    mask rows (leading axis = ``capacity`` slots), the stall and
-    request-id lanes, and per-slot metadata lists. Slots are claimed in
+    """One bucket-sized slab of the request ring: one preallocated array
+    per obs and mask leaf (leading axis = ``capacity`` slots), the stall
+    and request-id lanes, and per-slot metadata lists. Slots are claimed in
     order (``claimed`` is the reservation high-water mark);
     ``published[i]`` flips True (a GIL-atomic list store, no lock) only
     after slot ``i``'s row and metadata are written, so a consumer never
@@ -235,10 +270,12 @@ class _ArenaBlock:
                  "deadline", "published", "dead", "claimed", "n_dead",
                  "n_deadlined")
 
-    def __init__(self, obs_row: np.ndarray, mask_row: np.ndarray,
-                 capacity: int):
-        self.obs = np.zeros((capacity,) + obs_row.shape, obs_row.dtype)
-        self.mask = np.zeros((capacity,) + mask_row.shape, mask_row.dtype)
+    def __init__(self, obs_leaves: "list[np.ndarray]",
+                 mask_leaves: "list[np.ndarray]", capacity: int):
+        self.obs = [np.zeros((capacity,) + x.shape, x.dtype)
+                    for x in obs_leaves]
+        self.mask = [np.zeros((capacity,) + x.shape, x.dtype)
+                     for x in mask_leaves]
         self.stall = np.zeros(capacity, np.int32)
         self.req = np.zeros(capacity, np.int64)
         self.futures: "list[Future | None]" = [None] * capacity
@@ -252,8 +289,8 @@ class _ArenaBlock:
 
     def reset(self) -> None:
         """Return the block to the empty state for recycling. Slab rows
-        are not zeroed: the seal neutralizes exactly the tail rows it
-        pads with, so stale rows are never read."""
+        are not zeroed: a dispatch reads only the live rows the seal
+        compacted, so stale rows are never read."""
         for i in range(self.claimed):
             self.futures[i] = None
             self.deadline[i] = None
@@ -274,13 +311,14 @@ class _ArenaRing:
     recycles them after the scatter; a full ring back-pressures
     producers on ``cond`` until a block frees (bounded memory)."""
 
-    def __init__(self, obs_row: np.ndarray, mask_row: np.ndarray,
-                 bucket: int, n_blocks: int, alloc_counter=None):
+    def __init__(self, obs_leaves: "list[np.ndarray]",
+                 mask_leaves: "list[np.ndarray]", bucket: int,
+                 n_blocks: int, alloc_counter=None):
         self.bucket = int(bucket)
         self.lock = threading.Lock()
         self.cond = threading.Condition(self.lock)
-        self._obs_row = obs_row
-        self._mask_row = mask_row
+        self._obs_leaves = obs_leaves
+        self._mask_leaves = mask_leaves
         self._alloc_counter = alloc_counter
         self.n_blocks = 0
         self.depth = 0              # live (not shed) slots not yet taken
@@ -291,12 +329,22 @@ class _ArenaRing:
             self.free.append(self._new_block())
 
     def _new_block(self) -> _ArenaBlock:
-        blk = _ArenaBlock(self._obs_row, self._mask_row, self.bucket)
+        blk = _ArenaBlock(self._obs_leaves, self._mask_leaves, self.bucket)
         self.n_blocks += 1
         if self._alloc_counter is not None:
-            # the obs and mask slabs, the stall and req-id lanes
-            self._alloc_counter.inc(4)
+            # one slab per obs and mask leaf, the stall and req-id lanes
+            self._alloc_counter.inc(
+                len(self._obs_leaves) + len(self._mask_leaves) + 2)
         return blk
+
+    def grow(self, n_blocks: int) -> None:
+        """Ensure at least ``n_blocks`` blocks exist (construction and
+        :meth:`PolicyServer.start` only, never on the steady-state
+        path)."""
+        with self.lock:
+            while self.n_blocks < n_blocks:
+                self.free.append(self._new_block())
+            self.cond.notify_all()
 
     def blocks(self) -> "list[_ArenaBlock]":
         """Ring-resident blocks in FIFO order (caller holds ``lock``)."""
@@ -370,19 +418,22 @@ class _RingPending:
 _DATA_PLANES = ("arena", "legacy")
 # capacity of the latency, occupancy and exemplar reservoirs
 LATENCY_WINDOW = 8192
+# one dispatch's time enters the service-time estimate capped at this
+# multiple of the estimate (the first, and a probe's, enter whole)
+SAMPLE_CAP = 4.0
 
 
 class PolicyServer:
     """The continuous-batching request queue over one engine (an
-    :class:`~.engine.InferenceEngine`, or anything with its
-    ``max_bucket``/``bucket_for``/``decide``).
+    :class:`~.engine.InferenceEngine`, a :class:`~.router.EngineRouter`,
+    or anything with their ``max_bucket``/``bucket_for``/``decide``).
 
     ``submit`` enqueues a request and returns a
     :class:`concurrent.futures.Future` resolving to :class:`ServeResult`;
     ``pump`` drains up to ``engine.max_bucket`` pending requests into one
     coalesced dispatch. Drive it inline (submit-then-pump: deterministic
     batch composition, what ``serve --bench`` does) or through the
-    background dispatcher thread (:meth:`start` / :meth:`stop`) for live
+    background dispatcher threads (:meth:`start` / :meth:`stop`) for live
     continuous batching.
 
     **Data planes.** ``data_plane="arena"`` (default) is the zero-copy
@@ -395,9 +446,12 @@ class PolicyServer:
     shedding: the future resolves with :class:`DeadlineSheddedError`
     when the predicted wait at submit (queued dispatches ahead x learned
     service time) exceeds the deadline, or when the deadline passes in
-    the queue. ``max_wait_s`` holds a partial bucket until it fills or
-    the wait passes; ``adaptive_wait`` learns the hold from the
-    arrival-gap and service-time :class:`Ewma` s.
+    the queue; after a stall a lone request is admitted as a probe (the
+    module docstring). ``max_wait_s`` holds a partial bucket until it
+    fills or the wait passes; ``adaptive_wait`` learns the hold from the
+    arrival-gap and service-time :class:`Ewma` s. When the engine has
+    ``add_rewarm_listener`` (the router has), a fleet change resets the
+    learned service time.
 
     **SLO surface** (the ``registry``): ``serve_requests_total``,
     ``serve_shed_total``, ``serve_dispatches_total``,
@@ -428,8 +482,7 @@ class PolicyServer:
                  clock=time.perf_counter,
                  max_wait_s: "float | None" = None, tracer=None,
                  adaptive_wait: bool = False, data_plane: str = "arena",
-                 example_obs: "np.ndarray | None" = None,
-                 example_mask: "np.ndarray | None" = None,
+                 example_obs=None, example_mask=None,
                  flight_log=None, bus=None):
         if flight_log is not None:
             raise NotImplementedError(
@@ -462,9 +515,10 @@ class PolicyServer:
         self._pending = (collections.deque() if data_plane == "legacy"
                          else _RingPending(self))
         self._ring: "_ArenaRing | None" = None
-        # at least 4 blocks: the in-flight dispatcher can hold one while
-        # another is current and one stays free, so the ring never wedges
-        self._n_blocks = max(4, min(128, 1024 // int(engine.max_bucket)))
+        # at least 4 blocks: an in-flight dispatcher can hold one while
+        # another is current and one stays free, so the ring never
+        # wedges; start(dispatchers=N) raises the floor to N + 2
+        self._min_blocks = max(4, min(128, 1024 // int(engine.max_bucket)))
         # lifetime-uniform reservoirs: a soak's p99 describes the whole
         # run, not its trailing window
         self._latencies = Reservoir(LATENCY_WINDOW, seed=0)
@@ -481,6 +535,11 @@ class PolicyServer:
         self._arrival_gap = Ewma(alpha=0.2)
         self._service_time = Ewma(alpha=0.2)
         self._t_prev_submit: "float | None" = None
+        # dispatches taken and not yet finished, and when the last one
+        # finished: the probe rule of _admission reads both
+        self._inflight = 0
+        self._t_dispatch_end: "float | None" = None
+        self._relearn = False       # a probe was admitted
         self._requests = self.registry.counter(
             "serve_requests_total", "scheduling requests submitted")
         self._shed = self.registry.counter(
@@ -524,7 +583,11 @@ class PolicyServer:
                              "together (the arena is sized from both)")
         if example_obs is not None and data_plane == "arena":
             self.ensure_arena(example_obs, example_mask)
-        # the hedge counter belongs to a multi-engine router; over one
+        add_listener = getattr(engine, "add_rewarm_listener", None)
+        if callable(add_listener):
+            add_listener(self._on_engine_rewarm)
+        # the hedge counter is the router's, shared through the registry
+        # (registering it again returns the same series); over one
         # engine it never moves, but the engine-health SLI reads it
         self._hedges = self.registry.counter(
             "serve_retry_hedges_total",
@@ -549,6 +612,16 @@ class PolicyServer:
             description="fraction of dispatches served without a "
                         "hedge or failure"), self._engine_health_sli)
         self.registry.add_collector(self._refresh_slo_gauges)
+
+    # ---- estimator lifecycle -----------------------------------------
+
+    def _on_engine_rewarm(self) -> None:
+        """The router's fleet changed (a spin-up warm, an active-count
+        change, a weight swap): the learned per-dispatch service time
+        described the old fleet, so forget it (admission admits until it
+        relearns)."""
+        with self._lock:
+            self._service_time.reset()
 
     # ---- request ids -------------------------------------------------
 
@@ -578,24 +651,30 @@ class PolicyServer:
 
     # ---- arena construction ------------------------------------------
 
-    def ensure_arena(self, example_obs: np.ndarray,
-                     example_mask: np.ndarray) -> None:
+    def ensure_arena(self, example_obs, example_mask) -> None:
         """Build the slab ring from one example request row (no leading
-        axis); from the constructor when examples are given, else by the
-        first :meth:`submit`. Idempotent; row shapes and dtypes are fixed
-        from the example."""
+        axis; an array or a tree of arrays); from the constructor when
+        examples are given, else by the first :meth:`submit`.
+        Idempotent; the row structure, shapes and dtypes are fixed from
+        the example."""
         if self.data_plane != "arena" or self._ring is not None:
             return
         with self._lock:
             if self._ring is not None:
                 return
-            obs_row = np.asarray(example_obs)
-            mask_row = np.asarray(example_mask)
-            self._obs_row_shape = obs_row.shape
-            self._mask_row_shape = mask_row.shape
+            obs_leaves = [np.asarray(x) for x in leaves(example_obs)]
+            mask_leaves = [np.asarray(x) for x in leaves(example_mask)]
+            self._obs_like = example_obs
+            self._mask_like = example_mask
+            self._obs_is_leaf = isinstance(example_obs, np.ndarray)
+            self._mask_is_leaf = isinstance(example_mask, np.ndarray)
+            self._obs_structure = structure(example_obs)
+            self._mask_structure = structure(example_mask)
+            self._obs_row_shapes = [x.shape for x in obs_leaves]
+            self._mask_row_shapes = [x.shape for x in mask_leaves]
             self._ring = _ArenaRing(
-                obs_row, mask_row, int(self.engine.max_bucket),
-                self._n_blocks, alloc_counter=self._arena_allocs)
+                obs_leaves, mask_leaves, int(self.engine.max_bucket),
+                self._min_blocks, alloc_counter=self._arena_allocs)
 
     def arena_stats(self) -> dict:
         """Arena occupancy and allocation surface for benches."""
@@ -670,12 +749,18 @@ class PolicyServer:
         # included; each costs about one learned service time
         ahead = -(-(depth + 1) // self.engine.max_bucket)
         predicted = ahead * svc
-        if predicted > deadline_s:
-            return DeadlineSheddedError("admission", deadline_s,
-                                        waited_s=0.0,
-                                        predicted_wait_s=predicted,
-                                        req_id=req_id)
-        return None
+        if predicted <= deadline_s:
+            return None
+        if (depth == 0 and self._inflight == 0
+                and self._t_dispatch_end is not None
+                and now - self._t_dispatch_end > svc):
+            # a probe: nothing queued or in flight, and the estimate is
+            # older than itself; only a dispatch can relearn it
+            self._relearn = True
+            return None
+        return DeadlineSheddedError("admission", deadline_s, waited_s=0.0,
+                                    predicted_wait_s=predicted,
+                                    req_id=req_id)
 
     def _submit_legacy(self, obs, mask, stall, deadline_s,
                        req_id) -> Future:
@@ -698,16 +783,27 @@ class PolicyServer:
 
     def _write_row(self, blk: _ArenaBlock, i: int, obs, mask,
                    stall: int) -> None:
-        """The one memcpy: request row -> slab slot ``i``. A shape
-        mismatch raises before any slab write (no torn rows)."""
-        if np.shape(obs) != self._obs_row_shape:
-            raise ValueError(f"obs row has shape {np.shape(obs)}, arena "
-                             f"row is {self._obs_row_shape}")
-        if np.shape(mask) != self._mask_row_shape:
-            raise ValueError(f"mask row has shape {np.shape(mask)}, arena "
-                             f"row is {self._mask_row_shape}")
-        blk.obs[i] = obs
-        blk.mask[i] = mask
+        """The one memcpy per leaf: request row -> slab slot ``i``. A
+        structure or shape mismatch raises before any slab write (no
+        torn rows)."""
+        rows = []
+        for what, row, want, shapes in (
+                ("obs", obs, self._obs_structure, self._obs_row_shapes),
+                ("mask", mask, self._mask_structure,
+                 self._mask_row_shapes)):
+            if structure(row) != want:
+                raise ValueError(f"{what} row is not structured as the "
+                                 f"arena's ({want})")
+            row_leaves = leaves(row)
+            for j, leaf in enumerate(row_leaves):
+                if np.shape(leaf) != shapes[j]:
+                    raise ValueError(
+                        f"{what} row has shape {np.shape(leaf)}, arena "
+                        f"row is {shapes[j]}" + (f" (leaf {j})"
+                                                 if len(shapes) > 1 else ""))
+            rows.append(row_leaves)
+        for dst, src in zip(blk.obs + blk.mask, rows[0] + rows[1]):
+            dst[i] = src
         blk.stall[i] = stall
 
     def _submit_arena(self, obs, mask, stall, deadline_s,
@@ -735,7 +831,17 @@ class PolicyServer:
             return fut
         # outside every lock: the row copy and the publish store
         try:
-            self._write_row(blk, i, obs, mask, int(stall))
+            # one-array rows inlined: the per-request hot path the host
+            # bench measures, where the tree walk costs more than the copy
+            if (self._obs_is_leaf and self._mask_is_leaf
+                    and type(obs) is np.ndarray and type(mask) is np.ndarray
+                    and obs.shape == self._obs_row_shapes[0]
+                    and mask.shape == self._mask_row_shapes[0]):
+                blk.obs[0][i] = obs
+                blk.mask[0][i] = mask
+                blk.stall[i] = stall
+            else:
+                self._write_row(blk, i, obs, mask, int(stall))
         except BaseException:
             # the slot is reserved: kill it in place (the error goes to
             # the caller; there is no future holder to strand)
@@ -930,6 +1036,7 @@ class PolicyServer:
                      for _ in range(min(len(self._pending),
                                         self.engine.max_bucket))]
             self._depth.set(len(self._pending))
+            self._inflight += bool(batch)
         if not batch:
             return 0
         n = len(batch)
@@ -946,6 +1053,7 @@ class PolicyServer:
                 with self.tracer.span("scatter"):
                     per_req = scatter_results(actions, n)
         except BaseException as e:
+            self._end_dispatch(ran=True)
             for r in batch:
                 if not r.future.cancelled():
                     r.future.set_exception(e)
@@ -969,12 +1077,10 @@ class PolicyServer:
     def _seal_block(self, blk: _ArenaBlock):
         """Turn a taken block into a dispatchable contiguous prefix: wait
         out in-flight row copies (bounded by one memcpy: the producer
-        reserved before the take), compact live rows over dead ones
-        (shed slots become padding), and neutralize the pad tail in
-        place (zero obs, all-legal bool masks, zero stall and request
-        id) by slice assignment. Returns ``(n_live, bucket, futures,
-        t_submits, deadlines, req_ids)``; ``req_ids`` is a view of the
-        slab's lane, valid until the block recycles."""
+        reserved before the take) and compact live rows over dead ones
+        (shed slots). Returns ``(n_live, futures, t_submits, deadlines,
+        req_ids)``; ``req_ids`` is a view of the slab's lane, valid
+        until the block recycles."""
         spin_deadline = time.monotonic() + 5.0
         while not all(blk.published[:blk.claimed]):
             if time.monotonic() > spin_deadline:
@@ -990,42 +1096,51 @@ class PolicyServer:
         live = [i for i in range(blk.claimed) if not blk.dead[i]]
         n_live = len(live)
         if n_live == 0:
-            return 0, 0, [], [], [], []
+            return 0, [], [], [], []
         if n_live != blk.claimed:
             # compact: shift live rows down over dead ones (dst <= src,
             # so in-place row moves are safe); the shed path only
             for dst, src in enumerate(live):
                 if dst == src:
                     continue
-                blk.obs[dst] = blk.obs[src]
-                blk.mask[dst] = blk.mask[src]
+                for leaf in blk.obs + blk.mask:
+                    leaf[dst] = leaf[src]
                 blk.stall[dst] = blk.stall[src]
                 blk.req[dst] = blk.req[src]
                 blk.futures[dst] = blk.futures[src]
                 blk.t_submit[dst] = blk.t_submit[src]
                 blk.deadline[dst] = blk.deadline[src]
-        bucket = next_bucket(n_live, self.engine.max_bucket)
-        if n_live < bucket:
-            blk.obs[n_live:bucket] = 0
-            blk.mask[n_live:bucket] = (True if blk.mask.dtype == np.bool_
-                                       else 0)
-            blk.stall[n_live:bucket] = 0
-            blk.req[n_live:bucket] = 0
-        return (n_live, bucket, blk.futures[:n_live],
+        return (n_live, blk.futures[:n_live],
                 blk.t_submit[:n_live], blk.deadline[:n_live],
                 blk.req[:n_live])
 
+    def _arena_views(self, blk: _ArenaBlock, n: int):
+        """Contiguous ``[:n]`` views of the slabs, in the request rows'
+        structure (views, never copies)."""
+        obs = (blk.obs[0][:n] if self._obs_is_leaf else
+               unflatten(self._obs_like, [x[:n] for x in blk.obs]))
+        mask = (blk.mask[0][:n] if self._mask_is_leaf else
+                unflatten(self._mask_like, [x[:n] for x in blk.mask]))
+        return obs, mask, blk.stall[:n]
+
     def _scatter_arena(self, blk: _ArenaBlock, actions, n_live: int):
-        """Per-request actions from the engine's actions buffer. If the
-        engine echoed its INPUT back (a host stub can), the buffer
-        aliases the slab about to recycle: detected with a bounds-only
-        overlap check and copied once, so a resolved result is never
-        corrupted by slab reuse."""
-        buf = np.asarray(actions)
-        if any(np.may_share_memory(buf, s)
-               for s in (blk.obs, blk.mask, blk.stall)):
-            buf = buf.copy()
-        return [buf[i] for i in range(n_live)]
+        """Per-request actions from the engine's actions buffers (one
+        array, or a dict of per-head arrays). If the engine echoed its
+        INPUT back (a host stub can), a buffer aliases the slab about to
+        recycle: detected with a bounds-only overlap check and copied
+        once, so a resolved result is never corrupted by slab reuse."""
+        slabs = blk.obs + blk.mask + [blk.stall]
+        safe = []
+        for buf in leaves(actions):
+            buf = np.asarray(buf)
+            if any(np.may_share_memory(buf, s) for s in slabs):
+                buf = buf.copy()
+            safe.append(buf)
+        if len(safe) == 1 and not isinstance(actions, (dict, tuple, list)):
+            buf = safe[0]
+            return [buf[i] for i in range(n_live)]
+        return [unflatten(actions, [x[i] for x in safe])
+                for i in range(n_live)]
 
     def _pump_arena(self, max_wait_s: "float | None") -> int:
         ring = self._ring
@@ -1039,34 +1154,36 @@ class PolicyServer:
                 self._shed_expired(self._clock())
             blk = ring.take_block()
             self._depth.set(ring.depth)
+            self._inflight += blk is not None
         if blk is None:
             return 0
         t_disp = self._clock()
         try:
-            n_live, bucket, futs, t_subs, deads, rids = \
-                self._seal_block(blk)
+            n_live, futs, t_subs, deads, rids = self._seal_block(blk)
         except BaseException:
+            self._end_dispatch(ran=False)
             ring.recycle(blk)
             raise
         if n_live == 0:
+            self._end_dispatch(ran=False)
             ring.recycle(blk)
             return 0
         try:
             if self.tracer is NULL_TRACER:   # span-free hot path
                 actions, bucket = self.engine.decide(
-                    blk.obs[:bucket], blk.mask[:bucket], blk.stall[:bucket])
+                    *self._arena_views(blk, n_live))
                 now = self._clock()
                 per_req = self._scatter_arena(blk, actions, n_live)
             else:
                 with self.tracer.span("serve_batch", n=n_live):
                     with self.tracer.span("arena_seal"):
-                        views = (blk.obs[:bucket], blk.mask[:bucket],
-                                 blk.stall[:bucket])
+                        views = self._arena_views(blk, n_live)
                     actions, bucket = self.engine.decide(*views)
                     now = self._clock()
                     with self.tracer.span("scatter"):
                         per_req = self._scatter_arena(blk, actions, n_live)
         except BaseException as e:
+            self._end_dispatch(ran=True)
             for fut in futs:
                 if not fut.cancelled():
                     fut.set_exception(e)
@@ -1095,6 +1212,14 @@ class PolicyServer:
         ring.recycle(blk)
         return n_live
 
+    def _end_dispatch(self, ran: bool) -> None:
+        """A taken batch that failed, or held no live row: it is no
+        longer in flight (and, if it dispatched, it ended now)."""
+        with self._lock:
+            self._inflight -= 1
+            if ran:
+                self._t_dispatch_end = self._clock()
+
     def _account_dispatch(self, now: float, t_disp: float, n: int,
                           bucket: int, lats: "list[float]",
                           t_subs, req_ids) -> None:
@@ -1102,7 +1227,15 @@ class PolicyServer:
         threads share every reservoir, counter and estimator below;
         producers never take this lock)."""
         with self._lock:
-            self._service_time.update(now - t_disp)
+            self._inflight -= 1
+            self._t_dispatch_end = now
+            sample, svc = now - t_disp, self._service_time.value
+            if self._relearn:
+                self._relearn = False
+                self._service_time.reset()
+            elif svc is not None:
+                sample = min(sample, SAMPLE_CAP * svc)
+            self._service_time.update(sample)
             self._dispatches.inc()
             self._padded.inc(bucket - n)
             self._occupancy.set(n / bucket)
@@ -1128,22 +1261,26 @@ class PolicyServer:
         return ring is not None and ring.depth > 0
 
     def start(self, dispatchers: int = 1) -> None:
-        """Start the background dispatcher: pump whenever requests are
+        """Start the background dispatchers: pump whenever requests are
         pending, each dispatch coalescing whatever arrived while the
-        previous one ran. One dispatcher per engine (the engine's sync
-        guard is process-wide); several dispatchers in flight belong to
-        the multi-engine router, which waits for its slice."""
+        previous one ran. ``dispatchers > 1`` keeps that many pumps in
+        flight at once, so a multi-engine router
+        (:class:`.router.EngineRouter`) runs its engines concurrently;
+        over one engine extra dispatchers only shrink batch occupancy.
+        Warm the engines before starting (a capture while other engines
+        replay is legal, but a cold bucket on the hot path is an
+        alarm)."""
         if self._threads:
             raise RuntimeError("dispatcher already running")
         if self._closed:
             raise ServerClosedError("PolicyServer is closed")
         if dispatchers < 1:
             raise ValueError(f"dispatchers must be >= 1, got {dispatchers}")
-        if dispatchers > 1:
-            raise NotImplementedError(
-                "dispatchers > 1 (concurrent dispatches over routed "
-                "engines) waits for the router slice (ROADMAP.md queue "
-                "1, item 22)")
+        # every in-flight dispatcher can hold one block while another is
+        # current and one stays free: the ring never wedges
+        self._min_blocks = max(self._min_blocks, dispatchers + 2)
+        if self._ring is not None:
+            self._ring.grow(self._min_blocks)
         self._stopped = False
 
         def loop():
@@ -1166,10 +1303,11 @@ class PolicyServer:
                     # strand every later request, so count and go on
                     self._dispatch_errors.inc()
 
-        t = threading.Thread(target=loop, name="serve-dispatcher-0",
-                             daemon=True)
-        self._threads.append(t)
-        t.start()
+        for i in range(dispatchers):
+            t = threading.Thread(target=loop, name=f"serve-dispatcher-{i}",
+                                 daemon=True)
+            self._threads.append(t)
+            t.start()
 
     def stop(self) -> None:
         """Stop the dispatcher after draining the queue. Submits are
@@ -1211,13 +1349,20 @@ class PolicyServer:
     def closed(self) -> bool:
         return self._closed
 
+    def service_time_s(self) -> "float | None":
+        """The learned per-dispatch service time, ``None`` until the
+        first dispatch (and after a fleet change)."""
+        with self._lock:
+            return self._service_time.value
+
     # ---- SLO surface -------------------------------------------------
 
     def slo_snapshot(self) -> dict:
         """Compute and publish the SLO numbers: p50/p99 decision latency
         (ms), decisions/s and per chip over the serving span (``n_chips``
-        is the engine's device count: 1 for one engine, on the card or
-        the CPU), mean batch occupancy, the SLO status."""
+        is the count of distinct devices the engine serves from: 1 for
+        one engine, and for N routed engines sharing one card),
+        mean batch occupancy, the SLO status."""
         lats = np.asarray(self._latencies, np.float64)
         span = ((self._t_last - self._t_first)
                 if self._served and self._t_last is not None

@@ -1,20 +1,27 @@
-"""``serve --bench``, ``--soak`` and ``--host-path`` of the port: the
-latency, sustained-load and host-path benches of the policy server.
+"""``serve --bench``, ``--soak``, ``--scaleout`` and ``--host-path`` of
+the port: the latency, sustained-load, scale-out, chaos and host-path
+benches of the policy server.
 
 Counterparts of ``default_request_sizes``, ``build_request_pool``,
-``run_bench``, ``run_soak``, ``StubEngine``, ``_AllocCounter`` and the
-in-process arms of ``run_host_path`` in the JAX package's
-``serve/bench.py``. The router arms (``run_scaleout``, the soak's
-autoscale loop, ``run_chaos_soak``) and the socket arms of the host
-path wait for their slices.
+``run_bench``, ``run_scaleout``, ``run_soak`` (with the router's
+autoscale loop), ``fit_paced_gaps``, ``run_chaos_soak``, ``StubEngine``,
+``_AllocCounter`` and the in-process arms of ``run_host_path`` in the
+JAX package's ``serve/bench.py``. The socket arms of the host path wait
+for the network front door.
 
 Requests are real observations: the pool is built by resetting the
 config's env windows and stepping them a few decisions under the greedy
 policy being served, so the benched batches are cluster states the
-policy reaches.
+policy reaches (dict rows for the hierarchical env).
+
+The scale-out and soak reports carry what limits their engine arms: on
+the CPU the router serializes device work (``serialized_dispatch_cpu``,
+as JAX's does), and on one card the engines share it, so decisions/s
+measures how far their dispatches overlap there, not N cards.
 """
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -22,8 +29,9 @@ import torch
 from torch import nn
 
 from ..decision import policy_decision
-from ..env import env as env_lib
+from ..env import hier as env_hier
 from ..obs.metrics import Registry
+from ..tree import index, leaves, tree_map
 from .batching import DeadlineSheddedError, PolicyServer, next_bucket
 
 
@@ -39,32 +47,35 @@ def default_request_sizes(bucket: int) -> "tuple[int, ...]":
 
 
 def build_request_pool(policy: nn.Module, env_params, traces,
-                       steps: int = 4,
-                       ) -> "list[tuple[np.ndarray, np.ndarray]]":
+                       steps: int = 4) -> "list[tuple]":
     """A pool of (obs, mask) request rows: the env batch reset and
     stepped ``steps`` decisions under the greedy policy, every row a
-    cluster state the policy reaches. Host rows, no leading axis; pool
-    order is (step, env) row-major."""
-    pool: list[tuple[np.ndarray, np.ndarray]] = []
+    cluster state the policy reaches. Host rows (arrays, or dicts of
+    arrays for the hierarchical env), no leading axis; pool order is
+    (step, env) row-major."""
+    pool: list[tuple] = []
+    env = env_hier.env_module(env_params)
 
     def rows(o, m):
-        o, m = o.cpu().numpy(), m.cpu().numpy()
-        pool.extend((o[i], m[i]) for i in range(o.shape[0]))
+        o = tree_map(lambda x: x.cpu().numpy(), o)
+        m = tree_map(lambda x: x.cpu().numpy(), m)
+        n = leaves(o)[0].shape[0]
+        pool.extend((index(o, i), index(m, i)) for i in range(n))
 
     with torch.no_grad():
-        state, ts = env_lib.vec_reset(env_params, traces)
+        state, ts = env.vec_reset(env_params, traces)
+        step = env_hier.vec_stepper(env_params, traces)
         fresh = (state, ts)
         rows(ts.obs, ts.action_mask)
         for _ in range(max(steps, 0)):
             actions = policy_decision(policy, ts.obs, ts.action_mask)
-            state, ts = env_lib.vec_step(env_params, state, traces,
-                                         actions, fresh=fresh)
+            state, ts = step(state, actions, fresh)
             rows(ts.obs, ts.action_mask)
     return pool
 
 
 def run_bench(engine, server: PolicyServer,
-              pool: "list[tuple[np.ndarray, np.ndarray]]",
+              pool: "list[tuple]",
               rounds: int = 24,
               request_sizes: "tuple[int, ...] | None" = None) -> dict:
     """Serve ``rounds`` coalesced dispatches, cycling the request sizes
@@ -116,25 +127,146 @@ def run_bench(engine, server: PolicyServer,
     }
 
 
-def run_soak(server: PolicyServer,
-             pool: "list[tuple[np.ndarray, np.ndarray]]", *,
+def _caveat(router) -> "str | None":
+    """What limits a router's engine arms on this rig, or None."""
+    if router.serialized_dispatch():
+        return ("CPU: the router serializes device dispatch behind one "
+                "lock, so decisions/s does not scale with engines here; "
+                "routing, occupancy and shed accounting is what this "
+                "measures")
+    if len(router.devices) < router.n_engines:
+        return (f"{router.n_engines} engines share "
+                f"{len(router.devices)} device(s) "
+                f"({', '.join(str(d) for d in router.devices)}) and one "
+                f"interpreter: decisions/s scales only as far as their "
+                f"dispatches overlap there")
+    return None
+
+
+def run_scaleout(policy: nn.Module, env_params, pool: "list[tuple]", *,
+                 max_bucket: int, rounds: int = 24,
+                 request_sizes: "tuple[int, ...] | None" = None,
+                 engine_counts: "tuple[int, ...]" = (1, 2),
+                 deadline_s: "float | None" = None,
+                 device: "torch.device | str | None" = None) -> dict:
+    """Decisions/s and shed rate against engine count: one isolated arm
+    per count in ``engine_counts`` (a fresh router, registry and server,
+    so arms share nothing), each serving the SAME deterministic request
+    stream through as many live dispatcher threads as engines. Every
+    arm's engines are warmed at every bucket, one after another, before
+    its dispatchers start (live batches coalesce to any bucket; JAX's
+    warms only the request sizes' buckets). Per arm: per-engine rows, row shares, dispatches, occupancy
+    and recompiles; at the top level the caveat of what limits the arms
+    (:func:`_caveat`)."""
+    from .router import EngineRouter
+
+    if request_sizes is None:
+        request_sizes = default_request_sizes(max_bucket)
+    request_sizes = tuple(int(s) for s in request_sizes)
+    obs0, mask0 = pool[0]
+    arms = []
+    serialized, caveat = None, None
+    for k in engine_counts:
+        reg = Registry()
+        router = EngineRouter(policy, env_params, max_bucket=max_bucket,
+                              registry=reg, n_engines=int(k), device=device)
+        serialized = router.serialized_dispatch()
+        caveat = _caveat(router) or caveat
+        router.warmup(obs0, mask0)
+        server = PolicyServer(router, registry=reg)
+        server.start(dispatchers=int(k))
+        futures, shed, cursor = [], 0, 0
+        try:
+            t0 = time.perf_counter()
+            for r in range(rounds):
+                for _ in range(request_sizes[r % len(request_sizes)]):
+                    obs, mask = pool[cursor % len(pool)]
+                    futures.append(server.submit(obs, mask,
+                                                 deadline_s=deadline_s))
+                    cursor += 1
+            for f in futures:
+                try:
+                    f.result(timeout=120)
+                except DeadlineSheddedError:
+                    shed += 1
+            wall = time.perf_counter() - t0
+        finally:
+            server.stop()
+        stats = router.stats()
+        total_rows = sum(st.rows for st in stats) or 1
+        arms.append({
+            "engines": int(k),
+            "requests": len(futures),
+            "served": len(futures) - shed,
+            "shed": shed,
+            "shed_rate": shed / len(futures),
+            "decisions_per_s": (len(futures) - shed) / wall,
+            "wall_s": wall,
+            "dispatches": int(reg.counter("serve_dispatches_total").value),
+            "per_engine_rows": [st.rows for st in stats],
+            "per_engine_row_share": [st.rows / total_rows for st in stats],
+            "per_engine_dispatches": [st.dispatches for st in stats],
+            "per_engine_occupancy": [st.occupancy for st in stats],
+            "per_engine_recompiles": router.per_engine_recompiles(),
+        })
+        server.close()
+    return {
+        "engine_counts": [int(k) for k in engine_counts],
+        "rounds": rounds,
+        "request_sizes": list(request_sizes),
+        "deadline_s": deadline_s,
+        "serialized_dispatch_cpu": bool(serialized),
+        "caveat": caveat,
+        "arms": arms,
+    }
+
+
+def _p99_ms(xs: "list[float | None]") -> "float | None":
+    xs = [x for x in xs if x is not None]
+    return float(np.percentile(np.asarray(xs), 99) * 1e3) if xs else None
+
+
+def _router_fields(router) -> dict:
+    return {"per_engine_rows": [st.rows for st in router.stats()],
+            "per_engine_occupancy": [st.occupancy
+                                     for st in router.stats()],
+            "per_engine_recompiles": router.per_engine_recompiles(),
+            "engines_active": router.n_active,
+            "serialized_dispatch_cpu": router.serialized_dispatch(),
+            "caveat": _caveat(router)}
+
+
+def run_soak(server: PolicyServer, pool: "list[tuple]", *,
              duration_s: float = 6.0, rate_hz: float = 200.0,
-             deadline_s: "float | None" = None) -> dict:
+             deadline_s: "float | None" = None, router=None,
+             advisor=None, advisor_every_s: float = 0.5) -> dict:
     """Sustained load through a RUNNING server (the caller started its
-    dispatcher): submissions paced at ``rate_hz`` for ``duration_s``,
-    each with the optional ``deadline_s`` (shedding on). Reports served
-    and shed counts, the rate achieved, and first-half against
-    second-half p99: an unbounded queue or a leak shows as second-half
-    runaway."""
+    dispatchers): submissions paced at ``rate_hz`` for ``duration_s``,
+    each with the optional ``deadline_s`` (shedding on), and optionally
+    the autoscale loop (every ``advisor_every_s``, ``advisor`` votes and
+    ``router`` applies the vote live). Reports served and shed counts,
+    the rate achieved, first-half against second-half p99 (an unbounded
+    queue or a leak shows as second-half runaway), and with a router
+    its per-engine rows, occupancy and recompiles."""
+    if advisor is not None and router is None:
+        raise ValueError("autoscale soak needs the router to apply "
+                         "advisor votes to")
     interval = 1.0 / float(rate_hz)
     futures = []
     cursor = 0
+    resizes = 0
     t_start = time.perf_counter()
     next_t = t_start
+    next_tick = t_start + advisor_every_s
     while time.perf_counter() - t_start < duration_s:
         obs, mask = pool[cursor % len(pool)]
         futures.append(server.submit(obs, mask, deadline_s=deadline_s))
         cursor += 1
+        if advisor is not None and time.perf_counter() >= next_tick:
+            before = advisor.desired
+            router.apply_autoscale(advisor)
+            resizes += int(advisor.desired != before)
+            next_tick += advisor_every_s
         next_t += interval
         sleep = next_t - time.perf_counter()
         if sleep > 0:
@@ -149,19 +281,14 @@ def run_soak(server: PolicyServer,
             shed += 1
             lat_s.append(None)
     wall = time.perf_counter() - t_start
-
-    def p99_ms(xs):
-        xs = [x for x in xs if x is not None]
-        return (float(np.percentile(np.asarray(xs), 99) * 1e3)
-                if xs else None)
-
     half = len(lat_s) // 2
-    p99_a, p99_b = p99_ms(lat_s[:half]), p99_ms(lat_s[half:])
-    return {
+    p99_a, p99_b = _p99_ms(lat_s[:half]), _p99_ms(lat_s[half:])
+    out = {
         "requests": len(futures),
         "served": len(futures) - shed,
         "shed": shed,
         "shed_rate": shed / max(len(futures), 1),
+        "served_second_half": sum(x is not None for x in lat_s[half:]),
         "duration_s": wall,
         "rate_hz": rate_hz,
         "achieved_rate_hz": len(futures) / t_paced,
@@ -170,7 +297,166 @@ def run_soak(server: PolicyServer,
         "p99_second_half_ms": p99_b,
         "p99_drift": (p99_b / p99_a
                       if p99_a and p99_b and p99_a > 0 else None),
+        "autoscale_resizes": resizes if advisor is not None else None,
     }
+    if router is not None:
+        out.update(_router_fields(router))
+    return out
+
+
+def fit_paced_gaps(fit, n: int, seed, rate_hz: float) -> np.ndarray:
+    """Inter-arrival gaps carrying a fitted workload's arrival SHAPE at a
+    chosen offered rate: one seeded window from ``fit``
+    (:func:`..traces.fit.gen_domain_window`, the arrival process the
+    simulator replays), its inter-arrival gaps rescaled so the mean gap
+    is exactly ``1/rate_hz``. The soak then carries the trace's bursts
+    and idle stretches while the offered load stays the configured
+    number. Deterministic per (fit, seed)."""
+    from ..traces.fit import gen_domain_window
+
+    if n < 1:
+        raise ValueError(f"need at least one gap, got n={n}")
+    if rate_hz <= 0:
+        raise ValueError(f"rate_hz must be positive, got {rate_hz}")
+    win = gen_domain_window(fit, n_jobs=n + 1, seed=seed, n_gpus=8,
+                            load=1.0)
+    gaps = np.maximum(np.diff(win.submit.astype(np.float64)), 0.0)
+    mean = float(gaps.mean())
+    if mean <= 0:       # a degenerate window (all burst): pace flat
+        return np.full(n, 1.0 / rate_hz)
+    return gaps * ((1.0 / rate_hz) / mean)
+
+
+def _rss_bytes() -> "int | None":
+    """This process's resident-set size from ``/proc/self/statm``, None
+    where there is no procfs: the chaos soak's heap-drift numbers."""
+    try:
+        with open("/proc/self/statm") as f:
+            pages = int(f.read().split()[1])
+        return pages * os.sysconf("SC_PAGE_SIZE")
+    except (OSError, ValueError, IndexError):
+        return None
+
+
+def run_chaos_soak(server: PolicyServer, pool: "list[tuple]", *, fit,
+                   duration_s: float = 6.0, rate_hz: float = 150.0,
+                   deadline_s: "float | None" = None, router=None,
+                   seed: int = 0) -> dict:
+    """:func:`run_soak` under chaos: arrivals paced by the fitted trace
+    (:func:`fit_paced_gaps`) through a RUNNING dispatcher fleet while a
+    :class:`.router.ServeFaultInjector` (attached to the router by the
+    caller) fails engines mid-run. Every future is awaited with a bound
+    and counted as exactly one of served, shed or failed, so the report
+    carries the conservation invariant::
+
+        submitted == served + shed + failed    (failed must be 0: the
+        retry hedge absorbs injected engine faults)
+
+    with the registry's shed count beside the observed one, and the
+    router's ejection, readmission and hedge counts. The pacing loop
+    runs the registry's collectors twice a second, so the SLO burn
+    windows move during the faults; after the last future the soak
+    keeps collecting until no SLO alerts (bounded), so ``slo`` shows the
+    recovered budget."""
+    n_gaps = max(int(duration_s * rate_hz * 2) + 16, 1)
+    gaps = fit_paced_gaps(fit, n_gaps, seed=(seed, 0xC7A05),
+                          rate_hz=rate_hz)
+    reg = server.registry
+    rss_start = _rss_bytes()
+    futures = []
+    cursor = 0
+    t_start = time.perf_counter()
+    next_t = t_start
+    # a baseline sample before any fault: burn is measured between
+    # samples, so a fault before the first collect would be invisible
+    reg.collect()
+    next_collect = t_start + 0.5
+    while time.perf_counter() - t_start < duration_s:
+        obs, mask = pool[cursor % len(pool)]
+        futures.append(server.submit(obs, mask, deadline_s=deadline_s))
+        next_t += gaps[cursor % len(gaps)]
+        cursor += 1
+        if time.perf_counter() >= next_collect:
+            reg.collect()
+            next_collect += 0.5
+        sleep = next_t - time.perf_counter()
+        if sleep > 0:
+            time.sleep(sleep)
+    lat_s: "list[float | None]" = []
+    shed = 0
+    failed = 0
+    failure_kinds: dict[str, int] = {}
+    for f in futures:
+        try:
+            lat_s.append(f.result(timeout=30).latency_s)
+        except DeadlineSheddedError:
+            shed += 1
+            lat_s.append(None)
+        except Exception as e:   # a failed dispatch, or a hung future
+            failed += 1
+            kind = type(e).__name__
+            failure_kinds[kind] = failure_kinds.get(kind, 0) + 1
+            lat_s.append(None)
+    wall = time.perf_counter() - t_start
+    served = len(futures) - shed - failed
+
+    # settle: let the burn windows slide until no SLO alerts and the
+    # short budget windows have recovered, bounded, so a still-burning
+    # SLO reports alerting=True instead of hanging the soak
+    slo_status: dict = {}
+    if getattr(server, "slo", None) is not None:
+        settle_by = time.perf_counter() + 4.0
+        while True:
+            reg.collect()
+            slo_status = server.slo.status()
+            settled = not any(s["alerting"] for s in slo_status.values())
+            settled = settled and all(
+                s["budget_remaining"] >= 1.0
+                for s in slo_status.values()
+                if s["alerts_total"] and s["budget_window_s"] <= 3.0)
+            if settled or time.perf_counter() >= settle_by:
+                break
+            time.sleep(0.2)
+
+    half = len(lat_s) // 2
+    p99_a, p99_b = _p99_ms(lat_s[:half]), _p99_ms(lat_s[half:])
+    out = {
+        "requests": len(futures),
+        "served": served,
+        "shed": shed,
+        "failed": failed,
+        "failure_kinds": failure_kinds,
+        "conservation_ok": len(futures) == served + shed + failed,
+        "registry_requests_total": int(
+            reg.counter("serve_requests_total").value),
+        "registry_shed_total": int(reg.counter("serve_shed_total").value),
+        "shed_rate": shed / max(len(futures), 1),
+        "duration_s": wall,
+        "rate_hz": rate_hz,
+        "arrival_fit": fit.name,
+        "deadline_s": deadline_s,
+        "p99_first_half_ms": p99_a,
+        "p99_second_half_ms": p99_b,
+        "p99_drift": (p99_b / p99_a
+                      if p99_a and p99_b and p99_a > 0 else None),
+        "slo": slo_status,
+    }
+    # the heap-drift numbers: RSS before the first submit and after the
+    # last future resolved (every recycled slab back in the ring)
+    rss_end = _rss_bytes()
+    out["rss_start_bytes"] = rss_start
+    out["rss_end_bytes"] = rss_end
+    out["rss_growth_bytes"] = (rss_end - rss_start
+                               if rss_start is not None
+                               and rss_end is not None else None)
+    out["rss_growth_frac"] = ((rss_end - rss_start) / rss_start
+                              if rss_start else None)
+    if router is not None:
+        out["fault_stats"] = router.fault_stats()
+        fields = _router_fields(router)
+        del fields["per_engine_occupancy"]
+        out.update(fields)
+    return out
 
 
 class StubEngine:
@@ -188,8 +474,8 @@ class StubEngine:
     def bucket_for(self, n: int) -> int:
         return next_bucket(n, self.max_bucket)
 
-    def decide(self, obs: np.ndarray, mask: np.ndarray, stall=None):
-        n = int(np.asarray(obs).shape[0])
+    def decide(self, obs, mask, stall=None):
+        n = int(np.asarray(leaves(obs)[0]).shape[0])
         self.dispatches += 1
         return self._actions[:n], self.bucket_for(n)
 
@@ -225,7 +511,7 @@ class _AllocCounter:
         return False
 
 
-def run_host_path(pool: "list[tuple[np.ndarray, np.ndarray]]", *,
+def run_host_path(pool: "list[tuple]", *,
                   max_bucket: int = 8, rounds: int = 300,
                   warmup_rounds: int = 12) -> dict:
     """Host-path decisions/s of the two data planes: one in-process arm

@@ -588,9 +588,16 @@ def test_train_evaluate_and_serve_clis_run_config_5(tmp_path, capsys):
                       "--ckpt-dir", d, "--device", "cpu"])
     assert out["fleet"]["n_clusters"] == 2
     assert out["fleet"]["completion"] > 0
-    with pytest.raises(NotImplementedError, match="item 22"):
-        serve.main(["--config", "hier-pbt-member", "--bench", "--device",
-                    "cpu"])
+    # config 5 is served through one engine; a router of it is refused
+    # in the mode table's words, as JAX refuses it
+    out = serve.main(["--config", "hier-pbt-member", "--bench", "--ckpt-dir",
+                      d, "--n-envs", "2", "--pool-steps", "1", "--rounds",
+                      "3", "--device", "cpu"])
+    assert out["bench"]["requests"] > 0
+    assert out["bench"]["post_warmup_recompiles"] == 0
+    with pytest.raises(SystemExit, match="unsupported mode combination"):
+        serve.main(["--config", "hier-pbt-member", "--bench", "--engines",
+                    "2", "--device", "cpu"])
     for argv, msg in (
             (["--full-trace"], "full-trace evaluation supports flat"),
             (["--fairness"], "fairness_report supports flat"),

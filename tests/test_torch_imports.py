@@ -297,3 +297,38 @@ def test_the_config_five_slice_has_its_pieces():
                 assert getattr(m, n).__module__ == m.__name__, (mod, n)
     finally:
         sys.path.remove(ROOT)
+
+
+def test_importing_the_router_and_chaos_path_leaves_jax_out():
+    _leaves_jax_out(("serve.router", "serve.bench", "serve.batching",
+                     "serve.engine", "serve.__main__", "traces.fit",
+                     "tree", "device"))
+
+
+def test_the_router_slice_has_its_pieces():
+    """The router, its fault injector and advisor, the chaos soak's
+    trace fit and the tree helper are the port's own code."""
+    import importlib
+    sys.path.insert(0, ROOT)
+    try:
+        names = {os.path.relpath(p, ROOT) for p in _port_files()}
+        for f in ("serve/router.py", "traces/fit.py", "tree.py"):
+            assert f"rlgpuschedule_tpu_torch/{f}" in names, f
+        for mod, names in {
+                "serve.router": ("InjectedEngineFault", "ServeFaultSpec",
+                                 "parse_serve_fault", "ServeFaultInjector",
+                                 "EngineStats", "EngineRouter",
+                                 "AutoscaleAdvisor"),
+                "serve.bench": ("run_scaleout", "run_soak",
+                                "fit_paced_gaps", "_rss_bytes",
+                                "run_chaos_soak"),
+                "traces.fit": ("TraceFit", "fit_hourly_curve", "fit_jobs",
+                               "domain_fit", "gen_domain_window"),
+                "tree": ("tree_map", "leaves", "structure", "unflatten",
+                         "stack", "index"),
+                "device": ("serve_devices",)}.items():
+            m = importlib.import_module(f"rlgpuschedule_tpu_torch.{mod}")
+            for n in names:
+                assert getattr(m, n).__module__ == m.__name__, (mod, n)
+    finally:
+        sys.path.remove(ROOT)

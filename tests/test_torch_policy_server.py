@@ -48,6 +48,7 @@ from rlgpuschedule_tpu_torch.serve import (InferenceEngine, PolicyServer,
                                            build_request_pool, next_bucket,
                                            run_soak)
 from rlgpuschedule_tpu_torch.serve.bench import _AllocCounter
+from rlgpuschedule_tpu_torch.serve.router import EngineRouter
 from rlgpuschedule_tpu_torch.serve.fleet import fleet_windows
 
 torch.set_num_threads(1)
@@ -557,9 +558,127 @@ def test_what_the_slice_lacks_is_refused(world):
         PolicyServer(ArgmaxEngine(8), flight_log=object())
     with pytest.raises(NotImplementedError, match="item 23"):
         _engine(world, capture=True)
-    server = PolicyServer(ArgmaxEngine(8))
-    with pytest.raises(NotImplementedError, match="item 22"):
-        server.start(dispatchers=2)
+    # several dispatchers are the router's (tests/test_torch_router.py):
+    # two of them over a 2-engine router serve every request
+    router = EngineRouter(world["policy"], max_bucket=8, n_engines=2,
+                          device="cpu")
+    router.warmup(world["obs"][0], world["mask"][0])
+    server = PolicyServer(router)
     with pytest.raises(ValueError, match="dispatchers"):
         server.start(dispatchers=0)
+    server.start(dispatchers=2)
+    try:
+        futs = [server.submit(world["obs"][i], world["mask"][i])
+                for i in range(24)]
+        got = [int(f.result(timeout=30).action) for f in futs]
+    finally:
+        server.stop()
+    with torch.no_grad():
+        want = policy_decision(world["policy"],
+                               torch.from_numpy(world["obs"][:24]),
+                               torch.from_numpy(world["mask"][:24]))
+    assert got == want.tolist()
+    assert sum(s.rows for s in router.stats()) == 24
+    server.close()
+
+
+class _StretchedEngine:
+    """Host engine under a fake clock: its first dispatch costs
+    ``first_s`` (a dispatch stretched by a long garbage collection),
+    every later one ``cost_s``."""
+
+    def __init__(self, clock, first_s, cost_s, max_bucket=8):
+        self.clock, self.max_bucket = clock, max_bucket
+        self.costs = [first_s]
+        self.cost_s = cost_s
+
+    def bucket_for(self, n):
+        return next_bucket(n, self.max_bucket)
+
+    def decide(self, obs, mask, stall=None):
+        self.clock.t += self.costs.pop() if self.costs else self.cost_s
+        a = np.argmax(np.asarray(obs), axis=-1).astype(np.int32)
+        return a, self.bucket_for(a.shape[0])
+
+
+@pytest.mark.parametrize("plane", ["arena", "legacy"])
+def test_admission_recovers_after_a_stretched_dispatch(plane):
+    """The admission lockout, under a fake clock: one dispatch costs 5x
+    the 50 ms deadline, every later one 1 ms, and deadlined requests
+    arrive every 10 ms, each pumped inline. This fails on the server
+    before the probe rule (and on JAX's, which keeps it): the estimate
+    learned from the stretched dispatch sheds every later request at
+    admission, no dispatch runs, and the estimate never falls. With
+    the rule, a request that finds nothing queued or in flight and an
+    estimate older than itself is admitted as a probe: it is the first
+    request after one estimate (0.25 s) of sheds, its dispatch replaces
+    the estimate with its own 1 ms, and every later request is
+    served."""
+    clock = _Clock()
+    rows = _rows(8)
+    server = PolicyServer(_StretchedEngine(clock, first_s=0.25,
+                                           cost_s=0.001),
+                          clock=clock, data_plane=plane,
+                          example_obs=rows[0][0], example_mask=rows[0][1])
+    first = server.submit(*rows[0])
+    assert server.pump() == 1 and first.result(timeout=10).latency_s == 0.25
+    assert server._service_time.value == 0.25       # 5x the deadline
+    outcomes = []
+    for k in range(200):
+        clock.t += 0.01
+        fut = server.submit(*rows[k % 8], deadline_s=0.05)
+        server.pump(max_wait_s=0)
+        outcomes.append(fut.exception(timeout=10) is None)
+        if outcomes[-1] and outcomes.count(True) == 1:
+            # the probe's dispatch relearned the estimate in one step
+            assert server._service_time.value == pytest.approx(0.001)
+    probe = outcomes.index(True) if True in outcomes else None
+    assert probe is not None, "no dispatch ran after the stall"
+    assert probe <= 25 and all(outcomes[probe:])
+    shed = server.registry.counter("serve_shed_total").value
+    assert shed == outcomes.count(False) == probe
+    server.close()
+
+
+class _PausedEngine(_StretchedEngine):
+    """Host engine under a fake clock: 1 ms dispatches, except dispatch
+    ``k`` (0-based), which costs ``pause_s`` (a full collection holding
+    every thread)."""
+
+    def __init__(self, clock, k, pause_s, max_bucket=8):
+        super().__init__(clock, first_s=0.001, cost_s=0.001,
+                         max_bucket=max_bucket)
+        self.costs = [0.001] * (k + 1)
+        self.costs[0] = pause_s
+
+
+@pytest.mark.parametrize("plane", ["arena", "legacy"])
+def test_one_paused_dispatch_does_not_shed_the_burst_behind_it(plane):
+    """After 10 dispatches of 1 ms, one takes 0.6 s (a pause), and then
+    the 40 requests the pause held back arrive at once with 50 ms
+    deadlines: 5 dispatches of 8 ahead of the last. Taken whole, the
+    pause would lift the estimate to 0.12 s and shed the whole burst at
+    admission (the probe rule cannot help: the queue is not empty). The
+    sample is capped at ``SAMPLE_CAP`` times the estimate, so the
+    estimate stays near 1.6 ms, the burst is admitted and served, and a
+    lasting slowdown would still be learned."""
+    from rlgpuschedule_tpu_torch.serve.batching import SAMPLE_CAP
+    clock = _Clock()
+    rows = _rows(8)
+    server = PolicyServer(_PausedEngine(clock, k=10, pause_s=0.6),
+                          clock=clock, data_plane=plane,
+                          example_obs=rows[0][0], example_mask=rows[0][1])
+    for k in range(11):
+        fut = server.submit(*rows[k % 8], deadline_s=0.05)
+        assert server.pump(max_wait_s=0) == 1
+        fut.result(timeout=10)
+        clock.t += 0.01
+    assert server._service_time.value == pytest.approx(
+        0.2 * SAMPLE_CAP * 0.001 + 0.8 * 0.001)
+    burst = [server.submit(*rows[k % 8], deadline_s=0.05)
+             for k in range(40)]
+    while server.pump(max_wait_s=0):
+        pass
+    assert all(f.exception(timeout=10) is None for f in burst)
+    assert server.registry.counter("serve_shed_total").value == 0
     server.close()

@@ -209,9 +209,6 @@ def test_serve_cli_serves_jax_weights_from_npz(tmp_path):
 
 
 DEFERRED_FLAGS = [
-    (["--engines", "2"], "item 22"), (["--scaleout"], "item 22"),
-    (["--autoscale"], "item 22"), (["--chaos-faults", "engine-raise@3"],
-                                   "item 22"),
     (["--frontend-port", "0"], "item 22"), (["--wire-requests", "8"],
                                             "item 22"),
     (["--flight-log", "d"], "item 23"), (["--promote", "d"], "item 23"),
@@ -221,9 +218,11 @@ DEFERRED_FLAGS = [
 
 def test_serve_cli_refuses_what_the_slice_lacks():
     """Each flag of the JAX CLI that a later slice brings fails with
-    NotImplementedError naming its ROADMAP.md item; so does serving the
-    hierarchical preset through the engine (its --fleet runs), in a
-    subprocess as a user meets it."""
+    NotImplementedError naming its ROADMAP.md item, in a subprocess as a
+    user meets it. The hierarchical preset's ``--bench`` runs through
+    one engine, and ``--engines 2`` of it exits with the mode table's
+    refusal in JAX's words (the router flags themselves are served:
+    ``tests/test_torch_router.py``)."""
     for extra, item in DEFERRED_FLAGS:
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP.md queue 1, {item}"):
@@ -233,9 +232,17 @@ def test_serve_cli_refuses_what_the_slice_lacks():
               "--fleet-regime", "storm"])
     assert p.returncode != 0 and "NotImplementedError" in p.stderr
     p = _run(["-m", "rlgpuschedule_tpu_torch.serve", "--config",
-              "hier-pbt-member", "--bench", "--device", "cpu"])
-    assert p.returncode != 0 and "NotImplementedError" in p.stderr
-    assert "hierarchical policy" in p.stderr and "item 22" in p.stderr
+              "hier-pbt-member", "--bench", "--n-envs", "2", "--pool-steps",
+              "1", "--rounds", "3", "--device", "cpu"])
+    assert p.returncode == 0, p.stderr
+    bench = json.loads(p.stdout.strip().splitlines()[-1])["bench"]
+    assert bench["requests"] > 0 and bench["post_warmup_recompiles"] == 0
+    p = _run(["-m", "rlgpuschedule_tpu_torch.serve", "--config",
+              "hier-pbt-member", "--bench", "--engines", "2", "--device",
+              "cpu"])
+    with pytest.raises(jconfigs.ModeCombinationError) as want:
+        jconfigs.validate_mode_combination({"router": True, "hier": True})
+    assert p.returncode != 0 and str(want.value) in p.stderr
 
 
 @pytest.mark.parametrize("name", ["gnn-gang-place", "ppo-mlp-preempt"])
