@@ -261,6 +261,27 @@ imports nothing of JAX. Phases, each fatal on failure:
     --config hier-pbt-member --bench --soak 2 --bucket 64`` exits 0 with
     0 recompiles and every soak request served or shed.
 
+21. Cluster chaos and domain randomization (each check fatal): config
+    2 at full width (bf16, seeded weights) replays the 512-cluster fleet
+    clean and under ``storm`` schedules from ``sample_fleet_faults``
+    (what ``serve --fleet-regime storm`` runs), each profiled (device
+    ops per step, idle share); then ``eval.replay`` under a ``mixed``
+    ``DomainSchedule`` over 512 windows from ``make_domain_windows``.
+    For each schedule the first 16 clusters replay on the card with the
+    policy and on the CPU with the card's actions fed back: the final
+    states, the per-job JCTs and every ``EvalResult`` field must be
+    bit-identical, but ``avg_jct`` (an f32 sum whose order differs
+    between the devices) within rtol 1e-6. Config 1
+    (``ppo-mlp-synth64``, its preset width) trains clean, with
+    ``--faults storm`` and with ``--domains mixed`` through the train
+    CLI's ``main`` (4 iterations each, env-steps/s printed side by side); ``evaluate --chaos`` over none, sporadic,
+    storm and straggler and ``evaluate --matrix`` over none, baseline,
+    hetero and overload run on the trained checkpoints (every cell's
+    conservation check holds, 0 jobs lost), and each table's policy rows
+    equal the same report's on the CPU (f32 weights from the
+    checkpoint, TF32 off; a row that differs is replayed on both devices
+    and held to phase 9's margin rule), the baseline rows exactly.
+
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it is the card's name and power limit. Without a CUDA device, or
 without the ``rlgpuschedule_tpu_torch`` package beside it, the script
@@ -337,6 +358,8 @@ CHAOS_FAULTS = ("engine-raise@20:engine=1,engine-hang@60:engine=1,"
                 "engine-slow@100:engine=1")
 HIER_SERVE_SIZES = (5, 17, 32)
 HIER_SERVE_SEEDS = 8      # phase 20 (5): seeds tried for weights that route
+CHAOS_COMPARE = 16        # phase 21: clusters replayed card against CPU
+CHAOS_TRAIN_ITERS = 4     # phase 21: config-1 train CLI runs
 ROWS = ("policy", "random", "fifo", "sjf", "srtf", "tiresias")
 BASELINES = ("fifo", "sjf", "srtf", "tiresias")
 
@@ -386,12 +409,14 @@ def profile_phase(torch, env_params, traces, policy):
     _line("profile", **_replay_profile(torch, env_params, traces, policy))
 
 
-def _replay_profile(torch, env_params, traces, policy, s1=8, s2=40):
+def _replay_profile(torch, env_params, traces, policy, s1=8, s2=40,
+                    faults=None):
     """Kernel launches per decision step, from the difference of two
     replay lengths (which cancels reset and final statistics); device
     time by op and the device idle share over the longer one, with and
     without the profiler's own overhead on the host; and the policy's
-    share of a step."""
+    share of a step. ``faults``: the batched schedules replayed
+    under."""
     from torch.profiler import ProfilerActivity, profile
 
     from rlgpuschedule_tpu_torch.env import env as env_lib
@@ -400,7 +425,7 @@ def _replay_profile(torch, env_params, traces, policy, s1=8, s2=40):
     def timed(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        replay(policy, env_params, traces, max_steps=steps)
+        replay(policy, env_params, traces, max_steps=steps, faults=faults)
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
@@ -424,7 +449,7 @@ def _replay_profile(torch, env_params, traces, policy, s1=8, s2=40):
                  key=lambda r: -r[1])[:10]
     # the policy alone on the replay's first observation, CUDA events
     with torch.inference_mode():
-        _, ts = env_lib.reset(env_params, traces)
+        _, ts = env_lib.reset(env_params, traces, faults)
         start, end = (torch.cuda.Event(enable_timing=True)
                       for _ in range(2))
         policy(ts.obs, ts.action_mask)
@@ -2896,6 +2921,317 @@ def router_phase(torch, dev):
         _restore_flags(torch, old)
 
 
+def _fed_replay_check(torch, what, env_params, windows, schedules, policy,
+                      dev):
+    """The first ``CHAOS_COMPARE`` windows replayed under their schedules
+    on the card with ``policy`` (actions recorded) and on the CPU with
+    those actions fed back: the final states, the per-job JCTs and every
+    ``EvalResult`` field but ``avg_jct`` must be the same bits;
+    ``avg_jct``, an f32 sum over the window whose order differs between
+    the devices, within rtol 1e-6 (phase 3's rule). Returns the steps
+    compared and the completion."""
+    from rlgpuschedule_tpu_torch.env import stack_traces
+    from rlgpuschedule_tpu_torch.eval import replay
+    from rlgpuschedule_tpu_torch.sim.faults import stack_fault_schedules
+
+    class Feed(torch.nn.Module):
+        """Plays the recorded actions, one row per decision step."""
+
+        def __init__(self, actions, n_actions):
+            super().__init__()
+            self.actions, self.n, self.i = actions, n_actions, 0
+
+        def forward(self, obs, mask):
+            a = self.actions[self.i]
+            self.i += 1
+            hot = torch.arange(self.n) == a[:, None]
+            return (torch.where(hot, 0.0, -1e9),
+                    torch.zeros(a.shape[0]))
+
+    sub = windows[:CHAOS_COMPARE]
+    side = {}
+    for d in (dev, "cpu"):
+        traces = stack_traces(sub, env_params, d)
+        faults = stack_fault_schedules(schedules[:CHAOS_COMPARE], d)
+        if d == dev:
+            res, st, rec = replay(policy, env_params, traces,
+                                  return_states=True, record=True,
+                                  faults=faults)
+            feed = Feed(rec.actions.cpu(), env_params.n_actions)
+        else:
+            res, st = replay(feed, env_params, traces, return_states=True,
+                             faults=faults)
+        side[d] = (res, st, traces)
+    (rg, sg, tg), (rc, sc, tc) = side[dev], side["cpu"]
+    pairs = [(f"sim.{f}", getattr(sg.sim, f), getattr(sc.sim, f))
+             for f in sc.sim._fields]
+    pairs += [(f"result.{f}", getattr(rg, f), getattr(rc, f))
+              for f in rc._fields if f != "avg_jct"]
+    rel = float(((rg.avg_jct.cpu().double() - rc.avg_jct.double()).abs()
+                 / rc.avg_jct.double().abs().clamp_min(1e-30)).max())
+    if rel > 1e-6:
+        raise SystemExit(f"{what}: avg_jct differs by {rel} (relative) "
+                         f"between the card and the CPU")
+    for name, x, y in pairs:
+        x = x.cpu()
+        if not (x.dtype == y.dtype
+                and x.numpy().tobytes() == y.numpy().tobytes()):
+            raise SystemExit(f"{what}: {name} differs between the card and "
+                             f"the CPU")
+    for e in range(len(sub)):
+        if _window_jcts(torch, sg, tg, e) != _window_jcts(torch, sc, tc, e):
+            raise SystemExit(f"{what}: window {e}'s JCTs differ between the "
+                             f"card and the CPU")
+    return (int(rc.steps.sum()), float(rc.n_done.sum() / rc.n_valid.sum()),
+            rel)
+
+
+def _rows_card_cpu(torch, what, table_g, table_c, policy_rows, explain):
+    """Phase 21: a chaos or matrix table on the card against the same
+    table on the CPU: the baseline rows equal, the policy rows within
+    rtol 1e-6 with the same completion. A policy row that differs is
+    replayed on both devices with its actions recorded
+    (``explain(regime, row)``) and held to phase 9's margin rule: the
+    actions may part only where the CPU's top-two margin is below 1e-4.
+    Returns the windows so cut short, by cell."""
+    cut = {}
+    for regime, cells in table_c.items():
+        for sched, cell in cells.items():
+            got = table_g[regime][sched]
+            if sched not in policy_rows:
+                if got != cell:
+                    raise SystemExit(f"{what} ({regime}, {sched}): {got} on "
+                                     f"the card vs {cell} on the CPU")
+                continue
+            if (got["completion"] == cell["completion"]
+                    and abs(got["avg_jct"] - cell["avg_jct"])
+                    <= 1e-6 * abs(cell["avg_jct"])):
+                continue
+            _, c = explain(regime, sched)
+            if not c:
+                raise SystemExit(f"{what} ({regime}, {sched}): {got} on the "
+                                 f"card vs {cell} on the CPU, and no "
+                                 f"near-tie parts their actions")
+            cut[f"{regime}/{sched}"] = c
+    return cut
+
+
+def chaos_phase(torch, dev):
+    """Phase 21: cluster chaos and domain randomization on the card."""
+    import shutil
+    import tempfile
+
+    from rlgpuschedule_tpu_torch.configs import CONFIGS
+    from rlgpuschedule_tpu_torch.domains import (
+        domain_schedule, sample_env_domains, stack_domain_schedules,
+        validate_domain_schedule)
+    from rlgpuschedule_tpu_torch.env import stack_traces
+    from rlgpuschedule_tpu_torch.eval import replay
+    from rlgpuschedule_tpu_torch.experiment import (build_env_params,
+                                                    build_policy,
+                                                    make_domain_windows)
+    from rlgpuschedule_tpu_torch.serve.fleet import (fleet_replay,
+                                                     fleet_windows,
+                                                     sample_fleet_faults)
+    from rlgpuschedule_tpu_torch.sim.faults import (fault_horizon,
+                                                    sample_fault_schedule)
+
+    # (1) config 2's fleet, clean and under storm schedules
+    cfg = CONFIGS[CONFIG]
+    env_params = build_env_params(cfg)
+    windows, traces = fleet_windows(cfg, N_CLUSTERS, device=dev)
+    storm = sample_fleet_faults(cfg.n_nodes, "storm", 0, N_CLUSTERS,
+                                windows, dev)
+    policy = build_policy(cfg, env_params, device=dev)
+    fleet_replay(policy, env_params, traces, max_steps=4, device=dev,
+                 faults=storm)
+    for name, f in (("clean", None), ("storm", storm)):
+        fl = fleet_replay(policy, env_params, traces, device=dev, faults=f)
+        prof = _replay_profile(torch, env_params, traces, policy, 4, 20,
+                               faults=f)
+        _line("chaos_fleet", config=cfg.name, regime=name,
+              n_clusters=fl["n_clusters"], decisions=fl["decisions"],
+              wall_s=fl["wall_s"], decisions_per_s=fl["decisions_per_s"],
+              mean_jct=fl["mean_jct"], completion=fl["completion"],
+              **{k: prof[k] for k in (
+                  "launches_per_step", "step_ms_unprofiled",
+                  "device_idle_share_unprofiled")})
+        if not (fl["completion"] > 0 and _finite(fl["mean_jct"],
+                                                 fl["decisions_per_s"])):
+            raise SystemExit(f"fleet under {name}: nothing completed or a "
+                             f"non-finite value")
+    horizon_s = fault_horizon(windows)
+    host = [sample_fault_schedule(cfg.n_nodes, "storm", (0, e), horizon_s)
+            for e in range(CHAOS_COMPARE)]
+    steps, completion, rel = _fed_replay_check(
+        torch, "storm fleet", env_params, windows, host, policy, dev)
+    _line("chaos_card_vs_cpu", config=cfg.name, schedule="storm",
+          clusters=CHAOS_COMPARE, steps=steps, completion=completion,
+          states_jcts_bit_identical=True, avg_jct_max_rel_diff=rel)
+
+    # (2) the same policy under mixed domain draws
+    dcfg = dataclasses.replace(cfg, domains="mixed")
+    dparams = build_env_params(dcfg)
+    draws = sample_env_domains("mixed", cfg.n_nodes, cfg.gpus_per_node,
+                               cfg.seed, N_CLUSTERS)
+    t0 = time.perf_counter()
+    dwindows = make_domain_windows(dcfg, draws)
+    dhost = [validate_domain_schedule(cfg.n_nodes, cfg.gpus_per_node,
+                                      domain_schedule(d)) for d in draws]
+    dtraces = stack_traces(dwindows, dparams, dev)
+    mixed = stack_domain_schedules(dhost, dev)
+    gen_s = time.perf_counter() - t0
+    t0 = _sync(torch)
+    res = replay(policy, dparams, dtraces, faults=mixed)
+    wall = _sync(torch) - t0
+    prof = _replay_profile(torch, dparams, dtraces, policy, 4, 20,
+                           faults=mixed)
+    done, valid = int(res.n_done.sum()), int(res.n_valid.sum())
+    _line("chaos_domains", config=cfg.name, regime="mixed",
+          n_clusters=N_CLUSTERS, windows_and_schedules_s=gen_s,
+          replay_wall_s=wall, decisions=int(res.steps.sum()),
+          decisions_per_s=int(res.steps.sum()) / wall,
+          completion=done / valid,
+          mean_total_gpus=float(mixed.capacity.sum(1).float().mean()),
+          **{k: prof[k] for k in (
+              "launches_per_step", "step_ms_unprofiled",
+              "device_idle_share_unprofiled")})
+    if not done:
+        raise SystemExit("the mixed-domain replay completed no job")
+    steps, completion, rel = _fed_replay_check(
+        torch, "mixed domains", dparams, dwindows, dhost, policy, dev)
+    _line("chaos_card_vs_cpu", config=cfg.name, schedule="mixed",
+          clusters=CHAOS_COMPARE, steps=steps, completion=completion,
+          states_jcts_bit_identical=True, avg_jct_max_rel_diff=rel)
+    del policy, traces, dtraces, storm, mixed, windows, dwindows
+
+    # (3) config 1: the train CLI clean, under storm faults and across
+    # mixed domains, then the chaos and generalization tables
+    name = "ppo-mlp-synth64"
+    root = tempfile.mkdtemp(prefix="chip_smoke_chaos_")
+    try:
+        _chaos_tables(torch, dev, name, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _chaos_tables(torch, dev, name, root):
+    """Phase 21 (3): config 1 trained clean, under storm faults and across
+    mixed domains into ``root``, then the chaos and generalization
+    tables on the card and on the CPU."""
+    from rlgpuschedule_tpu_torch import evaluate as evaluate_cli
+    from rlgpuschedule_tpu_torch import train as train_cli
+    from rlgpuschedule_tpu_torch.checkpoint import Checkpointer
+    from rlgpuschedule_tpu_torch.configs import CONFIGS
+    from rlgpuschedule_tpu_torch.domains import (
+        domain_schedule, sample_env_domains, validate_domain_schedule)
+    from rlgpuschedule_tpu_torch.env import stack_traces
+    from rlgpuschedule_tpu_torch.eval import (chaos_report, matrix_report,
+                                              replay)
+    from rlgpuschedule_tpu_torch.experiment import (Experiment,
+                                                    build_policy,
+                                                    make_domain_windows)
+    from rlgpuschedule_tpu_torch.sim.faults import (fault_horizon,
+                                                    sample_fault_schedule,
+                                                    stack_fault_schedules)
+
+    rates = {}
+    for label, flags in (("clean", []), ("storm", ["--faults", "storm"]),
+                         ("mixed", ["--domains", "mixed"])):
+        summary = train_cli.main([
+            "--config", name, "--iterations", str(CHAOS_TRAIN_ITERS),
+            "--log-every", "100", "--ckpt-dir",
+            os.path.join(root, label), *flags])
+        rates[label] = summary["env_steps_per_sec"]
+    _line("chaos_train", config=name, iterations=CHAOS_TRAIN_ITERS,
+          env_steps_per_sec=rates)
+    ccfg = dataclasses.replace(CONFIGS[name], faults="storm")
+    chaos = evaluate_cli.main(["--config", name, "--faults", "storm",
+                               "--ckpt-dir", os.path.join(root, "storm"),
+                               "--chaos"])
+    mcfg = dataclasses.replace(CONFIGS[name], domains="mixed")
+    matrix = evaluate_cli.main([
+        "--config", name, "--domains", "mixed", "--ckpt-dir",
+        os.path.join(root, "mixed"), "--matrix", "--matrix-ckpt",
+        f"clean={os.path.join(root, 'clean')}"])
+    for what, rep in (("chaos", chaos), ("matrix", matrix)):
+        if rep["jobs_lost"]:
+            raise SystemExit(f"{what}: {rep['jobs_lost']} jobs lost")
+    # the same tables, f32 weights from the checkpoints, card and CPU
+    old = _flags(torch, tf32=False, deterministic=True)
+    try:
+        tables = {}
+        for d in (dev, "cpu"):
+            exps = {}
+            for label, c in (("storm", ccfg), ("mixed", mcfg),
+                             ("clean", CONFIGS[name])):
+                e = Experiment.build(c, device=d)
+                e.train_state = e.train_state._replace(
+                    net=build_policy(c, e.env_params, dtype=torch.float32,
+                                     device=d))
+                with Checkpointer(os.path.join(root, label)) as ck:
+                    e.restore_checkpoint(ck, train=False)
+                exps[label] = e
+            t0 = _sync(torch)
+            ch = chaos_report(exps["storm"])
+            mx = matrix_report(exps["mixed"], policies={
+                "mixed": (exps["mixed"].net, exps["mixed"].env_params),
+                "clean": (exps["clean"].net, exps["clean"].env_params)})
+            tables[d] = (ch, mx, _sync(torch) - t0, exps)
+
+        def explain(kind):
+            """Replays of one cell on both devices, phase 9's rule."""
+            def run(regime, row):
+                if kind == "chaos":
+                    wins = tables["cpu"][3]["storm"].windows
+                    h = fault_horizon(wins)
+                    sch = [sample_fault_schedule(ccfg.n_nodes, regime,
+                                                 (0, e), h)
+                           for e in range(len(wins))]
+                    label = "storm"
+                else:
+                    ds = sample_env_domains(regime, mcfg.n_nodes,
+                                            mcfg.gpus_per_node, 0,
+                                            mcfg.n_envs)
+                    wins = make_domain_windows(
+                        dataclasses.replace(mcfg, seed=0), ds)
+                    sch = [validate_domain_schedule(
+                        mcfg.n_nodes, mcfg.gpus_per_node,
+                        domain_schedule(x)) for x in ds]
+                    label = row
+                sides = []
+                for d in (dev, "cpu"):
+                    e = tables[d][3][label]
+                    tr = stack_traces(wins, e.env_params, d)
+                    f = stack_fault_schedules(sch, d)
+                    res, st, rec = replay(e.net, e.env_params, tr,
+                                          return_states=True, record=True,
+                                          faults=f)
+                    sides.append((res, rec, [_window_jcts(torch, st, tr, i)
+                                             for i in range(len(wins))]))
+                return _margin_rule(torch, f"{kind} {regime}/{row}",
+                                    sides, 1 << 30)
+            return run
+
+        (chg, mxg, wg, _), (chc, mxc, wc, _) = tables[dev], tables["cpu"]
+        cut = _rows_card_cpu(torch, "chaos", chg["regimes"], chc["regimes"],
+                             ("policy",), explain("chaos"))
+        cut.update(_rows_card_cpu(torch, "matrix", mxg["cells"],
+                                  mxc["cells"], ("mixed", "clean"),
+                                  explain("matrix")))
+    finally:
+        _restore_flags(torch, old)
+    _line("chaos_tables", config=name, chaos_jobs_lost=chg["jobs_lost"],
+          matrix_jobs_lost=mxg["jobs_lost"],
+          chaos_policy_jct={r: c["policy"]["avg_jct"]
+                            for r, c in chg["regimes"].items()},
+          chaos_degradation={r: {s: x["degradation"] for s, x in c.items()}
+                             for r, c in chg["regimes"].items()},
+          matrix_degradation={r: {s: x["degradation"] for s, x in c.items()}
+                              for r, c in mxg["cells"].items()},
+          card_s=wg, cpu_s=wc, rows_cut_short_by_near_ties=cut)
+
+
 def _hier_serve(torch, dev):
     """Phase 20 (5): config 5 through one engine and the serve CLI."""
     import copy
@@ -3106,6 +3442,7 @@ def main() -> int:
     timed(fused_phase)
     timed(hier_pbt_phase)
     timed(router_phase)
+    timed(chaos_phase)
     _line("done", total_s=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -28,8 +28,9 @@ The simulator has the JAX package's pack and pack|spread placement and
 its preemptive action space (the stall guard included), the
 observations its flat, grid and topology-graph forms, and the
 hierarchical multi-pod env of config 5 (:mod:`.env.hier`), for all five
-configs and ``ppo-mlp-preempt``. Faults and domain randomization raise
-``NotImplementedError`` naming the slice that will bring them.
+configs and ``ppo-mlp-preempt``; the seeded cluster fault process
+(:mod:`.sim.faults`) and domain randomization (:mod:`.domains`) ride
+the flat configs' simulator, training, evaluation and fleet replay.
 """
 from .device import resolve_device
 

@@ -149,15 +149,17 @@ def make_learn_step(config: A2CConfig):
 
 
 def make_train_step(env_params: EnvParams, config: A2CConfig):
-    """One A2C iteration: ``(state, carry, traces, generator) -> (state,
-    carry', metrics)``; the rollout samples from the carry's generator,
+    """One A2C iteration: ``(state, carry, traces, generator[, faults])
+    -> (state, carry', metrics)``, the rollout under ``faults`` (None: a
+    healthy cluster); the rollout samples from the carry's generator,
     a shuffled geometry permutes with ``generator``."""
     learn_step = make_learn_step(config)
 
     def train_step(state: TrainState, carry: RolloutCarry, traces: Trace,
-                   generator: torch.Generator):
+                   generator: torch.Generator, faults=None):
         carry, tr, last_value = rollout(state.net, env_params, traces,
-                                        carry, config.n_steps)
+                                        carry, config.n_steps,
+                                        faults=faults)
         state, metrics = learn_step(state, tr, last_value, generator)
         return state, carry, metrics
 

@@ -397,16 +397,17 @@ def make_learn_step(config: PPOConfig) -> LearnStep:
 
 
 def make_train_step(env_params: EnvParams, config: PPOConfig):
-    """One PPO iteration:
-    ``(state, carry, traces, generator) -> (state, carry', metrics)``;
-    the rollout samples from the carry's generator, the update permutes
-    with ``generator``."""
+    """One PPO iteration: ``(state, carry, traces, generator[, faults])
+    -> (state, carry', metrics)``, the rollout under ``faults`` (None: a
+    healthy cluster); the rollout samples from the carry's generator,
+    the update permutes with ``generator``."""
     learn_step = make_learn_step(config)
 
     def train_step(state: TrainState, carry: RolloutCarry, traces: Trace,
-                   generator: torch.Generator):
+                   generator: torch.Generator, faults=None):
         carry, tr, last_value = rollout(state.net, env_params, traces,
-                                        carry, config.n_steps)
+                                        carry, config.n_steps,
+                                        faults=faults)
         state, metrics = learn_step(state, tr, last_value, generator)
         return state, carry, metrics
 

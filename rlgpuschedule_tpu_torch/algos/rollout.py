@@ -14,6 +14,10 @@ inference tensors cannot be saved for backward.
 On the hierarchical env (:class:`..env.hier.HierParams`) the
 observation, mask and action are dicts of per-head tensors; the buffer
 stacks them leaf by leaf.
+
+``faults`` (flat env): the batched fault or domain schedules threaded
+next to the traces; an auto-reset restarts an episode under the same
+schedule. ``None`` is the healthy cluster.
 """
 from __future__ import annotations
 
@@ -59,8 +63,8 @@ class RolloutCarry(NamedTuple):
 
 
 def init_carry(params: EnvParams, traces: Trace,
-               generator: torch.Generator) -> RolloutCarry:
-    env_state, ts = env_module(params).vec_reset(params, traces)
+               generator: torch.Generator, faults=None) -> RolloutCarry:
+    env_state, ts = env_module(params).vec_reset(params, traces, faults)
     return RolloutCarry(env_state, ts.obs, ts.action_mask, generator)
 
 
@@ -81,7 +85,7 @@ def validate_rollout_geometry(n_steps: int, n_envs: int,
 @torch.no_grad()
 def rollout(apply_fn: PolicyApply, env_params: EnvParams, traces: Trace,
             carry: RolloutCarry, n_steps: int,
-            sample_fn: SampleFn = action_dist.sample,
+            sample_fn: SampleFn = action_dist.sample, faults=None,
             ) -> tuple[RolloutCarry, Transition, torch.Tensor]:
     """Collect ``n_steps`` transitions from the batched envs. Returns
     (carry', transitions ``[T, E, ...]``, last_value ``[E]``).
@@ -89,10 +93,10 @@ def rollout(apply_fn: PolicyApply, env_params: EnvParams, traces: Trace,
     ``sample_fn`` picks the actions (default :func:`action_dist.sample`
     from the carry's generator); a test passes one that replays another
     rollout's actions."""
-    # the auto-reset bundle depends only on the traces: built once here
-    # instead of a full reset every step
-    fresh = env_module(env_params).vec_reset(env_params, traces)
-    env_step = vec_stepper(env_params, traces)
+    # the auto-reset bundle depends only on the traces (and schedules):
+    # built once here instead of a full reset every step
+    fresh = env_module(env_params).vec_reset(env_params, traces, faults)
+    env_step = vec_stepper(env_params, traces, faults)
     env_state, obs, mask, gen = carry
     steps = []
     for _ in range(n_steps):

@@ -1,10 +1,11 @@
 """Named experiment configs (L6): cluster, trace, env, PPO and A2C
 fields, and the mode-combination refusal table.
 
-The port's copy of the JAX package's ``configs.py``; fault and domain
-regimes wait for their slice. The presets keep their names and the
-values of the fields kept here, so a config name means the same run in
-both packages; every preset runs, the hierarchical config 5
+The port's copy of the JAX package's ``configs.py``, the fault and
+domain regimes (``faults``, ``domains``) included. The presets keep
+their names and the values of the fields kept here, so a config name
+means the same run in both packages; every preset runs, the
+hierarchical config 5
 (``hier-pbt-member``, ``n_pods > 1``) through :mod:`.env.hier`.
 :data:`MODE_REFUSALS` is JAX's table word for word, so a refused pair
 gives the JAX CLI's message; modes that wait for a slice of the port are
@@ -69,6 +70,14 @@ class ExperimentConfig:
     a2c: A2CConfig = A2CConfig()
     iterations: int = 100
     seed: int = 0
+    # cluster chaos: train under seeded per-env fault schedules drawn
+    # from this named regime (sim.faults.FAULT_REGIMES); a flat config's
+    # observation gains per-node health. None = a healthy cluster
+    faults: str | None = None
+    # domain randomization: per-env cluster geometry, hardware speed and
+    # arrival draws from this named regime (domains.DOMAIN_REGIMES),
+    # composed with faults. None = the one fixed cluster
+    domains: str | None = None
 
     @property
     def total_gpus(self) -> int:
@@ -204,16 +213,15 @@ def repro_tuple(cfg: ExperimentConfig, ckpt_dir: str | None = None,
     the config fields that determine a replay and the checkpoint it
     restored, the JAX package's key set. ``ckpt_step`` is the step
     actually restored (``Checkpointer.last_restored_step``), which the
-    integrity fallback may make older than the one asked for. The port
-    has no fault or domain regimes yet: ``faults`` and ``domains`` are
-    None."""
+    integrity fallback may make older than the one asked for."""
     return {"config": cfg.name, "seed": cfg.seed, "trace": cfg.trace,
             "trace_path": cfg.trace_path, "trace_load": cfg.trace_load,
             "source_jobs": cfg.source_jobs, "n_envs": cfg.n_envs,
             "n_nodes": cfg.n_nodes, "gpus_per_node": cfg.gpus_per_node,
             "window_jobs": cfg.window_jobs, "queue_len": cfg.queue_len,
             "horizon": cfg.horizon, "obs_kind": cfg.obs_kind,
-            "drain_frac": cfg.drain_frac, "faults": None, "domains": None,
+            "drain_frac": cfg.drain_frac, "faults": cfg.faults,
+            "domains": cfg.domains,
             "ckpt_dir": ckpt_dir, "ckpt_step": ckpt_step}
 
 

@@ -437,16 +437,31 @@ def step(params: HierParams, state: HierState, trace: Trace,
                                action_mask=mask, info=info)
 
 
-# the port's reset is batched over envs already
-vec_reset = reset
+def _refuse_faults(faults) -> None:
+    """JAX's refusal: the pods have no fault process."""
+    if faults is not None:
+        raise ValueError("the hierarchical env has no fault-process "
+                         "support; cluster chaos (sim.faults) is a flat-"
+                         "config feature for now")
+
+
+def vec_reset(params: HierParams, traces: Trace, faults=None,
+              ) -> tuple[HierState, TimeStep]:
+    """:func:`reset` (batched over envs already); ``faults`` is refused,
+    as JAX refuses it."""
+    _refuse_faults(faults)
+    return reset(params, traces)
 
 
 def vec_step(params: HierParams, state: HierState, traces: Trace,
              actions: dict, fresh: "tuple[HierState, TimeStep] | None" = None,
-             ptrace: Trace | None = None) -> tuple[HierState, TimeStep]:
+             faults=None, ptrace: Trace | None = None,
+             ) -> tuple[HierState, TimeStep]:
     """Step plus the fused auto-reset of :func:`..env.vec_step`: where an
     episode ended, the env continues from ``fresh = vec_reset(params,
-    traces)`` (built anew when not given). ``ptrace`` is :func:`step`'s."""
+    traces)`` (built anew when not given). ``faults`` is refused, as JAX
+    refuses it; ``ptrace`` is :func:`step`'s."""
+    _refuse_faults(faults)
     if ptrace is None:
         ptrace = pod_traces(traces, params.n_pods)
     stepped, ts = step(params, state, traces, actions, ptrace)
@@ -463,14 +478,16 @@ def env_module(params):
         else env_lib
 
 
-def vec_stepper(params, traces: Trace):
+def vec_stepper(params, traces: Trace, faults=None):
     """``(state, actions, fresh) -> (state', ts)``: the ``vec_step`` of
-    ``params``' env on the fixed batch ``traces``, with what depends on
-    the traces alone (the hierarchical env's ``pod_traces``) built once
-    for every step of a rollout."""
+    ``params``' env on the fixed batch ``traces`` (under the flat env's
+    ``faults``), with what depends on the traces alone (the
+    hierarchical env's ``pod_traces``) built once for every step of a
+    rollout."""
     if not isinstance(params, HierParams):
         return lambda state, actions, fresh=None: env_lib.vec_step(
-            params, state, traces, actions, fresh)
+            params, state, traces, actions, fresh, faults)
+    _refuse_faults(faults)
     ptrace = pod_traces(traces, params.n_pods)
     return lambda state, actions, fresh=None: vec_step(
-        params, state, traces, actions, fresh, ptrace)
+        params, state, traces, actions, fresh, ptrace=ptrace)

@@ -1,11 +1,13 @@
 """Observation builders (L2) of the port: flat, occupancy grid and
 topology graph.
 
-Counterparts of ``queue_features``, ``run_features``, ``flat_obs``,
-``grid_obs``, ``build_adjacency`` and ``graph_obs`` in the JAX package's
+Counterparts of ``node_health``, ``node_geometry``,
+``queue_features``, ``run_features``, ``flat_obs``, ``grid_obs``,
+``build_adjacency`` and ``graph_obs`` in the JAX package's
 ``env/obs.py``, batched over the leading cluster axis. Preemptive
 configs (``preempt_len`` R > 0) append the R running-queue slots to
-each observation.
+each observation; a fault or domain run's flat observation appends the
+per-node health and geometry channels (:mod:`.env`).
 
 Every division by a config constant is written as a product with its
 reciprocal: jitted XLA computes it so, and so does torch's CUDA
@@ -19,8 +21,32 @@ import torch
 from ..sim.core import (RUNNING, SimParams, SimState, Trace, _take,
                         in_system, pending_queue, running_queue,
                         utilization)
+from ..sim.faults import FaultSchedule, node_up
 
 GRAPH_FEATURES = 5
+
+
+def node_health(params: SimParams, state: SimState,
+                faults: FaultSchedule | None = None) -> torch.Tensor:
+    """Per-node effective speed ``f32[E, N]``: 1 healthy, ``1/slowdown``
+    straggling, 0 drained at the clock; every node healthy with
+    ``faults=None`` (a fault-trained policy replayed on a clean
+    cluster)."""
+    if faults is None:
+        return torch.ones_like(state.free, dtype=torch.float32)
+    return torch.where(node_up(faults, state.clock),
+                       torch.reciprocal(faults.slowdown), 0.0)
+
+
+def node_geometry(params: SimParams, state: SimState,
+                  faults=None) -> torch.Tensor:
+    """Per-node capacity ``f32[E, N]``: usable GPUs / ``gpus_per_node``
+    of a domain schedule, so a policy can tell a shrunken node from a
+    busy one; a full homogeneous cluster without one."""
+    cap = getattr(faults, "capacity", None)
+    if cap is None:
+        return torch.ones_like(state.free, dtype=torch.float32)
+    return cap.to(torch.float32) * (1.0 / params.gpus_per_node)
 
 
 def _tanh(x: torch.Tensor) -> torch.Tensor:

@@ -16,8 +16,10 @@ def preempt_charge(info: StepInfo, preempt_cost: float) -> torch.Tensor:
     legs of a place<->preempt cycle cost no simulated time, so without
     the charge stalling the clock in such a cycle escapes the backlog
     penalty forever. First placements are never charged. On a
-    non-preemptive action space no job is placed twice and the charge is
-    exactly -0.0, which leaves any reward's bits unchanged."""
+    non-preemptive action space without faults no job is placed twice
+    and the charge is exactly -0.0, which leaves any reward's bits
+    unchanged; a drain kills jobs back to the queue, and their
+    re-placement is charged as JAX charges it."""
     replaced = info.placed & ~info.first_placed
     return -preempt_cost * (info.preempted | replaced).to(torch.float32)
 

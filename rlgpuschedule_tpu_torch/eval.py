@@ -2,10 +2,13 @@
 
 Counterpart of ``EvalResult``, ``replay``, ``full_trace_replay``,
 ``pooled_avg_jct``, ``baseline_jcts``, ``baseline_jct_table``,
-``jct_report``, ``full_trace_report``, ``format_report`` and the
-fairness table (``jain_index``, ``fairness_report``,
-``format_fairness``) in the JAX package's ``eval.py``. There the replay is
-one ``lax.scan``; here it is a Python loop over decision steps whose
+``jct_report``, ``full_trace_report``, ``format_report``, the fairness
+table (``jain_index``, ``fairness_report``, ``format_fairness``) and the
+chaos and generalization matrices (``chaos_report``, ``format_chaos``,
+``matrix_report``, ``format_matrix``) in the JAX package's
+``eval.py``. There the replay is one ``lax.scan`` (a matrix cell one
+jitted ``_matrix_cell``, so every cell shares a compiled program);
+here it is a Python loop over decision steps whose
 body stays on the device: no value comes back to the host inside the
 loop, except one "all done?" check every 64 steps that ends the loop
 early (a finished cluster is frozen, so the steps it skips would change
@@ -31,9 +34,15 @@ more placement freedom than the pods have. Its percentiles, backlog
 gate, stitched full-trace replay and fairness table are refused, as in
 JAX.
 
-Not here: fault replay (a stitched replay under a fault schedule
-included) and the chaos and matrix reports; they come with their slices
-(``ROADMAP.md`` queue 1).
+Faults (flat configs): :func:`replay` and :func:`full_trace_replay`
+take the fault or domain schedules of :mod:`.sim.faults` and
+:mod:`.domains` (batched per window, or one global-time schedule that
+each stitched window sees rebased onto its clock), and the baselines run
+the same schedules on the Python oracle. :func:`chaos_report` is the
+fault regime x scheduler matrix of ``evaluate --chaos``, and
+:func:`matrix_report` the train regime x eval regime generalization
+matrix of ``evaluate --matrix``; each holds every cell to the
+no-job-lost conservation contract (:func:`_chaos_conservation`).
 """
 from __future__ import annotations
 
@@ -55,7 +64,8 @@ from .env import hier as hier_lib
 from .env.env import EnvParams, stack_traces
 from .env.hier import HierParams
 from .sim import core
-from .sim.core import DONE, PENDING
+from .sim.core import DONE, NOT_ARRIVED, PENDING, RUNNING
+from .sim.faults import stack_fault_schedules
 from .sim.schedulers import BASELINES, resolve_backend, run_baseline
 from .traces.records import ArrayTrace
 
@@ -104,8 +114,12 @@ class _EnvOps(NamedTuple):
     makespan: Any       # state -> f32[E]
 
 
-def _env_ops(params, traces: core.Trace) -> _EnvOps:
+def _env_ops(params, traces: core.Trace, faults=None) -> _EnvOps:
     if isinstance(params, HierParams):
+        if faults is not None:
+            raise ValueError("fault replay applies to flat configs (the "
+                             "hierarchical env has no fault-process "
+                             "support)")
         # the pod-repeated trace depends on the batch alone: built once
         ptrace = hier_lib.pod_traces(traces, params.n_pods)
         return _EnvOps(
@@ -116,8 +130,8 @@ def _env_ops(params, traces: core.Trace) -> _EnvOps:
             jct_stats=hier_lib.jct_stats,
             makespan=lambda s: s.pods.clock[:, 0])
     return _EnvOps(
-        reset=lambda: env_lib.reset(params, traces),
-        step=lambda s, a: env_lib.step(params, s, traces, a),
+        reset=lambda: env_lib.reset(params, traces, faults),
+        step=lambda s, a: env_lib.step(params, s, traces, a, faults),
         capacity=params.sim.capacity,
         busy=lambda s: s.sim.alloc.sum((1, 2), dtype=torch.int32),
         jct_stats=lambda s, tr: core.jct_stats(s.sim, tr),
@@ -177,7 +191,7 @@ def replay(net: "nn.Module | None", env_params: EnvParams,
            record: bool = False, policy: str = "greedy",
            generator: torch.Generator | None = None,
            return_states: bool = False, backlog_gate: int = 0,
-           stall_guard: bool = True):
+           stall_guard: bool = True, faults=None):
     """Replay the batched trace windows under the policy ``net`` on the
     traces' device. Each cluster runs its window to completion (or
     ``max_steps``, default the horizon) and is then frozen while the
@@ -198,9 +212,14 @@ def replay(net: "nn.Module | None", env_params: EnvParams,
     replay is the unguarded one. The count lives on the device and adds
     no host sync.
 
+    ``faults`` (flat configs): the batched fault or domain schedules
+    replayed next to the traces. A faulty cluster's episode may end
+    short of completion (a node drained for good can strand work);
+    completion is part of the reported degradation.
+
     A hierarchical ``env_params`` (config 5) replays its dict actions
     the same way; it has no backlog gate, no stall guard (its pods cannot
-    preempt) and no ``record``.
+    preempt), no ``record`` and no ``faults``.
 
     Returns the :class:`EvalResult`, followed by the final ``EnvState``
     with ``return_states`` and the per-step :class:`ReplayRecord` with
@@ -225,7 +244,7 @@ def replay(net: "nn.Module | None", env_params: EnvParams,
         raise ValueError("record= applies to flat configs (the margin "
                          "rule reads one head's logits)")
     max_steps = int(max_steps or env_params.horizon)
-    ops = _env_ops(env_params, traces)
+    ops = _env_ops(env_params, traces, faults)
     capacity = ops.capacity
     dev = traces.submit.device
     if policy == "random" and generator is None:
@@ -296,15 +315,18 @@ def _stitch_window(net: "nn.Module | None", rp: EnvParams,
                    need_completion: bool, drain_block: int, n_steps: int,
                    policy: str, generator: torch.Generator | None,
                    prefs: torch.Tensor | None, backlog_gate: int,
-                   pre: torch.Tensor | None, thresh: int) -> core.SimState:
+                   pre: torch.Tensor | None, thresh: int,
+                   schedule=None) -> core.SimState:
     """One window of :func:`full_trace_replay` (E=1): replay until the
     clock would pass ``cutoff`` (the step past it is discarded) or, with
     ``need_completion``, until ``drain_block`` valid jobs are done (the
     step that completes them is kept); then advance the clock over the
     continuous service up to the next event or the cutoff. Steps after
     the window froze change nothing, so the loop ends at the first
-    64-step check that finds it frozen."""
-    state, ts = env_lib.reset(rp, trace)
+    64-step check that finds it frozen. ``schedule`` is the window's
+    local-time fault or domain schedule (:func:`_shift_schedule`),
+    batched ``[1, ...]``."""
+    state, ts = env_lib.reset(rp, trace, schedule)
     obs, mask = ts.obs, ts.action_mask
     frozen = torch.zeros_like(ts.done)
     stall = torch.zeros_like(frozen, dtype=torch.int32)
@@ -319,7 +341,8 @@ def _stitch_window(net: "nn.Module | None", rp: EnvParams,
         if prefs is not None:
             action = _gate_to_fifo(prefs, state.sim.status, mask, action,
                                    backlog_gate)
-        new_state, new_ts = env_lib.step(rp, state, trace, action)
+        new_state, new_ts = env_lib.step(rp, state, trace, action,
+                                         schedule)
         if need_completion:
             done_before = torch.sum((state.sim.status == DONE)
                                     & trace.valid, dim=-1)
@@ -340,9 +363,26 @@ def _stitch_window(net: "nn.Module | None", rp: EnvParams,
     # overshot), only service, which is advanced here, or running jobs
     # would lose (cutoff - clock) of work at every seam
     sim = state.sim
-    t_end = torch.minimum(cutoff, core.next_event_time(sim, trace))
+    t_end = torch.minimum(cutoff, core.next_event_time(sim, trace,
+                                                       schedule))
     t_end = torch.maximum(t_end, sim.clock)
-    return core.advance_to(sim, trace, t_end)
+    return core.advance_to(sim, trace, t_end, schedule)
+
+
+def _shift_schedule(fs, base: float):
+    """Rebase one global-time host fault or domain schedule onto a
+    stitched window's local clock (window time 0 = global ``base``): a
+    drain wholly in the past never happens (+inf/+inf), one straddling
+    ``base`` is active from local 0, later ones shift left. Slowdown and
+    capacity do not depend on time and pass through; the result keeps
+    the input's type."""
+    start = np.asarray(fs.down_start, np.float64) - base
+    end = np.asarray(fs.down_end, np.float64) - base
+    past = end <= 0.0
+    start = np.where(past, np.inf, np.maximum(start, 0.0))
+    end = np.where(past, np.inf, end)
+    return fs._replace(down_start=start.astype(np.float32),
+                       down_end=end.astype(np.float32))
 
 
 def full_trace_replay(net: "nn.Module | None", env_params: EnvParams,
@@ -377,16 +417,16 @@ def full_trace_replay(net: "nn.Module | None", env_params: EnvParams,
     A window takes at most ``max_steps_per_window`` decision steps
     (default ``4 * max_jobs + 16``). ``policy``, ``backlog_gate`` and
     ``stall_guard`` are :func:`replay`'s; the random control draws from
-    ``generator`` (default one seeded 0). ``faults`` waits for the
-    chaos slice. Returns ``{"avg_jct", "n_jobs", "jct", "finish",
-    "tenant", "windows", "makespan", "drain_completions"}``, the last
-    the value after the clamp."""
+    ``generator`` (default one seeded 0).
+
+    ``faults``: one host fault or domain schedule (unbatched) in global
+    trace time over the whole stream. Each window replays under it
+    rebased onto its own clock (:func:`_shift_schedule`); baselines
+    compared with this number run the same schedule unshifted on the
+    oracle's one global clock. Returns ``{"avg_jct", "n_jobs", "jct",
+    "finish", "tenant", "windows", "makespan", "drain_completions"}``,
+    the last the value after the clamp."""
     check_modes(env_params, full_trace=True)
-    if faults is not None:
-        raise NotImplementedError(
-            "a stitched replay under a fault schedule (faults=, "
-            "evaluate --stitch-faults/--stitch-domain) waits for the "
-            "chaos and domain slice (ROADMAP.md queue 1, item 17)")
     if policy not in ("greedy", "random"):
         raise ValueError(f"unknown replay policy {policy!r}; "
                          f"expected 'greedy' or 'random'")
@@ -407,6 +447,10 @@ def full_trace_replay(net: "nn.Module | None", env_params: EnvParams,
     if policy == "random" and generator is None:
         generator = torch.Generator(dev).manual_seed(0)
     sim = env_params.sim
+    if faults is not None and faults.down_start.shape[-2] != sim.n_nodes:
+        raise ValueError(
+            f"schedule covers {faults.down_start.shape[-2]} nodes; the "
+            f"stitch cluster has {sim.n_nodes}")
     J = sim.max_jobs
     drain_block = min(int(drain_completions), max(J // 2, 1))
     S = int(max_steps_per_window or 4 * J + 16)
@@ -425,11 +469,18 @@ def full_trace_replay(net: "nn.Module | None", env_params: EnvParams,
     total = len(valid)
     if total == 0:
         raise ValueError("source trace has no valid jobs")
-    if int(gpus.max()) > sim.capacity:
+    # on a drawn geometry the bound is the drawn capacity: a gang wider
+    # than the shrunken cluster would pend for ever
+    cap = getattr(faults, "capacity", None)
+    total_gpus = (int(np.asarray(cap).sum()) if cap is not None
+                  else sim.capacity)
+    if int(gpus.max()) > total_gpus:
         raise ValueError(
-            f"source demands up to {int(gpus.max())} GPUs but the cluster "
-            f"has {sim.capacity}; clamp the trace first "
-            f"(sim.core.validate_trace(clamp=True))")
+            f"source demands up to {int(gpus.max())} GPUs but the "
+            f"{'drawn' if cap is not None else 'static'} cluster has "
+            f"{total_gpus}; clamp the trace first "
+            f"(sim.core.validate_trace(clamp=True)) or use a milder "
+            f"domain draw")
 
     finish_g = np.full(total, np.nan)        # global finish times
     # residuals: original index -> remaining service
@@ -476,9 +527,12 @@ def full_trace_replay(net: "nn.Module | None", env_params: EnvParams,
                 [ArrayTrace(w_submit, w_duration, w_gpus, w_tenant,
                             w_valid)], sim, dev)
             cut = torch.full((1,), np.float32(cutoff), device=dev)
+            sched = (stack_fault_schedules([_shift_schedule(faults, base)],
+                                           dev)
+                     if faults is not None else None)
             s = _stitch_window(net, rp, trace, cut, need_completion,
                                drain_block, S, policy, generator, prefs,
-                               backlog_gate, pre, thresh)
+                               backlog_gate, pre, thresh, sched)
             status = s.status[0, :n_rows].cpu().numpy()
             finish = s.finish[0, :n_rows].cpu().numpy()
             remaining = s.remaining[0, :n_rows].cpu().numpy()
@@ -665,11 +719,14 @@ def full_trace_report(exp, max_jobs: int | None = None,
     action spaces do not depend on the job table's size, everything
     else is baked into them. Besides JAX's keys the report records
     ``baseline_backend`` and ``wall_s``, the wall time of each part with
-    the device synchronized around it."""
-    if faults is not None:
-        raise NotImplementedError(
-            "a full-trace table under a fault schedule waits for the "
-            "chaos and domain slice (ROADMAP.md queue 1, item 17)")
+    the device synchronized around it.
+
+    ``faults``: one global-time host fault or domain schedule the whole
+    table runs under (``evaluate --full-trace --stitch-faults/
+    --stitch-domain``): the policy rows stitch through it window by
+    window, the baselines run it unshifted on the Python oracle (the
+    native engine has no fault model), and the report is marked
+    ``faulty_cluster``."""
     check_modes(exp.env_params, full_trace=True)
     check_modes(env_params, full_trace=True)
     eval_params = env_params or exp.env_params
@@ -695,11 +752,14 @@ def full_trace_report(exp, max_jobs: int | None = None,
                             backlog_gate=backlog_gate,
                             stall_guard=stall_guard,
                             drain_completions=drain_completions,
-                            device=dev)
+                            faults=faults, device=dev)
     wall["policy_replay"] = _clock(dev) - t0
     report: dict[str, Any] = {"policy": out["avg_jct"],
                               "n_jobs": out["n_jobs"],
                               "policy_windows": out["windows"]}
+    if faults is not None:
+        # a degraded-cluster table must never pass for a clean one
+        report["faulty_cluster"] = True
     if backlog_gate:
         report["backlog_gate"] = int(backlog_gate)
     if eval_params.sim.preempt_len:
@@ -717,18 +777,19 @@ def full_trace_report(exp, max_jobs: int | None = None,
             None, eval_params, source,
             max_steps_per_window=max_steps_per_window, policy="random",
             generator=torch.Generator(dev).manual_seed(RANDOM_SEED),
-            drain_completions=drain_completions, device=dev)
+            drain_completions=drain_completions, faults=faults, device=dev)
         wall["random_replay"] = _clock(dev) - t0
         report["random"] = rnd["avg_jct"]
         if percentiles is not None:
             pcts["random"] = _pct_row(rnd["jct"], percentiles)
     if baselines:
-        report["baseline_backend"] = resolve_backend("auto")
+        report["baseline_backend"] = ("python" if faults is not None
+                                      else resolve_backend("auto"))
         t0 = time.perf_counter()
         for name in baselines:
             sim = run_baseline(source, exp.cfg.n_nodes,
                                exp.cfg.gpus_per_node, name,
-                               report["baseline_backend"])
+                               report["baseline_backend"], faults=faults)
             report[name] = sim.avg_jct()
             if percentiles is not None:
                 pcts[name] = _pct_row(sim.jcts(), percentiles)
@@ -739,6 +800,311 @@ def full_trace_report(exp, max_jobs: int | None = None,
         report["percentiles"] = pcts
     report["wall_s"] = wall
     return report
+
+
+# ---- the chaos and generalization matrices ---------------------------------
+
+# the regime axis of evaluate --chaos: a clean control, uncorrelated
+# drains, correlated drain storms, stragglers
+CHAOS_REGIMES = ("none", "sporadic", "storm", "straggler")
+# the eval axis of evaluate --matrix: the fixed-cluster control, load and
+# duration jitter, heterogeneous hardware, sustained 1.6x overload
+MATRIX_REGIMES = ("none", "baseline", "hetero", "overload")
+
+
+def _chaos_conservation(states, traces: core.Trace, env_params: EnvParams,
+                        faults=None) -> dict:
+    """The no-job-lost contract over a batch of final replay states:
+    every node's ``free + allocated`` is its capacity (a domain
+    schedule's drawn capacity, else ``gpus_per_node``), a RUNNING job
+    holds exactly its gang and any other job nothing, and every valid
+    job has a lifecycle status: a drain kills jobs back to the queue,
+    never leaks them or their GPUs. Returns ``{"jobs_lost",
+    "conserved"}``."""
+    alloc = states.sim.alloc.cpu().numpy()
+    free = states.sim.free.cpu().numpy()
+    status = states.sim.status.cpu().numpy()
+    gpus = traces.gpus.cpu().numpy()
+    valid = traces.valid.cpu().numpy()
+    cap = getattr(faults, "capacity", None)
+    expected = (env_params.sim.gpus_per_node if cap is None
+                else cap.cpu().numpy())                  # scalar or [E, N]
+    node_ok = bool((alloc.sum(axis=1) + free == expected).all())
+    alloc_j = alloc.sum(axis=2)                          # [E, J]
+    running = status == RUNNING
+    run_ok = bool((alloc_j[running] == gpus[running]).all())
+    idle_ok = bool((alloc_j[~running] == 0).all())
+    live = np.isin(status, (NOT_ARRIVED, PENDING, RUNNING, DONE))
+    lost = int(valid.sum() - (valid & live).sum())
+    return {"jobs_lost": lost,
+            "conserved": node_ok and run_ok and idle_ok and lost == 0}
+
+
+def _oracle_rows(windows, schedules, n_nodes: int, gpus_per_node: int,
+                 baselines) -> dict:
+    """Each baseline's pooled avg JCT and completion over ``windows``,
+    window ``i`` on the Python oracle under host schedule ``i``."""
+    rows = {}
+    for name in baselines:
+        jcts, n_valid = [], 0
+        for w, fs in zip(windows, schedules):
+            jcts.append(run_baseline(w, n_nodes, gpus_per_node, name,
+                                     faults=fs).jcts())
+            n_valid += w.num_jobs
+        pooled = np.concatenate(jcts) if jcts else np.zeros(0)
+        rows[name] = {
+            "avg_jct": float(pooled.mean()) if pooled.size else 0.0,
+            "completion": float(pooled.size / max(n_valid, 1))}
+    return rows
+
+
+def _degradation(table: dict, bus, registry, seed: int, kind: str,
+                 stats: dict) -> None:
+    """Fill every cell's ``degradation`` (its avg JCT over the clean
+    control's, per scheduler), then emit one ``kind`` event per cell and
+    ``<stem>_<regime>_<scheduler>_*`` gauges."""
+    clean = table["none"]
+    for rows in table.values():
+        for sched, row in rows.items():
+            base = clean[sched]["avg_jct"]
+            row["degradation"] = (row["avg_jct"] / base
+                                  if base and np.isfinite(base) else None)
+    event, stem, seed_key, prefix = {
+        "chaos": ("env_fault", "chaos", "chaos_seed", "fault"),
+        "matrix": ("domain_cell", "matrix", "matrix_seed", "domain")}[kind]
+    for name, rows in table.items():
+        for sched, row in rows.items():
+            deg = row["degradation"]
+            if bus is not None:
+                bus.emit(event, regime=name, scheduler=sched,
+                         avg_jct=round(row["avg_jct"], 3),
+                         completion=round(row["completion"], 4),
+                         degradation=(round(deg, 4) if deg is not None
+                                      else None),
+                         **{seed_key: int(seed)},
+                         **{f"{prefix}_{k}": v
+                            for k, v in stats[name].items()})
+            if registry is not None:
+                g = f"{stem}_{name}_{sched}"
+                registry.gauge(f"{g}_avg_jct").set(row["avg_jct"])
+                registry.gauge(f"{g}_completion").set(row["completion"])
+                if deg is not None:
+                    registry.gauge(f"{g}_degradation").set(deg)
+
+
+def chaos_report(exp, regimes: tuple[str, ...] = CHAOS_REGIMES,
+                 baselines: tuple[str, ...] = ("sjf", "tiresias"),
+                 max_steps: int | None = None, seed: int = 0,
+                 bus=None, registry=None, tracer=None) -> dict[str, Any]:
+    """The fault regime x scheduler matrix (``evaluate --chaos``): the
+    greedy policy (on the experiment's device) and the baselines (on the
+    host oracle) replay the experiment's windows under the same seeded
+    schedules, window ``e`` drawing ``(seed, e)``; one row per regime,
+    each cell ``{"avg_jct", "completion", "degradation"}``, the last its
+    JCT over the clean ``none`` row's (always evaluated, first). Every
+    regime's policy replay must conserve jobs and GPUs
+    (:func:`_chaos_conservation`), or this raises.
+
+    ``bus`` gets one ``env_fault`` event per cell with the regime's
+    schedule stats, ``registry`` the ``chaos_<regime>_<scheduler>_*``
+    gauges, and ``tracer`` a ``chaos_regime`` span per row around its
+    ``policy_replay`` and ``baseline`` spans."""
+    from .obs.trace import NULL_TRACER
+    from .sim.faults import (fault_horizon, resolve_regime,
+                             sample_fault_schedule, schedule_stats)
+    if tracer is None:
+        tracer = NULL_TRACER
+    if isinstance(exp.env_params, HierParams):
+        raise ValueError("chaos evaluation supports flat configs (the "
+                         "hierarchical env has no fault-process support)")
+    env_params, dev = exp.env_params, exp.device
+    windows, traces = exp.windows, exp.traces
+    n_nodes, g = exp.cfg.n_nodes, exp.cfg.gpus_per_node
+    horizon_s = fault_horizon(windows)
+    regimes = list(dict.fromkeys(["none", *regimes]))
+    report: dict[str, Any] = {
+        "chaos_seed": int(seed), "fault_horizon_s": float(horizon_s),
+        "chaos_regimes": list(regimes), "jobs_lost": 0,
+        "regimes": {}, "fault_stats": {}}
+    for name in regimes:
+        with tracer.span("chaos_regime", regime=name):
+            regime = resolve_regime(name)
+            host = [sample_fault_schedule(n_nodes, regime, (seed, e),
+                                          horizon_s)
+                    for e in range(len(windows))]
+            batched = stack_fault_schedules(host, dev)
+            report["fault_stats"][name] = schedule_stats(batched)
+            with tracer.span("policy_replay"):
+                res, states = replay(exp.net, env_params, traces,
+                                     max_steps, return_states=True,
+                                     faults=batched)
+            cons = _chaos_conservation(states, traces, env_params)
+            if not cons["conserved"]:
+                raise AssertionError(
+                    f"conservation violated under regime {name!r}: "
+                    f"{cons} — a fault schedule must delay jobs, never "
+                    f"leak them or their GPUs")
+            report["jobs_lost"] += cons["jobs_lost"]
+            jct, completion = pooled_avg_jct(res)
+            rows: dict[str, Any] = {
+                "policy": {"avg_jct": jct, "completion": completion}}
+            for bname in baselines:
+                with tracer.span("baseline", scheduler=bname):
+                    rows.update(_oracle_rows(windows, host, n_nodes, g,
+                                             (bname,)))
+            report["regimes"][name] = rows
+    _degradation(report["regimes"], bus, registry, seed, "chaos",
+                 report["fault_stats"])
+    return report
+
+
+def format_chaos(report: dict[str, Any]) -> str:
+    """The chaos matrix as text: a row per regime, a column per
+    scheduler, each cell ``avg JCT [completion] xdegradation``."""
+    head = (f"chaos matrix (seed {report['chaos_seed']}, fault horizon "
+            f"{report['fault_horizon_s']:.0f}s) — "
+            f"avg JCT s [completion] ×degradation-vs-clean:")
+    return _format_table(head, "regime", report["regimes"], [
+        f"jobs lost across the matrix: {report['jobs_lost']} "
+        f"(conservation contract: must be 0)"])
+
+
+def _format_table(head: str, label: str, table: dict,
+                  tail: list[str]) -> str:
+    regimes = list(table)
+    scheds = list(next(iter(table.values())))
+    width = max(len(label), *(len(r) for r in regimes))
+    cell_w = 24
+    lines = [head, f"{label:<{width}}  " +
+             "  ".join(f"{s:<{cell_w}}" for s in scheds)]
+    for name in regimes:
+        cells = []
+        for s in scheds:
+            row = table[name][s]
+            deg = (f"×{row['degradation']:.2f}"
+                   if row["degradation"] is not None else "×—")
+            cells.append(f"{row['avg_jct']:>8.1f} "
+                         f"[{row['completion']:>4.0%}] {deg:<7}")
+        lines.append(f"{name:<{width}}  " +
+                     "  ".join(f"{c:<{cell_w}}" for c in cells))
+    return "\n".join(lines + tail)
+
+
+def matrix_report(exp, regimes: tuple[str, ...] = MATRIX_REGIMES,
+                  baselines: tuple[str, ...] = ("sjf", "tiresias"),
+                  policies: "dict[str, tuple] | None" = None,
+                  max_steps: int | None = None, seed: int = 0,
+                  bus=None, registry=None, alarms=None) -> dict[str, Any]:
+    """The train regime x eval regime generalization matrix
+    (``evaluate --matrix``): one or more policies (greedy, on the
+    experiment's device) and the baselines (host oracle) replay the
+    same generated windows under the same seeded domain draws per eval
+    regime: env ``e`` draws ``(seed, e)``, and its window is generated
+    against that draw's actual capacity
+    (:func:`..experiment.make_domain_windows` with the config's seed
+    replaced by ``seed``). One column per eval regime (the fixed-cluster
+    ``none`` control always first), one row per scheduler, each cell
+    ``{"avg_jct", "completion", "degradation"}`` against ``none``.
+
+    ``policies``: ``{row: (net, env_params)}``, default the experiment's
+    own policy as ``policy``. Rows may differ in observation channels
+    only; every row replays the same cluster draws. Every cell must
+    conserve jobs and GPUs against the drawn capacity, or this raises.
+    ``bus`` gets a ``domain_cell`` event per cell, ``registry`` the
+    ``matrix_<regime>_<scheduler>_*`` gauges. ``alarms`` (the recompile
+    and transfer alarm scope) waits for the observability slice
+    (``ROADMAP.md`` queue 1, item 24)."""
+    from .domains import (domain_schedule, domain_stats, resolve_domain,
+                          sample_env_domains, stack_domain_schedules,
+                          validate_domain_schedule)
+    from .experiment import make_domain_windows
+    if alarms is not None:
+        raise NotImplementedError(
+            "matrix_report(alarms=), the recompile and transfer alarm "
+            "scope over the matrix cells, is not in the PyTorch port yet: "
+            "it waits for the observability slice (ROADMAP.md queue 1, "
+            "item 24)")
+    if isinstance(exp.env_params, HierParams):
+        raise ValueError("the generalization matrix supports flat configs "
+                         "(domain schedules carry per-node capacity "
+                         "through the flat sim path only)")
+    cfg, dev = exp.cfg, exp.device
+    n_nodes, g = cfg.n_nodes, cfg.gpus_per_node
+    if policies is None:
+        policies = {"policy": (exp.net, exp.env_params)}
+    for pname, (_, ep) in policies.items():
+        if isinstance(ep, HierParams) or ep.sim != exp.env_params.sim:
+            raise ValueError(
+                f"matrix row {pname!r} has a different sim geometry than "
+                f"the experiment; every row must replay the same cluster "
+                f"draws (rows may differ in observation channels only)")
+    regimes = list(dict.fromkeys(["none", *regimes]))
+    # the matrix's draws and windows follow the matrix seed
+    mcfg = dataclasses.replace(cfg, seed=int(seed))
+    report: dict[str, Any] = {
+        "matrix_seed": int(seed), "matrix_regimes": list(regimes),
+        "jobs_lost": 0, "cells": {}, "domain_stats": {}}
+    columns: dict[str, tuple] = {}       # built once, shared by every row
+    for rname in regimes:
+        draws = sample_env_domains(resolve_domain(rname), n_nodes, g,
+                                   seed, cfg.n_envs)
+        windows = make_domain_windows(mcfg, draws)
+        host = [validate_domain_schedule(n_nodes, g, domain_schedule(d))
+                for d in draws]
+        columns[rname] = (windows, host,
+                          stack_domain_schedules(host, dev),
+                          stack_traces(windows, exp.env_params, dev))
+        stats = [domain_stats(d) for d in draws]
+        report["domain_stats"][rname] = {
+            "mean_total_gpus": float(np.mean([s["total_gpus"]
+                                              for s in stats])),
+            "envs_with_nodes_off": int(sum(s["n_nodes_off"] > 0
+                                           for s in stats)),
+            "envs_hetero": int(sum(s["n_hetero"] > 0 for s in stats)),
+            "max_slowdown": float(max(s["max_slowdown"] for s in stats)),
+            "mean_load": float(np.mean([s["load"] for s in stats])),
+        }
+        report["cells"][rname] = {}
+    for pname, (net, ep) in policies.items():
+        for rname in regimes:
+            _, _, batched, traces = columns[rname]
+            res, states = replay(net, ep, traces, max_steps,
+                                 return_states=True, faults=batched)
+            cons = _chaos_conservation(states, traces, ep, faults=batched)
+            if not cons["conserved"]:
+                raise AssertionError(
+                    f"conservation violated in matrix cell "
+                    f"({pname!r}, {rname!r}): {cons} — a domain draw must "
+                    f"shrink or slow the cluster, never leak jobs or "
+                    f"GPUs")
+            report["jobs_lost"] += cons["jobs_lost"]
+            jct, completion = pooled_avg_jct(res)
+            report["cells"][rname][pname] = {"avg_jct": jct,
+                                             "completion": completion}
+    for rname in regimes:
+        windows, host, _, _ = columns[rname]
+        report["cells"][rname].update(
+            _oracle_rows(windows, host, n_nodes, g, baselines))
+    _degradation(report["cells"], bus, registry, seed, "matrix",
+                 report["domain_stats"])
+    return report
+
+
+def format_matrix(report: dict[str, Any]) -> str:
+    """The generalization matrix as text: a row per eval regime, a
+    column per scheduler, then each regime's draw summary."""
+    head = (f"generalization matrix (seed {report['matrix_seed']}) — "
+            f"avg JCT s [completion] ×degradation-vs-none:")
+    tail = []
+    for name, st in report["domain_stats"].items():
+        tail.append(f"  {name}: ~{st['mean_total_gpus']:.1f} GPUs/env, "
+                    f"{st['envs_with_nodes_off']} envs with nodes off, "
+                    f"{st['envs_hetero']} hetero, "
+                    f"max slowdown ×{st['max_slowdown']:.1f}, "
+                    f"load {st['mean_load']:.2f}")
+    tail.append(f"jobs lost across the matrix: {report['jobs_lost']} "
+                f"(conservation contract: must be 0)")
+    return _format_table(head, "eval regime", report["cells"], tail)
 
 
 def jain_index(xs: np.ndarray) -> float:

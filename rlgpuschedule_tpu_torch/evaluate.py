@@ -22,8 +22,18 @@ backlog-drain copies of that fraction of the windows. ``--pbt``
 restores a PBT population of ``--n-pop`` members from ``--ckpt-dir``
 and replays its fittest member (by the saved controller's fitness
 window), or ``--member``, per window; a hierarchical config (config 5,
-``hier-pbt-member``) replays per window with or without it. Every
-other flag of the JAX CLI exits naming the slice it waits for.
+``hier-pbt-member``) replays per window with or without it.
+
+Faults and domains (flat configs): ``--faults``/``--domains`` name the
+regime a checkpoint was trained under (its health and geometry
+channels are part of its observation); the evaluation stays on the
+clean fixed cluster unless asked otherwise. ``--chaos`` prints the
+fault regime x scheduler matrix (:func:`..eval.chaos_report`),
+``--matrix`` the train regime x eval regime generalization matrix
+(:func:`..eval.matrix_report`, ``--matrix-ckpt REGIME=DIR`` adds rows),
+and ``--full-trace --stitch-faults/--stitch-domain`` runs the whole
+stitched table under one seeded global-time schedule. Every other flag
+of the JAX CLI exits naming the slice it waits for.
 
 Examples::
 
@@ -39,6 +49,11 @@ Examples::
         --ckpt-dir out/fair --fairness
     python -m rlgpuschedule_tpu_torch.evaluate --config hier-pbt-member \\
         --pbt --n-pop 4 --ckpt-dir out/pbt
+    python -m rlgpuschedule_tpu_torch.evaluate --config ppo-mlp-synth64 \\
+        --faults storm --ckpt-dir out/storm --chaos
+    python -m rlgpuschedule_tpu_torch.evaluate --config ppo-mlp-synth64 \\
+        --domains mixed --ckpt-dir out/mixed --matrix \\
+        --matrix-ckpt clean=out/run
 """
 from __future__ import annotations
 
@@ -54,15 +69,22 @@ import torch
 from .checkpoint import Checkpointer
 from .cli import (add_config_flags, check_source_jobs, config_overrides,
                   numeric_rows, refuse_unported)
-from .configs import CONFIGS, repro_tuple
+from .configs import (CONFIGS, ModeCombinationError, repro_tuple,
+                      validate_mode_combination)
 from .device import resolve_device
 from .eval import (baseline_jct_table, check_modes, fairness_report,
                    format_fairness, format_report, full_trace_report,
                    jct_report)
+from .domains import (DOMAIN_REGIMES, domain_schedule, domain_stats,
+                      sample_domain)
+from .eval import (CHAOS_REGIMES, MATRIX_REGIMES, chaos_report,
+                   format_chaos, format_matrix, matrix_report)
 from .experiment import (Experiment, PopulationExperiment,
                          build_env_params, load_source_trace,
                          make_env_windows, trace_sim)
 from .sim.core import validate_trace
+from .sim.faults import FAULT_REGIMES, fault_horizon, sample_fault_schedule
+from .sim.schedulers import BASELINES
 
 # tail-latency columns --percentiles adds (keep the flag's help in sync)
 PERCENTILES = (50, 90, 99)
@@ -70,19 +92,11 @@ PERCENTILES = (50, 90, 99)
 _Q1 = "ROADMAP.md queue 1"
 # the JAX CLI's flags that this port does not take, and what they wait for
 UNPORTED_FLAGS: dict[str, str] = {
-    **dict.fromkeys(("--stitch-faults", "--stitch-domain", "--stitch-seed"),
-                    f"the chaos and domain slice ({_Q1}, item 17): a "
-                    f"stitched replay under a fault schedule"),
-    **dict.fromkeys(
-        ("--chaos", "--chaos-regimes", "--chaos-baselines", "--chaos-seed",
-         "--matrix", "--matrix-regimes", "--matrix-baselines",
-         "--matrix-seed", "--matrix-ckpt", "--faults", "--domains"),
-        f"the chaos and domain slice ({_Q1}, item 17)"),
     **dict.fromkeys(("--obs-dir", "--trace-spans", "--alarms"),
                     f"the observability slice ({_Q1}, item 24)"),
     # a no-op switch here: the guard is on unless --no-stall-guard
-    "--stall-guard": f"a caller that needs it ({_Q1}, item 11); the "
-                     f"guard is on by default",
+    "--stall-guard": "a caller that needs it (ROADMAP.md, \"Deliberately "
+                     "unported\"); the guard is on by default",
 }
 
 
@@ -96,6 +110,130 @@ def _json_safe(v):
     if isinstance(v, list):
         return [_json_safe(x) for x in v]
     return v
+
+
+def _names(arg: str | None) -> tuple[str, ...]:
+    return tuple(x for x in (arg or "").split(",") if x)
+
+
+def check_chaos_flags(args, cfg) -> "dict | None":
+    """Exit on a misused chaos, matrix or stitch flag, in the JAX CLI's
+    words; returns the ``--matrix`` settings (``regimes``,
+    ``baselines``, ``ckpts``), or None without ``--matrix``."""
+    for flag, name, known in (("--faults", cfg.faults, FAULT_REGIMES),
+                              ("--domains", cfg.domains, DOMAIN_REGIMES)):
+        if name is not None and name not in known:
+            sys.exit(f"unknown {flag} regime {name!r}; known: "
+                     f"{sorted(known)}")
+    excl = (args.pbt or args.fairness or args.full_trace
+            or args.baselines_only or args.percentiles or args.backlog_gate
+            or cfg.n_pods > 1)
+    if args.chaos:
+        if excl or args.matrix:
+            sys.exit("--chaos is its own regime × scheduler matrix over "
+                     "the window batch (flat configs): no --pbt/"
+                     "--fairness/--full-trace/--baselines-only/"
+                     "--percentiles/--backlog-gate")
+        if args.eval_windows is not None:
+            sys.exit("--chaos replays the experiment's window batch; "
+                     "size it with --n-envs")
+        bad = [r for r in _names(args.chaos_regimes)
+               if r not in FAULT_REGIMES]
+        if bad:
+            sys.exit(f"unknown --chaos-regimes {bad}; known: "
+                     f"{sorted(FAULT_REGIMES)}")
+        bad = [b for b in _names(args.chaos_baselines) if b not in BASELINES]
+        if bad:
+            sys.exit(f"unknown --chaos-baselines {bad}; known: "
+                     f"{sorted(BASELINES)}")
+    elif args.chaos_regimes is not None:
+        sys.exit("--chaos-regimes configures the --chaos matrix; pass "
+                 "--chaos with it (refusing the silent no-op)")
+    matrix = None
+    if args.matrix:
+        if excl:
+            sys.exit("--matrix is its own train-regime × eval-regime "
+                     "table over generated domain windows (flat "
+                     "configs): no --chaos/--pbt/--fairness/"
+                     "--full-trace/--baselines-only/--percentiles/"
+                     "--backlog-gate")
+        if args.eval_windows is not None:
+            sys.exit("--matrix generates its own window batch per "
+                     "regime; size it with --n-envs")
+        regimes = _names(args.matrix_regimes)
+        bad = [r for r in regimes if r not in DOMAIN_REGIMES]
+        if bad:
+            sys.exit(f"unknown --matrix-regimes {bad}; known: "
+                     f"{sorted(DOMAIN_REGIMES)}")
+        baselines = _names(args.matrix_baselines)
+        bad = [b for b in baselines if b not in BASELINES]
+        if bad:
+            sys.exit(f"unknown --matrix-baselines {bad}; known: "
+                     f"{sorted(BASELINES)}")
+        ckpts = []
+        for spec in args.matrix_ckpt or []:
+            regime, sep, path = spec.partition("=")
+            if not sep or not path or (regime != "clean" and
+                                       regime not in DOMAIN_REGIMES):
+                sys.exit(f"--matrix-ckpt wants REGIME=DIR with REGIME "
+                         f"in {sorted(DOMAIN_REGIMES)} or 'clean' "
+                         f"(got {spec!r})")
+            ckpts.append((regime, path))
+        matrix = {"regimes": regimes or MATRIX_REGIMES,
+                  "baselines": baselines, "ckpts": ckpts}
+    elif (args.matrix_regimes is not None or args.matrix_ckpt
+          or args.matrix_seed != 0):
+        # JAX's words (its --alarms is refused here as unported)
+        sys.exit("--matrix-regimes/--matrix-ckpt/--matrix-seed/--alarms "
+                 "configure the --matrix table; pass --matrix with them "
+                 "(refusing the silent no-op)")
+    if (args.stitch_faults or args.stitch_domain) and not args.full_trace:
+        sys.exit("--stitch-faults/--stitch-domain degrade the "
+                 "--full-trace stitched replay; pass --full-trace with "
+                 "them (refusing the silent no-op)")
+    if args.stitch_seed != 0 and not (args.stitch_faults or
+                                      args.stitch_domain):
+        sys.exit("--stitch-seed seeds the --stitch-faults/--stitch-domain "
+                 "draw; pass one of them with it")
+    for flag, name, known in (("--stitch-faults", args.stitch_faults,
+                               FAULT_REGIMES),
+                              ("--stitch-domain", args.stitch_domain,
+                               DOMAIN_REGIMES)):
+        if name is not None and name not in known:
+            sys.exit(f"unknown {flag} {name!r}; known: {sorted(known)}")
+    return matrix
+
+
+def stitch_schedule(args, cfg, source, repro: dict):
+    """The one global-time schedule of ``--stitch-faults`` and/or
+    ``--stitch-domain`` (seeded ``(--stitch-seed,)`` over the source's
+    fault horizon), or None; records the draw in ``repro``."""
+    if not (args.stitch_faults or args.stitch_domain):
+        return None
+    schedule = None
+    if args.stitch_faults:
+        schedule = sample_fault_schedule(
+            cfg.n_nodes, args.stitch_faults, (args.stitch_seed,),
+            fault_horizon([source]))
+    if args.stitch_domain:
+        draw = sample_domain(args.stitch_domain, cfg.n_nodes,
+                             cfg.gpus_per_node, (args.stitch_seed,))
+        schedule = domain_schedule(draw, schedule)
+        repro["stitch_domain_draw"] = domain_stats(draw)
+    repro.update(stitch_faults=args.stitch_faults,
+                 stitch_domain=args.stitch_domain,
+                 stitch_seed=args.stitch_seed)
+    return schedule
+
+
+def _print_json(report: dict, dev: torch.device) -> dict:
+    """Print a chaos or matrix report as one JSON line, with the device,
+    and return it."""
+    out = dict(report, device=str(dev),
+               device_name=(torch.cuda.get_device_name(dev)
+                            if dev.type == "cuda" else "cpu"))
+    print(json.dumps(_json_safe(out)), flush=True)
+    return report
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -164,6 +302,59 @@ def build_parser() -> argparse.ArgumentParser:
                    help="evaluate the backlog-gated hybrid: while fewer "
                         "than N jobs are pending, play FIFO-with-backfill "
                         "instead of the policy (policy row only)")
+    p.add_argument("--faults", default=None, metavar="REGIME",
+                   help="the fault regime the checkpoint was trained under "
+                        "(its health channel is part of the observation); "
+                        "the evaluation stays clean unless --chaos")
+    p.add_argument("--domains", default=None, metavar="REGIME",
+                   help="the domain regime the checkpoint was trained "
+                        "under (its geometry and health channels are part "
+                        "of the observation); the evaluation stays on the "
+                        "fixed cluster unless --matrix")
+    p.add_argument("--chaos", action="store_true",
+                   help="chaos matrix: the policy and the baselines under "
+                        "the same seeded fault schedules per regime (none, "
+                        "sporadic drains, drain storms, stragglers), with "
+                        "each cell's degradation against the clean row")
+    p.add_argument("--chaos-regimes", default=None, metavar="A,B,...",
+                   help="with --chaos: the regimes (the clean 'none' is "
+                        "always included)")
+    p.add_argument("--chaos-baselines", default="sjf,tiresias",
+                   metavar="A,B,...",
+                   help="with --chaos: the baseline columns")
+    p.add_argument("--chaos-seed", type=int, default=0,
+                   help="with --chaos: base seed of the schedules (env e "
+                        "draws (seed, e))")
+    p.add_argument("--matrix", action="store_true",
+                   help="generalization matrix: the policy (and any "
+                        "--matrix-ckpt rows) and the baselines under the "
+                        "same seeded domain draws per eval regime, with "
+                        "each cell's degradation against the fixed cluster")
+    p.add_argument("--matrix-regimes", default=None, metavar="A,B,...",
+                   help="with --matrix: the eval regimes (the fixed-cluster "
+                        "'none' is always included)")
+    p.add_argument("--matrix-baselines", default="sjf,tiresias",
+                   metavar="A,B,...",
+                   help="with --matrix: the baseline rows")
+    p.add_argument("--matrix-seed", type=int, default=0,
+                   help="with --matrix: base seed of the draws and the "
+                        "generated windows (env e draws (seed, e))")
+    p.add_argument("--matrix-ckpt", action="append", default=None,
+                   metavar="REGIME=DIR",
+                   help="with --matrix: add a row restored from DIR, trained "
+                        "under --domains REGIME ('clean' for none); "
+                        "repeatable")
+    p.add_argument("--stitch-faults", default=None, metavar="REGIME",
+                   help="with --full-trace: run the whole stitched table "
+                        "under one seeded global-time fault schedule of "
+                        "this regime")
+    p.add_argument("--stitch-domain", default=None, metavar="REGIME",
+                   help="with --full-trace: run the whole stitched table "
+                        "on one seeded domain draw of this regime (composes "
+                        "with --stitch-faults: the worst slowdown wins)")
+    p.add_argument("--stitch-seed", type=int, default=0,
+                   help="with --stitch-faults/--stitch-domain: seed of the "
+                        "draw")
     p.add_argument("--no-stall-guard", dest="stall_guard",
                    action="store_false",
                    help="turn off the stall guard, which masks a "
@@ -183,10 +374,18 @@ def main(argv: "list[str] | None" = None) -> dict:
     if args.config not in CONFIGS:
         sys.exit(f"unknown config {args.config!r}")
     over = config_overrides(args)
-    if args.drain_frac is not None:
-        over["drain_frac"] = args.drain_frac
+    for k in ("drain_frac", "faults", "domains"):
+        if getattr(args, k) is not None:
+            over[k] = getattr(args, k)
     cfg = dataclasses.replace(CONFIGS[args.config], **over)
     check_source_jobs(args, cfg)
+    try:
+        validate_mode_combination({"pbt": args.pbt,
+                                   "faults": cfg.faults is not None,
+                                   "domains": cfg.domains is not None})
+    except ModeCombinationError as e:
+        sys.exit(str(e))
+    matrix = check_chaos_flags(args, cfg)
     if args.member is not None and not args.pbt:
         sys.exit("--member picks a member of a --pbt population; pass "
                  "--pbt with it")
@@ -276,6 +475,45 @@ def main(argv: "list[str] | None" = None) -> dict:
                   file=sys.stderr)
     except (NotImplementedError, ValueError) as e:
         sys.exit(str(e))
+    if args.chaos:
+        report = chaos_report(
+            exp, regimes=_names(args.chaos_regimes) or CHAOS_REGIMES,
+            baselines=_names(args.chaos_baselines),
+            max_steps=args.max_steps, seed=args.chaos_seed)
+        print(format_chaos(report), file=sys.stderr)
+        report["repro"] = dict(
+            repro, chaos_seed=args.chaos_seed,
+            chaos_regimes=report["chaos_regimes"],
+            chaos_baselines=list(_names(args.chaos_baselines)))
+        return _print_json(report, dev)
+    if matrix is not None:
+        # the experiment's own row, labelled by its training regime
+        policies = {cfg.domains or "clean": (exp.net, exp.env_params)}
+        try:
+            for regime, path in matrix["ckpts"]:
+                label = (regime if regime not in policies
+                         else f"{regime}@{len(policies)}")
+                rexp = Experiment.build(dataclasses.replace(
+                    cfg, domains=None if regime == "clean" else regime),
+                    device=dev)
+                with Checkpointer(os.path.abspath(path)) as ck:
+                    rexp.restore_checkpoint(ck, train=False)
+                print(f"matrix row {label!r} restored from {path}",
+                      file=sys.stderr)
+                policies[label] = (rexp.net, rexp.env_params)
+        except (NotImplementedError, ValueError) as e:
+            sys.exit(str(e))
+        report = matrix_report(
+            exp, regimes=matrix["regimes"], baselines=matrix["baselines"],
+            policies=policies, max_steps=args.max_steps,
+            seed=args.matrix_seed)
+        print(format_matrix(report), file=sys.stderr)
+        report["repro"] = dict(
+            repro, matrix_seed=args.matrix_seed,
+            matrix_regimes=report["matrix_regimes"],
+            matrix_baselines=list(matrix["baselines"]),
+            matrix_ckpts=[f"{r}={p}" for r, p in matrix["ckpts"]])
+        return _print_json(report, dev)
     if args.fairness:
         report = fairness_report(exp, max_steps=args.max_steps)
         print(format_fairness(report), file=sys.stderr)
@@ -296,7 +534,8 @@ def main(argv: "list[str] | None" = None) -> dict:
             percentiles=PERCENTILES if args.percentiles else None,
             env_params=stitch_params, backlog_gate=args.backlog_gate,
             stall_guard=args.stall_guard,
-            drain_completions=args.stitch_drain_jobs)
+            drain_completions=args.stitch_drain_jobs,
+            faults=stitch_schedule(args, cfg, exp.source, repro))
     else:
         windows = None
         if args.eval_windows is not None and \

@@ -3,7 +3,8 @@ optimizer and the training loop.
 
 Counterparts of ``build_env_params``, ``load_source_trace``,
 ``build_stack``, ``windows_per_pass``, ``drain_window``,
-``make_env_windows`` (with the drain curriculum) and the single-run
+``make_env_windows`` (with the drain curriculum),
+``make_domain_windows`` and the single-run
 ``Experiment`` of PPO or A2C (``build``, ``run`` with its eval,
 checkpoint and window-streaming cadences and its ``fused_chunk``,
 ``run_fused``, ``advance_windows``, ``save_checkpoint``,
@@ -12,7 +13,17 @@ checkpoint and window-streaming cadences and its ``fused_chunk``,
 population, :class:`PopulationExperiment`). A config with ``n_pods >
 1`` builds the hierarchical env and policy (:mod:`.env.hier`,
 :mod:`.models.hier`) and trains, streams windows and checkpoints as the
-flat ones do. Meshes, faults and domains are not ported.
+flat ones do. Meshes are not ported.
+
+Faults and domains (``cfg.faults``, ``cfg.domains``, flat configs): the
+experiment draws one schedule per env on the host, env ``e`` from
+``(cfg.seed, e)`` as JAX draws it, and holds them batched on the device
+(:attr:`Experiment.faults`) beside the traces; the rollout runs under
+them. A domain run's windows are generated from the config's fitted job
+mix under each env's draw (:func:`make_domain_windows`), and window
+streaming regenerates them at the new cursor under the same draws. A
+population member ``p`` draws its env ``e``'s schedule from
+``(cfg.seed, p, e)``.
 
 Random streams: the rollout samples from the carry's generator (seeded
 ``cfg.seed``) and the update permutes with another (seeded
@@ -52,22 +63,35 @@ from .algos.update import validate_update_geometry
 from .checkpoint import Checkpointer
 from .configs import ExperimentConfig
 from .device import resolve_device
+from .domains import (domain_schedule, resolve_domain, sample_env_domains,
+                      stack_domain_schedules, validate_domain_schedule)
 from .env.env import EnvParams, stack_traces
 from .env.hier import HierParams
 from .env.obs import build_adjacency
 from .models import (ActorCritic, GNNActorCritic, HierActorCritic,
                      make_hier_policy, make_policy)
 from .sim.core import SimParams, Trace, validate_trace
+from .sim.faults import (fault_horizon, resolve_regime,
+                         sample_fault_schedule, stack_fault_schedules)
 from .traces import (ArrayTrace, gen_pai_proxy_trace, gen_philly_proxy_trace,
                      gen_poisson_trace, load_pai, load_philly)
+from .traces.fit import domain_fit, gen_domain_window
 
 
 def build_hier_params(cfg: ExperimentConfig) -> HierParams:
     """The hierarchical env of a config with ``n_pods > 1``, with the
-    JAX package's refusals word for word (the port's config has no
-    fault or domain fields, so those two cannot arise). Each pod is
-    ``n_nodes // n_pods`` nodes; traces are validated against one
-    pod."""
+    JAX package's refusals word for word (faults and domains among
+    them). Each pod is ``n_nodes // n_pods`` nodes; traces are validated
+    against one pod."""
+    if cfg.faults:
+        raise ValueError(
+            "hierarchical configs have no fault-process support yet "
+            "(sim.faults is a flat-config feature); unset faults")
+    if cfg.domains:
+        raise ValueError(
+            "hierarchical configs have no domain-randomization "
+            "support yet (domain schedules carry per-node capacity "
+            "through the flat sim path only); unset domains")
     if cfg.n_nodes % cfg.n_pods != 0:
         raise ValueError(f"n_nodes={cfg.n_nodes} not divisible by "
                          f"n_pods={cfg.n_pods}")
@@ -102,19 +126,31 @@ def trace_sim(env_params: "EnvParams | HierParams") -> SimParams:
 def build_env_params(cfg: ExperimentConfig) -> "EnvParams | HierParams":
     """The config's env: :class:`.env.env.EnvParams`, or
     :class:`.env.hier.HierParams` when ``n_pods > 1``
-    (:func:`build_hier_params`)."""
+    (:func:`build_hier_params`). A flat config's observation gains the
+    per-node health channel under ``faults`` or ``domains`` (a domain
+    schedule carries slowdowns too) and the geometry channel under
+    ``domains``; grid and graph observations pin their layouts, so they
+    train under either without the channels."""
     if cfg.n_pods > 1:
         return build_hier_params(cfg)
     sim = SimParams(n_nodes=cfg.n_nodes, gpus_per_node=cfg.gpus_per_node,
                     max_jobs=cfg.window_jobs, queue_len=cfg.queue_len,
                     n_placements=cfg.n_placements,
                     preempt_len=cfg.preempt_len)
+    fault_process = resolve_regime(cfg.faults) if cfg.faults else None
+    domain_process = resolve_domain(cfg.domains) if cfg.domains else None
+    flat = cfg.obs_kind == "flat"
     return EnvParams(sim=sim, obs_kind=cfg.obs_kind,
                      reward_kind=cfg.reward_kind, n_tenants=cfg.n_tenants,
                      time_scale=cfg.time_scale,
                      reward_scale=cfg.reward_scale,
                      place_bonus=cfg.place_bonus,
-                     preempt_cost=cfg.preempt_cost, horizon=cfg.horizon)
+                     preempt_cost=cfg.preempt_cost, horizon=cfg.horizon,
+                     fault_process=fault_process,
+                     fault_obs=flat and (fault_process is not None
+                                         or domain_process is not None),
+                     domain_process=domain_process,
+                     domain_obs=flat and domain_process is not None)
 
 
 def load_source_trace(cfg: ExperimentConfig, n_jobs: int | None = None,
@@ -190,6 +226,66 @@ def make_env_windows(cfg: ExperimentConfig, source: ArrayTrace,
     return windows
 
 
+def make_domain_windows(cfg: ExperimentConfig, draws, start: int = 0,
+                        ) -> list[ArrayTrace]:
+    """The domain-randomized twin of :func:`make_env_windows`: one
+    window per draw, generated from the config's fitted job mix
+    (:func:`.traces.fit.domain_fit`) under the draw's arrival knobs and
+    offered against its actual capacity. ``start`` is the streaming
+    cursor: window ``e`` is seeded ``(cfg.seed, e, start)``, so a new
+    cursor draws fresh windows of the same shape and a restore at a
+    cursor regenerates the same ones. The drain tail works as in
+    :func:`make_env_windows`, over the draws given."""
+    fit = domain_fit(cfg)
+    windows = []
+    for e, d in enumerate(draws):
+        total = d.total_gpus
+        windows.append(gen_domain_window(
+            fit, cfg.window_jobs, (cfg.seed, e, start), n_gpus=total,
+            load=d.load, duration_scale=d.duration_scale,
+            burst_frac=d.burst_frac, diurnal=d.diurnal, max_gang=total,
+            n_tenants=max(cfg.n_tenants, 1)))
+    n = len(windows)     # the matrix draws batches other than n_envs
+    n_drain = int(round(n * cfg.drain_frac))
+    for e in range(n - n_drain, n):
+        windows[e] = drain_window(windows[e])
+    return windows
+
+
+def draw_schedules(cfg: ExperimentConfig, env_params, windows,
+                   device: "torch.device | str | None" = None,
+                   member: int | None = None):
+    """The env batch's fault or domain schedules: ``(faults, domains)``,
+    the batched device schedule (a ``DomainSchedule`` under
+    ``cfg.domains``, composing any ``cfg.faults`` draw) and the host
+    domain draws behind it; ``(None, None)`` for a healthy fixed
+    cluster. Env ``e`` draws from ``(cfg.seed, e)``, or from
+    ``(cfg.seed, member, e)`` for a population member, over the fault
+    horizon of ``windows``."""
+    fp = getattr(env_params, "fault_process", None)
+    dp = getattr(env_params, "domain_process", None)
+    if fp is None and dp is None:
+        return None, None
+    horizon_s = fault_horizon(windows)
+
+    def seed(e):
+        return (cfg.seed, e) if member is None else (cfg.seed, member, e)
+
+    def fault(e):
+        return (sample_fault_schedule(cfg.n_nodes, fp, seed(e), horizon_s)
+                if fp is not None else None)
+
+    if dp is None:
+        return stack_fault_schedules(
+            [fault(e) for e in range(cfg.n_envs)], device), None
+    domains = sample_env_domains(dp, cfg.n_nodes, cfg.gpus_per_node,
+                                 cfg.seed, cfg.n_envs)
+    return stack_domain_schedules(
+        [validate_domain_schedule(cfg.n_nodes, cfg.gpus_per_node,
+                                  domain_schedule(d, fault(e)))
+         for e, d in enumerate(domains)], device), domains
+
+
 def build_policy(cfg: ExperimentConfig,
                  env_params: "EnvParams | HierParams", *,
                  dtype: torch.dtype = torch.bfloat16,
@@ -224,11 +320,18 @@ def build_stack(cfg: ExperimentConfig,
     (default ``cuda``). Returns ``(env_params, windows, traces [E, ...],
     net, source)``; ``net(obs, mask)`` is the apply function (a graph
     policy holds its adjacency) and ``source`` the full validated source
-    trace."""
+    trace. Under ``cfg.domains`` the windows are generated per env under
+    its domain draw (:func:`make_domain_windows`); the source is still
+    loaded, for the full-trace table."""
     env_params = build_env_params(cfg)
     source = validate_trace(trace_sim(env_params), load_source_trace(cfg),
                             clamp=True)
-    windows = make_env_windows(cfg, source)
+    dp = getattr(env_params, "domain_process", None)
+    if dp is not None:
+        windows = make_domain_windows(cfg, sample_env_domains(
+            dp, cfg.n_nodes, cfg.gpus_per_node, cfg.seed, cfg.n_envs))
+    else:
+        windows = make_env_windows(cfg, source)
     traces = stack_traces(windows, env_params, device)
     net = build_policy(cfg, env_params, device=device)
     return env_params, windows, traces, net, source
@@ -329,6 +432,12 @@ class Experiment:
     device: torch.device
     window_cursor: int = 0   # first window index of the current env batch
     iteration: int = 0       # iterations trained over all run() calls
+    # batched fault or domain schedules [E, ...] the rollout runs under
+    # (None: a healthy fixed cluster), drawn at build from the config
+    faults: object = None
+    # the host domain draws behind a DomainSchedule in faults (window
+    # streaming regenerates windows under them), or None
+    domains: list | None = None
 
     @property
     def net(self) -> "ActorCritic | GNNActorCritic | HierActorCritic":
@@ -360,15 +469,17 @@ class Experiment:
                                  algo.minibatch_size, n_steps=algo.n_steps,
                                  n_envs=cfg.n_envs)
         env_params, windows, traces, net, source = build_stack(cfg, dev)
+        faults, domains = draw_schedules(cfg, env_params, windows, dev)
         carry = init_carry(env_params, traces,
-                           torch.Generator(dev).manual_seed(cfg.seed))
+                           torch.Generator(dev).manual_seed(cfg.seed),
+                           faults)
         lib = a2c if cfg.algo == "a2c" else ppo
         return Experiment(
             cfg=cfg, env_params=env_params, windows=windows, traces=traces,
             train_state=lib.make_train_state(net, algo),
             train_step=lib.make_train_step(env_params, algo), carry=carry,
             generator=torch.Generator(dev).manual_seed(cfg.seed + 1),
-            source=source, device=dev)
+            source=source, device=dev, faults=faults, domains=domains)
 
     @property
     def steps_per_iteration(self) -> int:
@@ -380,9 +491,13 @@ class Experiment:
 
     def _cut_windows(self, cursor: int) -> None:
         """Re-cut the env windows at tiling position ``cursor`` (the same
-        shapes; the carry is left as it is)."""
+        shapes; the carry is left as it is). A domain run regenerates
+        its windows at ``cursor`` under the same draws."""
         self.window_cursor = cursor
-        self.windows = make_env_windows(self.cfg, self.source, cursor)
+        self.windows = (
+            make_domain_windows(self.cfg, self.domains, cursor)
+            if self.domains is not None
+            else make_env_windows(self.cfg, self.source, cursor))
         self.traces = stack_traces(self.windows, self.env_params,
                                    self.device)
 
@@ -390,10 +505,11 @@ class Experiment:
         """Rotate every env onto the next ``n_envs`` windows of the
         source tiling and reset every episode (window streaming: a long
         run covers the whole trace). The carry's generator goes on
-        drawing where it was."""
+        drawing where it was; the fault schedules stay (their times are
+        episode-relative)."""
         self._cut_windows(self.window_cursor + self.cfg.n_envs)
         self.carry = init_carry(self.env_params, self.traces,
-                                self.carry.generator)
+                                self.carry.generator, self.faults)
 
     def save_checkpoint(self, ckpt: Checkpointer, step: int | None = None,
                         meta: dict | None = None,
@@ -497,7 +613,8 @@ class Experiment:
         metrics = None
         for _ in range(iterations):
             self.train_state, self.carry, metrics = self.train_step(
-                self.train_state, self.carry, self.traces, self.generator)
+                self.train_state, self.carry, self.traces, self.generator,
+                self.faults)
         self.iteration += iterations
         return metrics
 
@@ -555,7 +672,7 @@ class Experiment:
             else:
                 self.train_state, self.carry, metrics = self.train_step(
                     self.train_state, self.carry, self.traces,
-                    self.generator)
+                    self.generator, self.faults)
                 self.iteration = g + 1
             done += stride
             b = self.iteration - 1
@@ -632,6 +749,9 @@ class PopulationExperiment:
     source: ArrayTrace
     device: torch.device
     iteration: int = 0
+    # each member's batched fault schedules [E, ...] (cfg.faults), drawn
+    # from (seed, member, env) at build; None for a healthy cluster
+    faults: list | None = None
 
     def __post_init__(self):
         self._refresh_hparams()
@@ -661,6 +781,12 @@ class PopulationExperiment:
                 f"PopulationExperiment trains PPO members (PBT explores "
                 f"PPO hyperparameters); config {cfg.name!r} has "
                 f"algo={cfg.algo!r}")
+        if cfg.domains:
+            raise ValueError(
+                "PopulationExperiment does not thread domain schedules: "
+                "per-member domain draws would need member-indexed trace "
+                "windows through the population stack (cfg.domains=None; "
+                "cfg.faults is supported)")
         if cfg.resample_every:
             raise ValueError(
                 "PopulationExperiment trains every member on fixed "
@@ -679,6 +805,10 @@ class PopulationExperiment:
                                 clamp=True)
         windows = make_env_windows(cfg, source)
         traces = stack_traces(windows, env_params, dev)
+        # every member trains on the same windows, each under its own
+        # schedules: the population covers the regime P x E wide
+        faults = ([draw_schedules(cfg, env_params, windows, dev, p)[0]
+                   for p in range(n_pop)] if cfg.faults else None)
         members, carries, gens = [], [], []
         for p in range(n_pop):
             s_init, s_sample, s_update = member_seeds(cfg.seed, p)
@@ -687,7 +817,7 @@ class PopulationExperiment:
                 cfg.ppo))
             carries.append(init_carry(
                 env_params, traces, torch.Generator(dev).manual_seed(
-                    s_sample)))
+                    s_sample), faults[p] if faults else None))
             gens.append(torch.Generator(dev).manual_seed(s_update))
         return PopulationExperiment(
             cfg=cfg, n_pop=n_pop, env_params=env_params, windows=windows,
@@ -696,7 +826,7 @@ class PopulationExperiment:
             hparams=sample_hparams(cfg.ppo, n_pop, cfg.seed),
             controller=PBTController(n_pop, pbt_cfg),
             member_step=make_member_step(env_params, cfg.ppo),
-            source=source, device=dev)
+            source=source, device=dev, faults=faults)
 
     @property
     def steps_per_iteration(self) -> int:
@@ -858,7 +988,8 @@ class PopulationExperiment:
             for p in range(self.n_pop):
                 self.members[p], self.carries[p], m = self.member_step(
                     self.members[p], self.carries[p], self.traces,
-                    self.generators[p], self.member_hp[p])
+                    self.generators[p], self.member_hp[p],
+                    self.faults[p] if self.faults else None)
                 per_member.append(m)
             metrics = stack_members(per_member)
             self.controller.record(metrics.mean_reward)

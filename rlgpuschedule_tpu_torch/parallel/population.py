@@ -118,15 +118,17 @@ def make_member_learn_step(config: PPOConfig) -> Callable:
 
 def make_member_step(env_params, config: PPOConfig) -> Callable:
     """One member's full PPO iteration: ``(member_state, carry, traces,
-    generator, hp) -> (member_state, carry', metrics)``, the rollout
-    (sampling from the carry's generator) composed with
-    :func:`make_member_learn_step` (permuting with ``generator``)."""
+    generator, hp[, faults]) -> (member_state, carry', metrics)``, the
+    rollout (sampling from the carry's generator, under the member's
+    batched ``faults``) composed with :func:`make_member_learn_step`
+    (permuting with ``generator``)."""
     learn = make_member_learn_step(config)
 
     def member_step(state: MemberState, carry: RolloutCarry, traces,
-                    generator: torch.Generator, hp: HParams):
+                    generator: torch.Generator, hp: HParams, faults=None):
         carry, tr, last_value = rollout(state.net, env_params, traces,
-                                        carry, config.n_steps)
+                                        carry, config.n_steps,
+                                        faults=faults)
         state, metrics = learn(state, tr, last_value, generator, hp)
         return state, carry, metrics
 

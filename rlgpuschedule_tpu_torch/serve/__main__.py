@@ -40,10 +40,13 @@ spans) and a ``metrics.prom`` snapshot. The device is ``cuda`` unless
 ``--device cpu`` is given; the JSON on stdout carries the ``repro``
 block of the config.
 
+``--fleet-regime`` replays every fleet cluster under a seeded fault
+regime (flat configs; cluster ``e`` draws ``(--fleet-seed, e)``).
+
 Refused with ``NotImplementedError`` naming their ``ROADMAP.md`` item:
-the network front door (``--frontend-port``, ``--wire-requests``), the
-flywheel (``--flight-log``, ``--promote``, ``--promote-noise``) and
-fault-regime fleet replays (``--fleet-regime``). A hierarchical config
+the network front door (``--frontend-port``, ``--wire-requests``) and
+the flywheel (``--flight-log``, ``--promote``, ``--promote-noise``). A
+hierarchical config
 (``n_pods > 1``, config 5) is served through one engine (dict
 observations, per-head actions); ``--engines > 1`` with it exits with
 the mode table's refusal, in JAX's words. From a population's
@@ -73,11 +76,12 @@ from ..experiment import build_env_params, build_policy, restore_policy
 from ..models import load_npz
 from ..obs import EventBus, Registry, Tracer, serve_http
 from ..obs.trace import NULL_TRACER
+from ..sim.faults import FAULT_REGIMES
 from .batching import PolicyServer
 from .bench import (build_request_pool, run_bench, run_chaos_soak,
                     run_host_path, run_scaleout, run_soak)
 from .engine import InferenceEngine
-from .fleet import fleet_replay, fleet_windows
+from .fleet import fleet_replay, fleet_windows, sample_fleet_faults
 from .router import (AutoscaleAdvisor, EngineRouter, ServeFaultInjector,
                      parse_serve_fault)
 
@@ -89,8 +93,6 @@ DEFERRED = {
                     "item 22)"),
     **dict.fromkeys(("flight_log", "promote", "promote_noise"),
                     "the flywheel slice (ROADMAP.md queue 1, item 23)"),
-    "fleet_regime": "the faults slice of sim/core (ROADMAP.md queue 1, "
-                    "item 17)",
 }
 
 
@@ -151,6 +153,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="host-path: measured full-bucket rounds per arm")
     p.add_argument("--fleet", type=int, default=None, metavar="N",
                    help="replay the policy against N seeded clusters")
+    p.add_argument("--fleet-regime", default=None, metavar="REGIME",
+                   help="with --fleet: replay every cluster under this "
+                        "seeded fault regime (sim.faults.FAULT_REGIMES; "
+                        "flat configs)")
+    p.add_argument("--fleet-seed", type=int, default=0,
+                   help="with --fleet-regime: base seed of the fault "
+                        "draws (cluster e draws (seed, e))")
     p.add_argument("--max-steps", type=int, default=None,
                    help="fleet: cap decision steps per cluster (default: "
                         "the config's horizon)")
@@ -195,7 +204,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--flight-log", default=None, metavar="DIR")
     p.add_argument("--promote", default=None, metavar="CKPTDIR")
     p.add_argument("--promote-noise", type=float, default=None)
-    p.add_argument("--fleet-regime", default=None, metavar="REGIME")
     return p
 
 
@@ -221,6 +229,10 @@ def _check(args) -> "tuple[tuple[int, ...] | None, list | None]":
                  "--host-path and/or --fleet N")
     if args.fleet is not None and args.fleet <= 0:
         sys.exit("--fleet must be a positive cluster count")
+    if args.fleet_regime is not None and args.fleet_regime not in \
+            FAULT_REGIMES:
+        sys.exit(f"unknown --fleet-regime {args.fleet_regime!r}; "
+                 f"known: {sorted(FAULT_REGIMES)}")
     if args.max_steps is not None and args.max_steps <= 0:
         sys.exit("--max-steps must be positive")
     if args.bucket <= 0 or (args.bucket & (args.bucket - 1)):
@@ -414,10 +426,17 @@ def main(argv: "list[str] | None" = None) -> dict:
                       + ("ok" if arm["conservation_ok"] else "VIOLATED"),
                       file=sys.stderr)
         if args.fleet is not None:
-            _, traces = fleet_windows(cfg, args.fleet, device=dev)
+            windows, traces = fleet_windows(cfg, args.fleet, device=dev)
+            faults = (sample_fleet_faults(cfg.n_nodes, args.fleet_regime,
+                                          args.fleet_seed, args.fleet,
+                                          windows, dev)
+                      if args.fleet_regime is not None else None)
             fl = report["fleet"] = fleet_replay(
                 policy, env_params, traces, max_steps=args.max_steps,
-                device=dev)
+                device=dev, faults=faults)
+            fl["regime"] = args.fleet_regime
+            fl["fleet_seed"] = (args.fleet_seed if args.fleet_regime
+                                else None)
             registry.gauge("serve_fleet_mean_jct",
                            "fleet replay pooled mean JCT").set(
                 fl["mean_jct"])
@@ -427,7 +446,9 @@ def main(argv: "list[str] | None" = None) -> dict:
             registry.gauge("serve_fleet_decisions_per_s",
                            "fleet replay decision throughput").set(
                 fl["decisions_per_s"])
-            print(f"fleet: {fl['n_clusters']} clusters on {dev}, mean JCT "
+            print(f"fleet: {fl['n_clusters']} clusters on {dev}"
+                  + (f" under {args.fleet_regime!r} faults"
+                     if args.fleet_regime else "") + ", mean JCT "
                   f"{fl['mean_jct']:.1f} s, completion "
                   f"{fl['completion']:.1%}, {fl['decisions']} decisions in "
                   f"{fl['wall_s']:.2f} s ({fl['decisions_per_s']:.0f}/s)",

@@ -47,12 +47,13 @@ def default_request_sizes(bucket: int) -> "tuple[int, ...]":
 
 
 def build_request_pool(policy: nn.Module, env_params, traces,
-                       steps: int = 4) -> "list[tuple]":
+                       steps: int = 4, faults=None) -> "list[tuple]":
     """A pool of (obs, mask) request rows: the env batch reset and
-    stepped ``steps`` decisions under the greedy policy, every row a
-    cluster state the policy reaches. Host rows (arrays, or dicts of
-    arrays for the hierarchical env), no leading axis; pool order is
-    (step, env) row-major."""
+    stepped ``steps`` decisions under the greedy policy (and the batched
+    fault schedules ``faults`` of a flat env), every row a cluster state
+    the policy reaches. Host rows (arrays, or dicts of arrays for the
+    hierarchical env), no leading axis; pool order is (step, env)
+    row-major."""
     pool: list[tuple] = []
     env = env_hier.env_module(env_params)
 
@@ -63,8 +64,8 @@ def build_request_pool(policy: nn.Module, env_params, traces,
         pool.extend((index(o, i), index(m, i)) for i in range(n))
 
     with torch.no_grad():
-        state, ts = env.vec_reset(env_params, traces)
-        step = env_hier.vec_stepper(env_params, traces)
+        state, ts = env.vec_reset(env_params, traces, faults)
+        step = env_hier.vec_stepper(env_params, traces, faults)
         fresh = (state, ts)
         rows(ts.obs, ts.action_mask)
         for _ in range(max(steps, 0)):

@@ -6,8 +6,10 @@ package's ``serve/fleet.py``: the policy is replayed greedily against
 axis, and the result is reported as throughput and fleet JCT. It is
 :func:`..eval.replay` on the first ``N`` windows of the config's
 tiling, the hierarchical config's (``n_pods > 1``) included: its
-windows are validated against one pod. Per-cluster fault regimes wait
-for the faults slice.
+windows are validated against one pod. A flat config's clusters may
+each replay under a seeded fault regime (:func:`sample_fleet_faults`,
+cluster ``e`` drawing ``(seed, e)``, the chaos matrix's seeding), so a
+fleet run doubles as a degraded-cluster probe.
 """
 from __future__ import annotations
 
@@ -24,6 +26,8 @@ from ..eval import pooled_avg_jct, replay
 from ..experiment import (build_env_params, load_source_trace,
                           make_env_windows, trace_sim)
 from ..sim.core import Trace, validate_trace
+from ..sim.faults import (fault_horizon, sample_fault_schedule,
+                          stack_fault_schedules)
 
 
 def fleet_windows(cfg, n_clusters: int, source=None, start: int = 0, *,
@@ -45,9 +49,22 @@ def fleet_windows(cfg, n_clusters: int, source=None, start: int = 0, *,
     return windows, stack_traces(windows, sim_params, device)
 
 
+def sample_fleet_faults(n_nodes: int, regime: str, seed: int,
+                        n_clusters: int, windows,
+                        device: "torch.device | str | None" = None):
+    """Seeded per-cluster fault schedules for a fleet replay, batched on
+    ``device`` (default ``cuda``): cluster ``e`` draws ``(seed, e)``
+    over the windows' fault horizon."""
+    horizon_s = fault_horizon(windows)
+    return stack_fault_schedules(
+        [sample_fault_schedule(n_nodes, regime, (seed, e), horizon_s)
+         for e in range(n_clusters)], device)
+
+
 def fleet_replay(policy: nn.Module, env_params: EnvParams, traces: Trace,
                  max_steps: int | None = None,
-                 device: "torch.device | str | None" = None) -> dict:
+                 device: "torch.device | str | None" = None,
+                 faults=None) -> dict:
     """Replay ``policy`` against the whole cluster batch on ``device``
     (default ``cuda``; the traces and the policy must already be there)
     and report the pooled fleet table: ``mean_jct``
@@ -55,7 +72,12 @@ def fleet_replay(policy: nn.Module, env_params: EnvParams, traces: Trace,
     ``decisions`` (policy decisions taken), ``decisions_per_s`` over the
     measured wall time, and the ``per_cluster`` arrays behind them.
     Preemptive configs replay with :func:`..eval.replay`'s stall guard
-    on."""
+    on. ``faults`` (flat configs): the batched per-cluster schedules
+    every cluster replays under."""
+    if faults is not None and not isinstance(env_params, EnvParams):
+        raise ValueError("fleet fault regimes apply to flat configs "
+                         "(the hierarchical env has no fault-process "
+                         "support)")
     dev = resolve_device(device)
     for what, t in (("traces", traces.submit),
                     ("policy", next(policy.parameters()))):
@@ -65,7 +87,8 @@ def fleet_replay(policy: nn.Module, env_params: EnvParams, traces: Trace,
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    res = replay(policy, env_params, traces, max_steps=max_steps)
+    res = replay(policy, env_params, traces, max_steps=max_steps,
+                 faults=faults)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0

@@ -19,7 +19,12 @@ preemptions][no-op]``: pack or pack|spread placement (``n_placements``
 1 or 2) and an optional preempt block (``preempt_len``). With
 ``n_placements == 1`` and ``preempt_len == 0`` the step computes no
 spread placement and no preemption, as JAX drops them at trace time.
-Faults and domain randomization wait for their slice.
+
+``faults`` (a batched :class:`.faults.FaultSchedule`, or a
+:class:`..domains.DomainSchedule` with its per-node capacity) threads the
+cluster fault process through placement, event selection, progress
+and drain kills. With ``faults=None`` none of that arithmetic is issued:
+the step is the fault-free one, op for op.
 """
 from __future__ import annotations
 
@@ -31,6 +36,8 @@ import torch
 
 from ..device import resolve_device
 from ..traces.records import ArrayTrace
+from .faults import (FaultSchedule, effective_free, job_stretch,
+                     next_transition, node_up, validate_fault_schedule)
 # job status codes and placement modes, shared with the oracle
 from .oracle import DONE, NOT_ARRIVED, PACK, PENDING, RUNNING, SPREAD
 
@@ -59,11 +66,15 @@ class SimParams:
 
 
 def validate_trace(params: SimParams, tr: ArrayTrace,
-                   clamp: bool = False) -> ArrayTrace:
+                   clamp: bool = False,
+                   faults: "FaultSchedule | None" = None) -> ArrayTrace:
     """A valid job demanding more GPUs than the cluster has can never be
     placed; in the simulator that shows only as an episode that never
     ends. Raise here instead, or with ``clamp=True`` cap demands at
-    capacity."""
+    capacity. ``faults`` (one host schedule) is checked against the
+    cluster at the same point (:func:`.faults.validate_fault_schedule`)."""
+    if faults is not None:
+        validate_fault_schedule(params.n_nodes, faults)
     over = tr.valid & (tr.gpus > params.capacity)
     if not over.any():
         return tr
@@ -139,6 +150,16 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x.gather(1, flat).reshape(idx.shape)
 
 
+def _stretched_eta(clock: torch.Tensor, remaining: torch.Tensor,
+                   stretch: torch.Tensor) -> torch.Tensor:
+    """``clock + remaining * stretch`` per job, ``f32[E, J]``, rounded
+    once as the fused multiply-add XLA contracts it to: the f32 product
+    is exact in f64, so the f64 sum rounds to the same f32 on the CPU
+    and the card."""
+    return (clock[:, None].double()
+            + remaining.double() * stretch.double()).float()
+
+
 def _spacing(t: torch.Tensor) -> torch.Tensor:
     """``jnp.spacing`` for ``t >= 0``: the gap to the next larger f32.
     NaN at ``+inf``, as there."""
@@ -147,10 +168,18 @@ def _spacing(t: torch.Tensor) -> torch.Tensor:
 
 # ---- lifecycle --------------------------------------------------------------
 
-def init_state(params: SimParams, trace: Trace) -> SimState:
+def init_state(params: SimParams, trace: Trace,
+               faults: "FaultSchedule | None" = None) -> SimState:
+    """Every cluster at clock 0 with its arrivals processed. A domain
+    schedule's per-node ``capacity`` is the initial free vector; a plain
+    fault schedule (or none) keeps the full static cluster."""
     E, J = trace.submit.shape
     N = params.n_nodes
     dev = trace.submit.device
+    cap = getattr(faults, "capacity", None)
+    free = (torch.full((E, N), params.gpus_per_node, dtype=torch.int32,
+                       device=dev) if cap is None
+            else cap.to(torch.int32).clone())
     state = SimState(
         clock=torch.zeros(E, dtype=torch.float32, device=dev),
         status=torch.where(trace.valid, NOT_ARRIVED, DONE).to(torch.int32),
@@ -158,8 +187,7 @@ def init_state(params: SimParams, trace: Trace) -> SimState:
         start=torch.full((E, J), INF, dtype=torch.float32, device=dev),
         finish=torch.full((E, J), INF, dtype=torch.float32, device=dev),
         alloc=torch.zeros(E, J, N, dtype=torch.int32, device=dev),
-        free=torch.full((E, N), params.gpus_per_node, dtype=torch.int32,
-                        device=dev),
+        free=free,
     )
     return _process_arrivals(state, trace)
 
@@ -172,25 +200,47 @@ def _process_arrivals(state: SimState, trace: Trace) -> SimState:
 
 # ---- events -----------------------------------------------------------------
 
-def next_event_time(state: SimState, trace: Trace) -> torch.Tensor:
+def next_event_time(state: SimState, trace: Trace,
+                    faults: "FaultSchedule | None" = None) -> torch.Tensor:
     """Earliest future arrival or completion per cluster, ``+inf`` if none
-    (a masked min in place of a priority queue)."""
+    (a masked min in place of a priority queue). With ``faults`` a
+    completion is stretched (``clock + remaining * stretch``) and every
+    drain start and node return is an event too."""
     arrival = torch.where(state.status == NOT_ARRIVED, trace.submit,
                           INF).amin(1)
-    eta = state.clock[:, None] + state.remaining
+    if faults is None:
+        eta = state.clock[:, None] + state.remaining
+    else:
+        eta = _stretched_eta(state.clock, state.remaining,
+                             job_stretch(faults, state.alloc))
     completion = torch.where(state.status == RUNNING, eta, INF).amin(1)
-    return torch.minimum(arrival, completion)
+    t = torch.minimum(arrival, completion)
+    if faults is not None:
+        t = torch.minimum(t, next_transition(faults, state.clock))
+    return t
 
 
-def advance_to(state: SimState, trace: Trace, t: torch.Tensor) -> SimState:
+def advance_to(state: SimState, trace: Trace, t: torch.Tensor,
+               faults: "FaultSchedule | None" = None) -> SimState:
     """Advance each clock to ``t`` (the caller guarantees t <= next event;
     ``+inf`` leaves the clock where it is). Completions at ``t`` are
-    processed before arrivals."""
+    processed before arrivals.
+
+    With ``faults`` running work progresses at ``1 / stretch``, and after
+    the completions, before the arrivals, every job holding GPUs on a
+    node that is down at ``t`` goes back to PENDING with its attained
+    service kept (:func:`_kill_drained`). Transitions are events, so
+    ``t`` never lies beyond one."""
     t = torch.where(torch.isfinite(t), t, state.clock)
     dt = t - state.clock
     running = state.status == RUNNING
-    progressed = state.remaining - dt[:, None]
-    eta = state.clock[:, None] + state.remaining
+    if faults is None:
+        progressed = state.remaining - dt[:, None]
+        eta = state.clock[:, None] + state.remaining
+    else:
+        stretch = job_stretch(faults, state.alloc)
+        progressed = state.remaining - dt[:, None] / stretch
+        eta = _stretched_eta(state.clock, state.remaining, stretch)
     remaining = torch.where(running, torch.clamp_min(progressed, 0.0),
                             state.remaining)
     # Completion is tested on absolute time with a tolerance of a few
@@ -211,7 +261,25 @@ def advance_to(state: SimState, trace: Trace, t: torch.Tensor) -> SimState:
         alloc=torch.where(completed[:, :, None], 0, state.alloc),
         free=state.free + released,
     )
+    if faults is not None:
+        state = _kill_drained(state, faults)
     return _process_arrivals(state, trace)
+
+
+def _kill_drained(state: SimState, faults: FaultSchedule) -> SimState:
+    """RUNNING -> PENDING for every job holding GPUs on a node that is
+    down at the clock; the GPUs go back to ``free``, so ``free +
+    allocated == capacity`` per node at every instant. Idempotent: a
+    killed job holds nothing, so a later step while the node is still
+    down changes nothing."""
+    up = node_up(faults, state.clock)                          # [E, N]
+    killed = (state.status == RUNNING) & (
+        (state.alloc > 0) & ~up[:, None, :]).any(2)
+    released = (state.alloc * killed[:, :, None]).sum(1, dtype=torch.int32)
+    return state._replace(
+        status=torch.where(killed, PENDING, state.status),
+        alloc=torch.where(killed[:, :, None], 0, state.alloc),
+        free=state.free + released)
 
 
 # ---- placement -------------------------------------------------------------
@@ -278,17 +346,19 @@ def placement(free: torch.Tensor, demand: torch.Tensor,
 
 def try_place(params: SimParams, state: SimState, trace: Trace,
               j: torch.Tensor, mode: torch.Tensor | None,
+              faults: "FaultSchedule | None" = None,
               ) -> tuple[SimState, torch.Tensor]:
     """Gang-place job row ``j[e]`` in each cluster (-1 = none) with
     placement ``mode[e]`` (``None``: pack). Returns (state',
     success[E]). All or nothing: where it does not fit, that cluster's
-    state is unchanged."""
+    state is unchanged. With ``faults`` a drained node offers no GPUs
+    (:func:`.faults.effective_free`), so no gang lands on one."""
     J = params.max_jobs
     jc = j.clamp(0, J - 1)
     pending = (j >= 0) & (_take(state.status, jc) == PENDING)
     demand = _take(trace.gpus, jc)
-    alloc, feasible = placement(state.free, demand, mode,
-                                params.gpus_per_node)
+    free = effective_free(faults, state.free, state.clock)
+    alloc, feasible = placement(free, demand, mode, params.gpus_per_node)
     ok = pending & feasible
     allocd = torch.where(ok[:, None], alloc, 0)
     rows = torch.arange(J, device=j.device)
@@ -374,17 +444,20 @@ def attained_service(state: SimState, trace: Trace) -> torch.Tensor:
 
 def action_mask(params: SimParams, state: SimState, trace: Trace,
                 queue: torch.Tensor | None = None,
-                run_queue: torch.Tensor | None = None) -> torch.Tensor:
+                run_queue: torch.Tensor | None = None,
+                faults: "FaultSchedule | None" = None) -> torch.Tensor:
     """``bool[E, n_actions]``: a queue slot's placements are valid iff
     it holds a pending job whose gang fits in the free GPUs (pack and
     spread share feasibility); a preempt slot iff it holds a running
     job; no-op always. Pass a precomputed :func:`pending_queue` and
-    :func:`running_queue` to share them with the observation builder."""
+    :func:`running_queue` to share them with the observation builder.
+    With ``faults`` only up nodes' GPUs count, so the mask and
+    :func:`try_place` agree on what fits."""
     if queue is None:
         queue = pending_queue(params, state)                   # [E, K]
     demand = _take(trace.gpus, queue.clamp(0, params.max_jobs - 1))
-    ok = (queue >= 0) & (demand <= state.free.sum(1, dtype=torch.int32
-                                                  )[:, None])
+    free = effective_free(faults, state.free, state.clock)
+    ok = (queue >= 0) & (demand <= free.sum(1, dtype=torch.int32)[:, None])
     if params.n_placements > 1:
         # each slot's flag once per placement, as jnp.repeat repeats
         ok = torch.repeat_interleave(ok, params.n_placements, dim=1)
@@ -401,7 +474,9 @@ def action_mask(params: SimParams, state: SimState, trace: Trace,
 # ---- the RL decision-point step --------------------------------------------
 
 def rl_step(params: SimParams, state: SimState, trace: Trace,
-            action: torch.Tensor) -> tuple[SimState, StepInfo]:
+            action: torch.Tensor,
+            faults: "FaultSchedule | None" = None,
+            ) -> tuple[SimState, StepInfo]:
     """One decision-point step of every cluster; the batched counterpart
     of the JAX package's ``rl_step``. Action layout: ``[K*P placements]
     [R preemptions][no-op]``; placement ``a`` takes queue slot ``a // P``
@@ -409,7 +484,11 @@ def rl_step(params: SimParams, state: SimState, trace: Trace,
     placement or a preemption costs no simulated time; a no-op (or one
     that fails) advances to the next event, or, when no event is left,
     force-places the queue head (pack). Every outcome is computed and
-    the right one selected per cluster."""
+    the right one selected per cluster. ``faults`` (batched, or None for
+    a healthy cluster) reaches placement, the event choice, progress and
+    the drain kills; under it an exhausted event horizon means no
+    transition is pending, so a node still down stays down, and a head
+    that no longer fits makes the forced placement fail."""
     K, P, R, J = (params.queue_len, params.n_placements,
                   params.preempt_len, params.max_jobs)
     n_place = K * P
@@ -421,7 +500,7 @@ def rl_step(params: SimParams, state: SimState, trace: Trace,
         k, mode = (action // P).clamp(0, K - 1), action % P
     j = torch.where(is_place, _take(queue, k), -1)
 
-    placed_state, placed = try_place(params, state, trace, j, mode)
+    placed_state, placed = try_place(params, state, trace, j, mode, faults)
     progress = placed
     if R:
         run_q = running_queue(params, state, trace)
@@ -431,12 +510,12 @@ def rl_step(params: SimParams, state: SimState, trace: Trace,
             state, torch.where(is_pre, _take(run_q, r), -1), J)
         progress = placed | preempted
 
-    t_next = next_event_time(state, trace)
+    t_next = next_event_time(state, trace, faults)
     has_event = torch.isfinite(t_next)
     n_before = in_system(state)
-    advanced_state = advance_to(state, trace, t_next)
+    advanced_state = advance_to(state, trace, t_next, faults)
     forced_state, forced_ok = try_place(params, state, trace, queue[:, 0],
-                                        None)
+                                        None, faults)
 
     waited = select(has_event, advanced_state, forced_state)
     if R:

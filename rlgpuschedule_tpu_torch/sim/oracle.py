@@ -17,30 +17,28 @@ Semantics:
   (smallest level t with sum(min(free, t)) >= demand, the excess
   trimmed from the highest node ids allocated exactly t).
 - Time advances only between decision points, to the next event:
-  min(next arrival, next completion); completions are processed before
-  arrivals at the same instant.
+  min(next arrival, next completion, next fault transition);
+  completions are processed before drain kills, and drain kills before
+  arrivals, at the same instant.
 - JCT(j) = finish(j) - submit(j).
 
-The cluster fault process of the JAX oracle (drained nodes, stragglers)
-is not ported: every node is always up, and a ``faults=`` argument is
-refused until the chaos slice (ROADMAP.md queue 1, item 17).
+``faults`` (one host :class:`.faults.FaultSchedule`, or a
+:class:`..domains.DomainSchedule` whose per-node capacity sizes the
+cluster) attaches the fault process the batched simulator implements:
+a drained node offers no placement capacity and kills its running jobs
+back to PENDING with their attained service kept; a straggler stretches
+remaining work (a gang runs at its slowest node's speed); drain starts
+and node returns are events.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from ..traces.records import ArrayTrace, JobRecord, to_array_trace
+from .faults import validate_fault_schedule
 
 NOT_ARRIVED, PENDING, RUNNING, DONE = 0, 1, 2, 3
 PACK, SPREAD = 0, 1
-
-
-def refuse_faults(faults) -> None:
-    """Raise if a fault schedule is passed: the port has no fault model."""
-    if faults is not None:
-        raise NotImplementedError(
-            "faults=: the cluster fault process (sim/faults.py) waits for "
-            "the chaos and domain slice (ROADMAP.md queue 1, item 17)")
 
 
 def pack_placement(free: np.ndarray, demand: int) -> np.ndarray | None:
@@ -82,17 +80,27 @@ class OracleSim:
 
     def __init__(self, trace: ArrayTrace | list[JobRecord], n_nodes: int,
                  gpus_per_node: int, faults=None):
-        refuse_faults(faults)
         if isinstance(trace, list):
             trace = to_array_trace(trace)
         self.trace = trace
         self.n_nodes = n_nodes
         self.gpus_per_node = gpus_per_node
-        self.node_capacity = np.full(n_nodes, gpus_per_node, np.int32)
+        # a domain schedule's capacity is read before validation, which
+        # keeps only the three fault fields
+        cap = getattr(faults, "capacity", None)
+        self.node_capacity = (np.full(n_nodes, gpus_per_node, np.int32)
+                              if cap is None
+                              else np.asarray(cap, np.int32).copy())
+        if self.node_capacity.shape != (n_nodes,):
+            raise ValueError(
+                f"domain capacity must have shape ({n_nodes},); got "
+                f"{self.node_capacity.shape}")
         self.capacity = int(self.node_capacity.sum())
         if trace.num_jobs and \
                 int(trace.gpus[trace.valid].max()) > self.capacity:
             raise ValueError("a job demands more GPUs than the cluster has")
+        self.faults = (None if faults is None
+                       else validate_fault_schedule(n_nodes, faults))
         self.reset()
 
     def reset(self):
@@ -115,33 +123,62 @@ class OracleSim:
             (self.trace.submit <= self.clock)
         self.status[arrived] = PENDING
 
+    def node_up(self, t: float | None = None) -> np.ndarray:
+        """bool[N]: nodes serving at ``t`` (default the clock; down on
+        [start, end))."""
+        if self.faults is None:
+            return np.ones(self.n_nodes, bool)
+        t = self.clock if t is None else t
+        f = self.faults
+        return ~((f.down_start <= t) & (t < f.down_end)).any(axis=1)
+
     def effective_free(self) -> np.ndarray:
-        """Placement's view of free GPUs (every node is up)."""
-        return self.free
+        """Placement's view of free GPUs: drained nodes offer none."""
+        if self.faults is None:
+            return self.free
+        return np.where(self.node_up(), self.free, 0).astype(self.free.dtype)
+
+    def _stretch(self) -> np.ndarray:
+        """f64[J] work stretch per job: a gang runs at its slowest node's
+        speed; 1 with no faults or no allocation."""
+        if self.faults is None:
+            return np.ones(self.trace.max_jobs)
+        slow = np.asarray(self.faults.slowdown, np.float64)
+        return np.where(self.alloc > 0, slow[None, :], 1.0).max(axis=1)
 
     def next_event_time(self) -> float:
-        """Earliest future arrival or completion; +inf if none exists."""
+        """Earliest future arrival, completion or fault transition; +inf
+        if none exists."""
         t = np.inf
         na = self.status == NOT_ARRIVED
         if na.any():
             t = min(t, float(self.trace.submit[na].min()))
         run = self.status == RUNNING
         if run.any():
-            t = min(t, self.clock + float(self.remaining[run].min()))
+            eta = self.remaining[run] * self._stretch()[run]
+            t = min(t, self.clock + float(eta.min()))
+        if self.faults is not None:
+            times = np.concatenate([
+                np.asarray(self.faults.down_start, np.float64).ravel(),
+                np.asarray(self.faults.down_end, np.float64).ravel()])
+            future = times[times > self.clock]
+            if future.size:
+                t = min(t, float(future.min()))
         return t
 
     def advance_to(self, t: float) -> float:
         """Advance the clock to ``t`` (<= next event time; schedulers may
         pass an earlier timer wake, e.g. a Tiresias demotion instant).
-        Completions falling exactly on ``t`` are processed before
-        arrivals. Returns dt."""
+        Completions falling exactly on ``t`` are processed first, then
+        the drain kills (jobs on nodes down at ``t`` back to PENDING,
+        their service kept), then arrivals. Returns dt."""
         if not np.isfinite(t):
             return 0.0
         if t > self.next_event_time() + 1e-9:
             raise ValueError("advance_to would skip over an event")
         dt = t - self.clock
         run = self.status == RUNNING
-        self.remaining[run] -= dt
+        self.remaining[run] -= dt / self._stretch()[run]
         self.clock = t
         completed = run & (self.remaining <= 1e-9)
         for j in np.flatnonzero(completed):
@@ -150,6 +187,14 @@ class OracleSim:
             self.remaining[j] = 0.0
             self.free += self.alloc[j]
             self.alloc[j] = 0
+        if self.faults is not None:
+            down = ~self.node_up()
+            killed = (self.status == RUNNING) & \
+                ((self.alloc > 0) & down[None, :]).any(axis=1)
+            for j in np.flatnonzero(killed):
+                self.free += self.alloc[j]
+                self.alloc[j] = 0
+                self.status[j] = PENDING
         self._process_arrivals()
         return dt
 
@@ -160,7 +205,8 @@ class OracleSim:
     # ---- scheduling actions ------------------------------------------------
 
     def try_place(self, j: int, mode: int = PACK) -> bool:
-        """Gang-place pending job j; False if infeasible or not pending."""
+        """Gang-place pending job j; False if infeasible or not pending.
+        Drained nodes offer no GPUs, so a gang never lands on one."""
         if self.status[j] != PENDING:
             return False
         demand = int(self.trace.gpus[j])

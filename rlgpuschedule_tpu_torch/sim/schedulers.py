@@ -24,7 +24,7 @@ import numpy as np
 
 from .. import native
 from ..traces.records import to_array_trace
-from .oracle import PACK, PENDING, RUNNING, OracleSim, refuse_faults
+from .oracle import PACK, PENDING, RUNNING, OracleSim
 
 BACKENDS = ("auto", "python", "native")
 # Tiresias's queue boundaries in GPU-seconds of attained service (the
@@ -91,14 +91,30 @@ def tiresias() -> SchedulerPolicy:
 
     def next_wake(s: OracleSim) -> float:
         """Earliest instant a running job's attained GPU-service crosses
-        its next demotion threshold."""
+        its next demotion threshold.
+
+        Under faults a straggling gang attains service at ``1 / stretch``
+        of the wall rate, so its crossing lies ``stretch`` times further
+        out; and a wake that would move the job's remaining work by less
+        than its f64 spacing (a crossing reached but for rounding) is
+        passed over, the demotion left to the next event. JAX's wake
+        ignores the stretch, so it comes early; near a crossing it then
+        advances the clock one ulp at a time without changing any
+        remaining work, and its loop never ends
+        (``tests/test_torch_faults.py``). Without faults the wake is
+        JAX's."""
         t = float("inf")
+        stretch = s._stretch()
         for j in s.running_jobs():
             a = s.attained_service(j)
             nxt = th[np.searchsorted(th, a, side="right"):]
             if len(nxt):
-                t = min(t, s.clock
-                        + (float(nxt[0]) - a) / float(s.trace.gpus[j]))
+                dt = (float(nxt[0]) - a) / float(s.trace.gpus[j])
+                if s.faults is not None:
+                    dt *= stretch[j]
+                    if dt / stretch[j] < np.spacing(s.remaining[j]):
+                        continue
+                t = min(t, s.clock + dt)
         return t
 
     return SchedulerPolicy("tiresias", key, preemptive=True,
@@ -183,10 +199,25 @@ def run_baseline(trace, n_nodes: int, gpus_per_node: int, name: str,
                  backend: str = "auto", faults=None) -> BaselineResult:
     """Run one named baseline over a trace; returns the finished run
     (the one implementation behind every baseline JCT table). See the
-    module docstring for ``backend``; ``faults`` is refused."""
-    refuse_faults(faults)
+    module docstring for ``backend``.
+
+    ``faults`` (one host fault or domain schedule) runs the baseline on
+    the faulty cluster, the other side of a policy replayed under the
+    same schedule. The native engine has no fault model, so a schedule
+    runs the Python oracle, and ``backend="native"`` with one is
+    refused."""
     if name not in BASELINES:
         raise ValueError(f"unknown baseline {name!r}")
+    if faults is not None:
+        if backend == "native":
+            raise ValueError("the native backend has no fault model; run "
+                             "faulty-cluster baselines on the python "
+                             "oracle")
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}; expected one "
+                             f"of {BACKENDS}")
+        sim = OracleSim(trace, n_nodes, gpus_per_node, faults=faults)
+        return run_scheduler(sim, BASELINES[name]())
     if resolve_backend(backend) == "native":
         tr = to_array_trace(trace) if isinstance(trace, list) else trace
         finish, start = native.run_baseline_native(

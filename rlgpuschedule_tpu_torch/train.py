@@ -30,7 +30,10 @@ the source trace every N iterations. ``--bf16-update``,
 precision and advantage options, ``--correction`` PPO's (``vtrace``
 needs ``--async``, which waits for its slice); ``--fused-chunk N`` runs
 N iterations between hook boundaries with no host sync
-(:meth:`..experiment.Experiment.run_fused`).
+(:meth:`..experiment.Experiment.run_fused`). ``--faults REGIME`` trains
+under seeded per-env fault schedules and ``--domains REGIME`` across
+seeded per-env cluster and arrival draws (flat configs see per-node
+health and geometry; a population member draws its own schedules).
 
 Examples::
 
@@ -63,17 +66,17 @@ from .cli import (add_config_flags, check_source_jobs, config_overrides,
                   numeric_rows, refuse_unported)
 from .configs import (CONFIGS, ExperimentConfig, ModeCombinationError,
                       validate_mode_combination)
+from .domains import DOMAIN_REGIMES
 from .env.env import stack_traces
 from .experiment import (Experiment, PopulationExperiment, algo_config,
                          load_source_trace, make_env_windows, trace_sim)
 from .parallel import PBTConfig
 from .sim.core import validate_trace
+from .sim.faults import FAULT_REGIMES
 
 _Q1 = "ROADMAP.md queue 1"
 # the JAX CLI's flags that this port does not take, and what they wait for
 UNPORTED_FLAGS: dict[str, str] = {
-    **dict.fromkeys(("--faults", "--domains"),
-                    f"the chaos and domain slice ({_Q1}, item 17)"),
     **dict.fromkeys(
         ("--async", "--actor-devices", "--learner-devices",
          "--staleness-bound", "--queue-capacity"),
@@ -112,6 +115,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="backlog-drain curriculum: fraction of envs that "
                         "train on drained copies of their windows (all "
                         "jobs at t=0)")
+    p.add_argument("--faults", default=None, metavar="REGIME",
+                   help="cluster chaos: train under seeded per-env fault "
+                        "schedules of this regime (none, sporadic, storm, "
+                        "straggler); a flat config also sees per-node "
+                        "health. Not with a hierarchical config")
+    p.add_argument("--domains", default=None, metavar="REGIME",
+                   help="domain randomization: train across seeded per-env "
+                        "cluster geometry, hardware speed and arrival "
+                        "draws of this regime (none, baseline, geom, "
+                        "hetero, overload, flash, mixed); a flat config "
+                        "also sees per-node capacity and health. Composes "
+                        "with --faults (the worst slowdown wins per node)")
     p.add_argument("--n-steps", type=int, default=None,
                    help="rollout length T per iteration")
     p.add_argument("--n-epochs", type=int, default=None,
@@ -198,7 +213,8 @@ def build_parser() -> argparse.ArgumentParser:
 def apply_overrides(cfg: ExperimentConfig,
                     args: argparse.Namespace) -> ExperimentConfig:
     over = config_overrides(args)
-    for k in ("iterations", "resample_every", "drain_frac"):
+    for k in ("iterations", "resample_every", "drain_frac", "faults",
+              "domains"):
         if getattr(args, k) is not None:
             over[k] = getattr(args, k)
     cfg = dataclasses.replace(cfg, **over)
@@ -353,6 +369,12 @@ def main(argv: "list[str] | None" = None) -> dict:
                      "retained without one)")
     if args.resume and not args.ckpt_dir:
         sys.exit("--resume requires --ckpt-dir")
+    if args.faults is not None and args.faults not in FAULT_REGIMES:
+        sys.exit(f"unknown --faults regime {args.faults!r}; known: "
+                 f"{sorted(FAULT_REGIMES)}")
+    if args.domains is not None and args.domains not in DOMAIN_REGIMES:
+        sys.exit(f"unknown --domains regime {args.domains!r}; known: "
+                 f"{sorted(DOMAIN_REGIMES)}")
     cfg = apply_overrides(CONFIGS[args.config], args)
     # the one mode-combination gate (modes that wait for a slice were
     # refused above, with their flags)
@@ -363,6 +385,8 @@ def main(argv: "list[str] | None" = None) -> dict:
     try:
         validate_mode_combination({
             "pbt": args.pbt,
+            "faults": cfg.faults is not None,
+            "domains": cfg.domains is not None,
             "fused_chunk": args.fused_chunk > 1,
             "hier": cfg.n_pods > 1,
             "vtrace": cfg.algo == "ppo" and cfg.ppo.correction == "vtrace",

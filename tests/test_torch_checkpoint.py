@@ -46,6 +46,7 @@ from rlgpuschedule_tpu_torch.checkpoint import (CheckpointChecksumError,
                                                 _crc32_file)
 from rlgpuschedule_tpu_torch.experiment import Experiment
 from rlgpuschedule_tpu_torch.models import opt_state_from_jax, params_from_jax
+from torch_jax_builds import fast_jax_build, jitted_reference
 
 # the tensors here are tiny: more threads only contend with the other
 # test workers
@@ -101,7 +102,7 @@ def test_save_restore_gives_the_same_bits_for_every_payload(tmp_path):
     """A JAX TrainState taken after 2 iterations (Adam count 8) moved into
     the port, trained one more iteration there, saved and restored into a
     fresh experiment: every payload comes back bit for bit."""
-    ej = jexp.Experiment.build(_cfg(jconfigs))
+    ej = fast_jax_build(_cfg(jconfigs))
     ej.run(iterations=2)
     adam = jax.device_get(_adam(ej.train_state.opt_state))
     assert int(adam.count) == 2 * 2 * 2
@@ -322,7 +323,7 @@ def test_select_checkpoint_ranks_like_jax(tmp_path, monkeypatch, capsys):
         jmake_policy, dtype=jnp.float32))
     monkeypatch.setattr(texp, "build_policy", functools.partial(
         texp.build_policy, dtype=torch.float32))
-    ej = jexp.Experiment.build(_cfg(jconfigs))
+    ej = fast_jax_build(_cfg(jconfigs))
     et = Experiment.build(_cfg(), device="cpu")
     with jckpt.Checkpointer(str(tmp_path / "jax")) as jck, \
             Checkpointer(str(tmp_path / "port")) as tck:
@@ -333,7 +334,8 @@ def test_select_checkpoint_ranks_like_jax(tmp_path, monkeypatch, capsys):
             et.net.load_state_dict(params_from_jax(w))
             et.save_checkpoint(tck, step=k)
     argv = SHAPE_FLAGS + ["--val-jobs", "48", "--stitch-drain-jobs", "2"]
-    want = jselect.main(["--ckpt-dir", str(tmp_path / "jax")] + argv)
+    with jitted_reference():
+        want = jselect.main(["--ckpt-dir", str(tmp_path / "jax")] + argv)
     got = tselect.main(["--ckpt-dir", str(tmp_path / "port")] + argv
                        + ["--device", "cpu"])
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])

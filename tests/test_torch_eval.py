@@ -12,6 +12,7 @@ the comparison (the two random streams differ), only its checks here.
 """
 import dataclasses
 import json
+import types
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +34,7 @@ from rlgpuschedule_tpu_torch.experiment import Experiment
 from rlgpuschedule_tpu_torch.models import make_policy, params_from_jax
 from rlgpuschedule_tpu_torch.sim.core import SimParams
 from rlgpuschedule_tpu_torch.traces import ArrayTrace
+from torch_jax_builds import jax_view
 
 # the tensors here are tiny: more threads only contend with the other
 # test workers
@@ -56,12 +58,8 @@ class Pair:
     def __init__(self, name):
         cfg_j = dataclasses.replace(jconfigs.CONFIGS[name], **SMALL[name])
         cfg_t = dataclasses.replace(tconfigs.CONFIGS[name], **SMALL[name])
-        exp_j = jexp.Experiment.build(cfg_j)
-        net32 = jmake_policy(cfg_j.obs_kind, exp_j.env_params.n_actions,
-                             dtype=jnp.float32)
-        self.jexp = dataclasses.replace(
-            exp_j, apply_fn=lambda p, o, m: net32.apply(p, o, m))
-        self.params = jax.device_get(exp_j.train_state.params)
+        self.jexp = jax_view(cfg_j)
+        self.params = self.jexp.train_state.params
         self.texp = Experiment.build(cfg_t, device="cpu")
         tp = self.texp.env_params
         net = make_policy(cfg_t.obs_kind, tp.n_actions, tp.obs_shape(),
@@ -106,7 +104,9 @@ def test_jct_report_matches_jax(pairs, name):
 
 def test_baseline_table_matches_jax_on_held_out_windows(pairs):
     p = _pair(pairs, "ppo-mlp-synth64")
-    cfg_j, cfg_t = (dataclasses.replace(c, seed=1000, n_envs=5)
+    # held-out windows at the pair's batch size: the JAX replay program
+    # compiled for the pair serves them
+    cfg_j, cfg_t = (dataclasses.replace(c, seed=1000)
                     for c in (p.jexp.cfg, p.texp.cfg))
     jwin = jexp.make_env_windows(cfg_j, jexp.load_source_trace(cfg_j))
     from rlgpuschedule_tpu_torch import experiment as texp
@@ -379,7 +379,8 @@ def test_guarded_greedy_replay_matches_jax_job_for_job(name):
     the end. On the preemptive preset the guard must have engaged and
     every job must finish."""
     (apply_fn, params, jp, jtraces), (policy, tp, ttraces) = _new_pair(name)
-    max_steps = 2048
+    # every cluster is done or cut by the horizon within it
+    max_steps = NEW[name]["horizon"]
     jres, jstate = jeval.replay(apply_fn, params, jp, jtraces, max_steps,
                                 return_states=True, stall_guard=True)
     tres, tstate, rec = teval.replay(policy, tp, ttraces, max_steps,
@@ -549,3 +550,137 @@ def test_evaluate_cli_full_trace_refuses_what_jax_refuses(argv, match):
         jevaluate.main(CUT_FLAGS + argv)
     with pytest.raises(SystemExit, match=match):
         tevaluate.main(CUT_FLAGS + argv + ["--device", "cpu"])
+
+
+# ---- the chaos and generalization matrices ----------------------------------
+
+CHAOS_SMALL = dict(n_envs=3, n_nodes=4, gpus_per_node=4, window_jobs=12,
+                   queue_len=4, horizon=96)
+
+
+class ChaosPair:
+    """Config 1 cut small under ``faults`` or ``domains`` on both sides:
+    the JAX side as the attributes its reports read (the same host
+    windows, no ``Experiment.build``), the port's a built experiment;
+    the policy the JAX init's f32 weights on both."""
+
+    def __init__(self, **regime):
+        cfg_j = dataclasses.replace(jconfigs.CONFIGS["ppo-mlp-synth64"],
+                                    **CHAOS_SMALL, **regime)
+        cfg_t = dataclasses.replace(tconfigs.CONFIGS["ppo-mlp-synth64"],
+                                    **CHAOS_SMALL, **regime)
+        self.texp = Experiment.build(cfg_t, device="cpu")
+        jp = jexp.build_env_params(cfg_j)
+        windows = self.texp.windows
+        traces = jenv.stack_traces(windows, jp)
+        ts = jax.jit(lambda tr: jenv.vec_reset(jp, tr))(traces)[1]
+        net = jmake_policy("flat", jp.n_actions, dtype=jnp.float32)
+        self.params = jax.device_get(jax.jit(net.init)(
+            jax.random.PRNGKey(5), ts.obs, ts.action_mask))
+        self.jexp = types.SimpleNamespace(
+            cfg=cfg_j, env_params=jp, windows=windows, traces=traces,
+            source=self.texp.source, apply_fn=net.apply,
+            train_state=types.SimpleNamespace(params=self.params))
+        tp = self.texp.env_params
+        tnet = make_policy("flat", tp.n_actions, tp.obs_shape(),
+                           dtype=torch.float32, device="cpu")
+        tnet.load_state_dict(params_from_jax(self.params))
+        self.texp.train_state = self.texp.train_state._replace(net=tnet)
+
+
+@pytest.fixture(scope="module")
+def chaos_pairs():
+    """One :class:`ChaosPair` per regime, built once for the module."""
+    built = {}
+
+    def get(**regime):
+        key = tuple(sorted(regime.items()))
+        if key not in built:
+            built[key] = ChaosPair(**regime)
+        return built[key]
+    return get
+
+
+def _cells_alike(got: dict, want: dict):
+    """Every cell's avg JCT within 1e-6 relative, completion and the
+    degradation's presence exact."""
+    assert list(got) == list(want)
+    for r in want:
+        assert list(got[r]) == list(want[r]), r
+        for s, cell in want[r].items():
+            np.testing.assert_allclose(got[r][s]["avg_jct"], cell["avg_jct"],
+                                       rtol=1e-6, err_msg=f"{r} {s}")
+            assert got[r][s]["completion"] == cell["completion"], (r, s)
+            np.testing.assert_allclose(got[r][s]["degradation"],
+                                       cell["degradation"], rtol=1e-6)
+
+
+@pytest.mark.parametrize("regime,baselines", [
+    ("storm", ("sjf", "tiresias")),
+    # JAX's Tiresias can livelock under a straggler draw
+    # (tests/test_torch_faults.py): SRTF is the preemptive column here
+    ("straggler", ("sjf", "srtf"))])
+def test_chaos_report_matches_jax(chaos_pairs, regime, baselines):
+    """Policy and baseline rows of the clean control and one regime."""
+    p = chaos_pairs(faults="storm")
+    kw = dict(regimes=(regime,), baselines=baselines, seed=3)
+    want = jeval.chaos_report(p.jexp, **kw)
+    got = teval.chaos_report(p.texp, **kw)
+    assert got["chaos_regimes"] == want["chaos_regimes"]
+    assert got["fault_horizon_s"] == want["fault_horizon_s"]
+    assert got["fault_stats"] == want["fault_stats"]
+    assert got["jobs_lost"] == want["jobs_lost"] == 0
+    _cells_alike(got["regimes"], want["regimes"])
+    degraded = [row["policy"]["avg_jct"] for row in got["regimes"].values()]
+    assert len(set(degraded)) > 1, "the regimes changed nothing"
+    text = teval.format_chaos(got)
+    assert regime in text and "jobs lost across the matrix: 0" in text
+
+
+def test_matrix_report_matches_jax_with_a_blind_row(chaos_pairs):
+    """The domain-sighted policy and a clean (channel-blind) one as two
+    rows, SJF as the baseline row, over the four default eval regimes."""
+    p = chaos_pairs(domains="mixed")
+    clean = chaos_pairs()
+    jpol = {"mixed": (p.jexp.apply_fn, p.params, p.jexp.env_params),
+            "clean": (clean.jexp.apply_fn, clean.params,
+                      clean.jexp.env_params)}
+    tpol = {"mixed": (p.texp.net, p.texp.env_params),
+            "clean": (clean.texp.net, clean.texp.env_params)}
+    want = jeval.matrix_report(p.jexp, baselines=("sjf",), policies=jpol,
+                               seed=2)
+    got = teval.matrix_report(p.texp, baselines=("sjf",), policies=tpol,
+                              seed=2)
+    assert got["domain_stats"] == want["domain_stats"]
+    assert got["jobs_lost"] == want["jobs_lost"] == 0
+    _cells_alike(got["cells"], want["cells"])
+    assert "hetero" in teval.format_matrix(got)
+    with pytest.raises(NotImplementedError, match="item 24"):
+        teval.matrix_report(p.texp, alarms=object())
+
+
+def test_stitched_table_under_a_global_schedule_matches_jax(chaos_pairs):
+    """``evaluate --full-trace --stitch-faults storm --stitch-domain
+    geom`` as a library call: the policy stitched through the rebased
+    schedule, the baselines on the oracle's global clock."""
+    from rlgpuschedule_tpu import domains as jdom
+    from rlgpuschedule_tpu.sim import faults as jfaults
+    p = chaos_pairs(faults="storm")
+    source = p.texp.source.slice(0, 48)
+    sched = jdom.domain_schedule(
+        jdom.sample_domain("geom", 4, 4, (1,)),
+        jfaults.sample_fault_schedule(4, "storm", (1,),
+                                      jfaults.fault_horizon([source])))
+    kw = dict(max_jobs=source.num_jobs, include_random=False,
+              baselines=("fifo", "sjf"), drain_completions=4)
+    want = jeval.full_trace_report(p.jexp, faults=sched, **kw)
+    got = teval.full_trace_report(p.texp, faults=tdom_schedule(sched), **kw)
+    assert got["faulty_cluster"] and want["faulty_cluster"]
+    assert got["baseline_backend"] == "python"
+    for k in ("policy", "n_jobs", "policy_windows", "fifo", "sjf"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-6, err_msg=k)
+
+
+def tdom_schedule(sched):
+    from rlgpuschedule_tpu_torch import domains as tdom
+    return tdom.DomainSchedule(*(np.asarray(x) for x in sched))

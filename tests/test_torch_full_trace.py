@@ -31,8 +31,10 @@ from rlgpuschedule_tpu_torch import experiment as texp
 from rlgpuschedule_tpu_torch.env.env import EnvParams, stack_traces
 from rlgpuschedule_tpu_torch.models import params_from_jax
 from rlgpuschedule_tpu_torch.sim.core import SimParams, validate_trace
+from rlgpuschedule_tpu_torch.sim.faults import no_faults
 from rlgpuschedule_tpu_torch.sim.schedulers import run_baseline
 from rlgpuschedule_tpu_torch.traces import gen_poisson_trace
+from torch_jax_builds import fast_jax_build
 
 # the tensors here are tiny: more threads only contend with the other
 # test workers
@@ -148,7 +150,7 @@ def test_full_trace_report_matches_jax():
                                 **cfg_kw)
     cfg_t = dataclasses.replace(tconfigs.CONFIGS["ppo-mlp-synth64"],
                                 **cfg_kw)
-    ej = jexp.Experiment.build(cfg_j)
+    ej = fast_jax_build(cfg_j)
     net32 = jmake_policy("flat", ej.env_params.n_actions, dtype=jnp.float32)
     ej = dataclasses.replace(ej, apply_fn=lambda p, o, m: net32.apply(
         p, o, m))
@@ -233,7 +235,7 @@ def test_stitched_fifo_tracks_the_oracle():
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(faults=object()), NotImplementedError, "item 17"),
+    (dict(faults=no_faults(3)), ValueError, "schedule covers 3 nodes"),
     (dict(drain_completions=0), ValueError, "drain_completions"),
     (dict(policy="random", backlog_gate=2), ValueError, "backlog_gate"),
     (dict(backlog_gate=-1), ValueError, ">= 0"),
@@ -259,5 +261,5 @@ def test_full_trace_report_takes_a_deeper_stitch_window_only():
         exp.env_params.sim, queue_len=8))
     with pytest.raises(ValueError, match="stitch window"):
         teval.full_trace_report(exp, env_params=bad)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        teval.full_trace_report(exp, faults=object())
+    with pytest.raises(ValueError, match="schedule covers 3 nodes"):
+        teval.full_trace_report(exp, faults=no_faults(3))

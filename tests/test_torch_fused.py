@@ -33,7 +33,6 @@ import torch
 from rlgpuschedule_tpu import configs as jconfigs
 from rlgpuschedule_tpu import eval as jeval
 from rlgpuschedule_tpu import evaluate as jevaluate
-from rlgpuschedule_tpu import experiment as jexp
 from rlgpuschedule_tpu import train as jtrain
 from rlgpuschedule_tpu.models import make_policy as jmake_policy
 from rlgpuschedule_tpu_torch import bench as tbench
@@ -44,6 +43,7 @@ from rlgpuschedule_tpu_torch import train as ttrain
 from rlgpuschedule_tpu_torch.checkpoint import Checkpointer
 from rlgpuschedule_tpu_torch.experiment import Experiment
 from rlgpuschedule_tpu_torch.models import make_policy, params_from_jax
+from torch_jax_builds import fast_jax_build
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the tensors here are tiny: more threads only contend with the other
@@ -167,7 +167,7 @@ def test_chunked_run_is_the_unchunked_run_bit_for_bit():
 def test_chunked_run_refuses_an_indivisible_cadence_like_jax(kw):
     jcfg = dataclasses.replace(jconfigs.CONFIGS["ppo-mlp-synth64"], **SMALL)
     with pytest.raises(ValueError) as want:
-        jexp.Experiment.build(jcfg).run(fused_chunk=4, **kw)
+        fast_jax_build(jcfg).run(fused_chunk=4, **kw)
     exp = Experiment.build(_cfg(), device="cpu")
     with pytest.raises(ValueError) as got:
         exp.run(fused_chunk=4, **kw)
@@ -205,7 +205,7 @@ def fair_pair():
                                 **FAIR_SMALL)
     cfg_t = dataclasses.replace(tconfigs.CONFIGS["a2c-pai-fair"],
                                 **FAIR_SMALL)
-    exp_j = jexp.Experiment.build(cfg_j)
+    exp_j = fast_jax_build(cfg_j)
     net32 = jmake_policy("flat", exp_j.env_params.n_actions,
                          dtype=jnp.float32)
     exp_j = dataclasses.replace(

@@ -197,13 +197,14 @@ def test_the_checkpoint_slice_has_its_pieces():
 
 def test_unported_messages_name_open_roadmap_items():
     """Every ``item N`` a refusal of the port names is an open item of
-    ``ROADMAP.md`` (one with its own ``Item N:`` entry), so no message
-    sends a user to a slice that has landed or does not exist."""
+    ``ROADMAP.md`` (one with its own entry in queue 1, a numbered line
+    that opens ``N. **Item K``), so no message sends a user to a slice
+    that has landed or does not exist."""
     import re
     roadmap = open(os.path.join(ROOT, "ROADMAP.md"),
                    encoding="utf-8").read()
-    open_items = {int(n) for n in re.findall(r"^- Item (\d+):", roadmap,
-                                             re.M)}
+    open_items = {int(n) for n in re.findall(r"^\d+\. \*\*Item (\d+)",
+                                             roadmap, re.M)}
     named = set()
     for path in _port_files():
         text = open(path, encoding="utf-8").read()
@@ -327,6 +328,53 @@ def test_the_router_slice_has_its_pieces():
                 "tree": ("tree_map", "leaves", "structure", "unflatten",
                          "stack", "index"),
                 "device": ("serve_devices",)}.items():
+            m = importlib.import_module(f"rlgpuschedule_tpu_torch.{mod}")
+            for n in names:
+                assert getattr(m, n).__module__ == m.__name__, (mod, n)
+    finally:
+        sys.path.remove(ROOT)
+
+
+def test_importing_the_chaos_and_domain_path_leaves_jax_out():
+    _leaves_jax_out(("sim.faults", "domains", "domains.schedule",
+                     "sim.oracle", "sim.schedulers", "eval", "evaluate",
+                     "serve.fleet", "train"))
+
+
+def test_the_chaos_and_domain_slice_has_its_pieces():
+    """The fault process, the domain draws, the health and geometry
+    channels, the chaos and generalization matrices and the domain
+    windows are the port's own code."""
+    import importlib
+    sys.path.insert(0, ROOT)
+    try:
+        names = {os.path.relpath(p, ROOT) for p in _port_files()}
+        for f in ("sim/faults.py", "domains/__init__.py",
+                  "domains/schedule.py"):
+            assert f"rlgpuschedule_tpu_torch/{f}" in names, f
+        for mod, names in {
+                "sim.faults": ("FaultSchedule", "no_faults", "node_up",
+                               "next_transition", "job_stretch",
+                               "effective_free", "validate_fault_schedule",
+                               "fault_schedule_from_events", "FaultRegime",
+                               "resolve_regime", "sample_fault_schedule",
+                               "sample_env_fault_schedules",
+                               "stack_fault_schedules", "schedule_stats",
+                               "fault_horizon"),
+                "domains.schedule": ("DomainSchedule", "DomainSpec",
+                                     "resolve_domain", "DomainDraw",
+                                     "sample_domain", "sample_env_domains",
+                                     "domain_schedule",
+                                     "validate_domain_schedule",
+                                     "stack_domain_schedules",
+                                     "domain_stats"),
+                "sim.core": ("_kill_drained",),
+                "env.obs": ("node_health", "node_geometry"),
+                "eval": ("chaos_report", "format_chaos", "matrix_report",
+                         "format_matrix", "_chaos_conservation",
+                         "_shift_schedule"),
+                "experiment": ("make_domain_windows", "draw_schedules"),
+                "serve.fleet": ("sample_fleet_faults",)}.items():
             m = importlib.import_module(f"rlgpuschedule_tpu_torch.{mod}")
             for n in names:
                 assert getattr(m, n).__module__ == m.__name__, (mod, n)

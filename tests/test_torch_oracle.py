@@ -10,7 +10,8 @@ against the JAX package's.
   ``tests/test_native.py``'s tolerances (finish and start within
   atol 1e-6, status equal, avg JCT rel 1e-9);
 - the hand-checked FIFO and SRTF cases of ``tests/test_native.py``;
-- what the port refuses: ``faults=``, and a native build that fails
+- what the port refuses: a fault schedule on the native engine or shaped
+  for another cluster, and a native build that fails
   while a compiler is present (it raises; only a missing compiler lets
   ``backend="auto"`` run the Python oracle).
 """
@@ -156,11 +157,18 @@ def test_rl_step_matches_jax_step_by_step(seed):
 
 
 def test_faults_are_refused():
+    """What the port refuses of a fault schedule, as JAX refuses it: one
+    shaped for another cluster, and any on the native engine (which has
+    no fault model; ``tests/test_torch_faults.py`` runs the rest)."""
+    from rlgpuschedule_tpu_torch.sim.faults import no_faults
     tr, _ = _overloaded(0)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        oracle.OracleSim(tr, 2, 8, faults=object())
-    with pytest.raises(NotImplementedError, match="item 17"):
-        run_baseline(tr, 2, 8, "fifo", faults=object())
+    with pytest.raises(ValueError, match="the cluster has 2"):
+        oracle.OracleSim(tr, 2, 8, faults=no_faults(3))
+    with pytest.raises(ValueError, match="no fault model"):
+        run_baseline(tr, 2, 8, "fifo", backend="native",
+                     faults=no_faults(2))
+    assert run_baseline(tr, 2, 8, "fifo", faults=no_faults(2)).avg_jct() \
+        == run_baseline(tr, 2, 8, "fifo", backend="python").avg_jct()
 
 
 def test_errors_match_jax():

@@ -50,6 +50,7 @@ from rlgpuschedule_tpu_torch.serve import (InferenceEngine, PolicyServer,
 from rlgpuschedule_tpu_torch.serve.bench import _AllocCounter
 from rlgpuschedule_tpu_torch.serve.router import EngineRouter
 from rlgpuschedule_tpu_torch.serve.fleet import fleet_windows
+from torch_jax_builds import jitted_env
 
 torch.set_num_threads(1)
 
@@ -224,8 +225,9 @@ def test_request_pool_matches_jax(world):
     jcfg, tcfg, jp, tp = world["jcfg"], world["tcfg"], world["jp"], world["tp"]
     _, jtraces = jfleet_windows(jcfg, 2)
     _, ttraces = fleet_windows(tcfg, 2, device="cpu")
-    want = jbench.build_request_pool(world["apply_fn"], world["params"], jp,
-                                     jtraces, steps=2)
+    with jitted_env():      # JAX's helper resets and steps eagerly
+        want = jbench.build_request_pool(world["apply_fn"], world["params"],
+                                         jp, jtraces, steps=2)
     got = build_request_pool(world["policy"], tp, ttraces, steps=2)
     assert len(got) == len(want) == 6
     # flat rows: [N node fields][K x (demand, wait, service, valid)][2];

@@ -212,8 +212,7 @@ DEFERRED_FLAGS = [
     (["--frontend-port", "0"], "item 22"), (["--wire-requests", "8"],
                                             "item 22"),
     (["--flight-log", "d"], "item 23"), (["--promote", "d"], "item 23"),
-    (["--promote-noise", "0.1"], "item 23"),
-    (["--fleet-regime", "storm"], "item 17")]
+    (["--promote-noise", "0.1"], "item 23")]
 
 
 def test_serve_cli_refuses_what_the_slice_lacks():
@@ -227,10 +226,13 @@ def test_serve_cli_refuses_what_the_slice_lacks():
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP.md queue 1, {item}"):
             serve_cli.main(["--bench", "--device", "cpu"] + extra)
+    # the fault-regime fleet replay came with the chaos slice: it runs
     p = _run(["-m", "rlgpuschedule_tpu_torch.serve", "--config",
               "ppo-mlp-synth64", "--fleet", "2", "--device", "cpu",
-              "--fleet-regime", "storm"])
-    assert p.returncode != 0 and "NotImplementedError" in p.stderr
+              "--fleet-regime", "storm", "--max-steps", "16"])
+    assert p.returncode == 0, p.stderr
+    fleet = json.loads(p.stdout.strip().splitlines()[-1])["fleet"]
+    assert fleet["regime"] == "storm" and fleet["fleet_seed"] == 0
     p = _run(["-m", "rlgpuschedule_tpu_torch.serve", "--config",
               "hier-pbt-member", "--bench", "--n-envs", "2", "--pool-steps",
               "1", "--rounds", "3", "--device", "cpu"])

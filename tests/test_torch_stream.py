@@ -25,6 +25,7 @@ import torch
 
 from rlgpuschedule_tpu import configs as jconfigs
 from rlgpuschedule_tpu import experiment as jexp
+from rlgpuschedule_tpu.algos import ppo as jppo
 from rlgpuschedule_tpu.algos.rollout import init_carry as jinit_carry
 from rlgpuschedule_tpu.algos.rollout import rollout as jrollout
 from rlgpuschedule_tpu.models import make_policy as jmake_policy
@@ -33,6 +34,7 @@ from rlgpuschedule_tpu_torch import experiment as texp
 from rlgpuschedule_tpu_torch.algos import action_dist as tdist
 from rlgpuschedule_tpu_torch.algos.rollout import init_carry, rollout
 from rlgpuschedule_tpu_torch.models import params_from_jax
+from torch_jax_builds import fast_jax_build, jitted_reference
 
 # the tensors here are tiny: more threads only contend with the other
 # test workers
@@ -103,16 +105,22 @@ def test_make_env_windows_matches_jax(drain_frac, start):
 def test_run_resamples_on_jax_schedule():
     """One ``run`` of 5 iterations with a resample every 2 re-cuts the
     windows before iterations 2 and 4 in both packages: the same cursor
-    and the same windows at the end."""
+    and the same windows at the end. JAX's loop runs with a train step
+    that hands the state back unchanged: the schedule is its loop's, and
+    compiling its PPO step would be most of this test's time."""
     ppo_j = dataclasses.replace(jconfigs.CONFIGS["ppo-mlp-synth64"].ppo,
                                 n_steps=4, n_epochs=1, n_minibatches=1)
     ppo_t = dataclasses.replace(tconfigs.CONFIGS["ppo-mlp-synth64"].ppo,
                                 n_steps=4, n_epochs=1, n_minibatches=1)
     cj, ct = _both(**SMALL, resample_every=2, drain_frac=0.5)
-    ej = jexp.Experiment.build(dataclasses.replace(cj, ppo=ppo_j))
+    ej = fast_jax_build(dataclasses.replace(cj, ppo=ppo_j))
+    zero = jppo.PPOMetrics(*([np.float32(0)] * len(jppo.PPOMetrics._fields)))
+    ej.train_step = lambda state, carry, traces, key, *faults: (state, carry,
+                                                                zero)
     et = texp.Experiment.build(dataclasses.replace(ct, ppo=ppo_t),
                                device="cpu")
-    assert ej.run(5)["window_cursor"] == et.run(5)["window_cursor"] == 8
+    with jitted_reference():
+        assert ej.run(5)["window_cursor"] == et.run(5)["window_cursor"] == 8
     for a, b in zip(ej.windows, et.windows):
         _assert_bytes(a, b)
     for _ in range(2):
@@ -133,7 +141,7 @@ def _integer(tr):
 
 def test_streaming_rollout_replays_jax_actions_across_a_resample():
     cj, ct = _both(**SMALL, resample_every=1, drain_frac=0.5)
-    ej = jexp.Experiment.build(cj)
+    ej = fast_jax_build(cj)
     et = texp.Experiment.build(ct, device="cpu")
     jp, tp = ej.env_params, et.env_params
     ej.source = _integer(ej.source)

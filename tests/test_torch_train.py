@@ -465,7 +465,7 @@ def test_train_cli_refuses_a2c_with_the_slice_named():
 
 @pytest.mark.parametrize("argv", [
     ["--continual", "logs"], ["--async"], ["--mesh=auto"],
-    ["--faults", "storm"], ["--staleness-bound", "4"],
+    ["--debug-nans"], ["--staleness-bound", "4"],
     ["--max-rollbacks", "2"]])
 def test_train_cli_refuses_unported_flags_with_the_slice_named(argv):
     with pytest.raises(SystemExit, match=r"waits for .*item \d+"):
@@ -646,8 +646,8 @@ def test_evaluate_cli_refuses_what_jax_refuses(argv, match):
 @pytest.mark.parametrize("flag", sorted(tevaluate.UNPORTED_FLAGS))
 def test_evaluate_cli_refuses_unported_flags_with_the_slice_named(flag):
     with pytest.raises(SystemExit,
-                       match=r"waits for .*ROADMAP.md queue 1, "
-                             r"(item \d+|next [23])"):
+                       match=r"waits for .*ROADMAP.md(, \"Deliberately "
+                             r"unported\"| queue 1, (item \d+|next [23]))"):
         tevaluate.main([flag, "x", "--device", "cpu"])
 
 
