@@ -282,6 +282,37 @@ imports nothing of JAX. Phases, each fatal on failure:
     checkpoint, TF32 off; a row that differs is replayed on both devices
     and held to phase 9's margin rule), the baseline rows exactly.
 
+22. The network front door (each check fatal): config 2 at full width
+    (bf16, seeded weights) on one ``InferenceEngine`` warmed to bucket
+    256 on the main thread, a ``PolicyServer`` on the arena plane (the
+    sync guard on in every dispatch) and ``start_frontend(port=0)``.
+    Every row of a 320-row pool is first served in process
+    (``submit``, inline pump); then 8 HTTP keep-alive clients and 8
+    framed clients, one process each, send 2,000 requests each over
+    real sockets, each with its own request id: every reply echoes its
+    id, and every action equals the in-process one for its row, but at
+    a top-two margin below 1e-4 (the flips counted and printed);
+    decisions/s and per-request p50/p99 per dialect, at the client and
+    as the server measured them (submit to result). A burst of 10 us
+    deadlines on 4 connections of each dialect answers only 200/RESP or
+    503/``shed:`` frames, some shed, every ``Retry-After`` in [0.01, 30]
+    s. With 4
+    idle keep-alive connections open the drain ends within 10 s, a late
+    ``submit`` raises ``ServerClosedError``, an idle client's next
+    request gets 503 ``closed`` and every idle connection reads an EOF;
+    ``serve_requests_total`` equals served plus shed, 0 dispatch errors,
+    0 recompiles, the sync-debug mode back at 0. 32 requests past a
+    high-water mark of 8 with no dispatcher pause the reads, and all 32
+    answer 200 once it starts. In subprocesses: ``serve --config
+    ppo-cnn-philly512 --bucket 256 --soak 4 --frontend-port 0 --obs-dir
+    D --trace-spans --host-path --wire-requests 2000`` (self-check 200,
+    ``server-closed``, ``refused``; then both wire arms' decisions/s,
+    the arena arm's allocations 0), then ``python -m
+    rlgpuschedule_tpu_torch.obs.report D --request ID --json`` for the
+    self-check's id (stages ``enqueue`` then ``served``) and
+    ``--strict-alarms`` (exit 0). Every line carries the card's name and
+    power limit.
+
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it is the card's name and power limit. Without a CUDA device, or
 without the ``rlgpuschedule_tpu_torch`` package beside it, the script
@@ -360,6 +391,10 @@ HIER_SERVE_SIZES = (5, 17, 32)
 HIER_SERVE_SEEDS = 8      # phase 20 (5): seeds tried for weights that route
 CHAOS_COMPARE = 16        # phase 21: clusters replayed card against CPU
 CHAOS_TRAIN_ITERS = 4     # phase 21: config-1 train CLI runs
+FRONTEND_CLIENTS = 8      # phase 22: clients of each dialect
+FRONTEND_REQUESTS = 2000  # phase 22: requests each client sends
+FRONTEND_DRAIN_BOUND_S = 10.0   # phase 22: the drain's bound
+FRONTEND_WIRE_REQUESTS = 2000   # phase 22: serve --wire-requests
 ROWS = ("policy", "random", "fifo", "sjf", "srtf", "tiresias")
 BASELINES = ("fifo", "sjf", "srtf", "tiresias")
 
@@ -3335,6 +3370,388 @@ def _hier_serve(torch, dev):
         raise SystemExit(f"config 5 serve CLI: {b} {sk}")
 
 
+def _http_decide(obs, mask, headers=()) -> bytes:
+    """One keep-alive ``POST /v1/decide`` as raw bytes."""
+    body = obs.tobytes() + mask.tobytes()
+    head = ["POST /v1/decide HTTP/1.1", "Host: smoke",
+            f"Content-Length: {len(body)}", *headers]
+    return ("\r\n".join(head) + "\r\n\r\n").encode() + body
+
+
+def _http_read(f) -> "tuple[int, dict, dict | None]":
+    """One Content-Length-framed HTTP response off a socket file."""
+    status_line = f.readline()
+    if not status_line:
+        raise SystemExit("front door: connection closed before a response")
+    headers = {}
+    while True:
+        line = f.readline()
+        if line in (b"\r\n", b"\n", b""):
+            break
+        k, _, v = line.decode().partition(":")
+        headers[k.strip().lower()] = v.strip()
+    body = f.read(int(headers.get("content-length", "0")))
+    return (int(status_line.split()[1]), headers,
+            json.loads(body) if body else None)
+
+
+def _wire_client(k, port, framed, obs, mask, rows, extras, barrier,
+                 results):
+    """One client process of phase 22: a keep-alive connection (HTTP or
+    framed) that sends row ``rows[j]`` of ``obs``/``mask`` with
+    ``extras[j]`` (headers, or ``pack_request`` keywords) one request
+    at a time, and puts ``(k, [(status or kind, reply, seconds)])`` on
+    ``results`` (``(k, error text)`` if it failed)."""
+    import socket
+
+    from rlgpuschedule_tpu_torch.serve import wire
+
+    out = []
+    try:
+        with socket.create_connection(("127.0.0.1", port), timeout=60) as s, \
+                s.makefile("rb") as f:
+            barrier.wait(timeout=120)
+            for i, extra in zip(rows, extras):
+                t0 = time.perf_counter()
+                if framed:
+                    s.sendall(wire.pack_request(obs[i], mask[i], **extra))
+                    kind, header, body, meta64, _, rid = wire.recv_frame(s)
+                    out.append((kind, (header, body, meta64, rid),
+                                time.perf_counter() - t0))
+                else:
+                    s.sendall(_http_decide(obs[i], mask[i], extra))
+                    status, headers, payload = _http_read(f)
+                    out.append((status, (headers, payload),
+                                time.perf_counter() - t0))
+    except BaseException as e:          # the parent fails the phase
+        barrier.abort()
+        results.put((k, f"client {k}: {type(e).__name__}: {e}"))
+        return
+    results.put((k, out))
+
+
+def _client_context():
+    """The multiprocessing context of phase 22's clients: a fork server
+    that imports the wire module once (started at the first call, in the
+    background), so a client costs a fork, not an interpreter start."""
+    import multiprocessing
+    import multiprocessing.forkserver
+
+    ctx = multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload(["__main__",
+                                "rlgpuschedule_tpu_torch.serve.wire"])
+    multiprocessing.forkserver.ensure_running()
+    return ctx
+
+
+def _wire_clients(port, framed, obs, mask, rows, extras):
+    """One client PROCESS per entry of ``rows`` (a list of row-index
+    lists, ``extras`` alike), started together behind a barrier, so the
+    clients do not share the server's interpreter. Returns each client's
+    replies and the wall time from the barrier to the last reply; every
+    process is joined (or terminated) before it returns. The processes
+    fork from a fork server (never from this multi-threaded process,
+    which holds the card) that imported the wire module once."""
+    ctx = _client_context()
+    n = len(rows)
+    barrier = ctx.Barrier(n + 1)
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_wire_client,
+                         args=(k, port, framed, obs, mask, rows[k],
+                               extras[k], barrier, results), daemon=True)
+             for k in range(n)]
+    for p in procs:
+        p.start()
+    try:
+        barrier.wait(timeout=180)
+        t0 = time.perf_counter()
+        got = dict(results.get(timeout=600) for _ in range(n))
+        wall = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    errors = [v for v in got.values() if isinstance(v, str)]
+    if errors:
+        raise SystemExit(f"front door clients failed: {errors}")
+    return [got[k] for k in range(n)], wall
+
+
+def _http_once(port, obs, mask) -> int:
+    """One decide on a connection of its own; the status."""
+    import socket
+
+    with socket.create_connection(("127.0.0.1", port), timeout=60) as s, \
+            s.makefile("rb") as f:
+        s.sendall(_http_decide(obs, mask, ("Connection: close",)))
+        return _http_read(f)[0]
+
+
+def frontend_phase(torch, dev):
+    """Phase 22: the network front door over config 2 on the card."""
+    import socket
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from rlgpuschedule_tpu_torch.configs import CONFIGS
+    from rlgpuschedule_tpu_torch.experiment import (build_env_params,
+                                                    build_policy)
+    from rlgpuschedule_tpu_torch.obs import Registry
+    from rlgpuschedule_tpu_torch.serve import (InferenceEngine,
+                                               PolicyServer,
+                                               ServerClosedError,
+                                               build_request_pool,
+                                               start_frontend, wire)
+    from rlgpuschedule_tpu_torch.serve.fleet import fleet_windows
+
+    smi = _nvidia_smi()
+    _client_context()        # the clients' fork server imports meanwhile
+    cfg = CONFIGS[CONFIG]
+    env_params = build_env_params(cfg)
+    policy = build_policy(cfg, env_params, device=dev)
+    _, traces = fleet_windows(cfg, 64, device=dev)
+    pool = build_request_pool(policy, env_params, traces, steps=4)
+    del traces
+    obs = np.stack([o for o, _ in pool])
+    mask = np.stack([m for _, m in pool])
+    with torch.no_grad():
+        logits, _ = policy(torch.from_numpy(obs).to(dev),
+                           torch.from_numpy(mask).to(dev))
+        top2 = torch.topk(logits.float(), 2, -1).values.cpu().numpy()
+    margin = top2[:, 0] - top2[:, 1]
+
+    # (1) one engine, every bucket warmed on this thread; the in-process
+    # actions of every pool row through the server, inline-pumped
+    reg = Registry()
+    engine = InferenceEngine(policy, max_bucket=256, device=dev,
+                             registry=reg, strict=True)
+    engine.warmup(obs[0], mask[0])
+    server = PolicyServer(engine, registry=reg)
+    futs = [server.submit(o, m) for o, m in pool]
+    while server.pump():
+        pass
+    ref = np.array([int(f.result(timeout=60).action) for f in futs])
+    server.start()
+    handle = start_frontend(server, obs[0], mask[0], port=0)
+    n = len(pool)
+
+    # (2) 8 HTTP keep-alive clients, then 8 framed ones (one process
+    # each), each FRONTEND_REQUESTS requests over real sockets; every
+    # action against the in-process one for its row
+    rows = [[(k * FRONTEND_REQUESTS + j) * 7 % n
+             for j in range(FRONTEND_REQUESTS)]
+            for k in range(FRONTEND_CLIENTS)]
+    dialects = {}
+    flips = {}
+    for framed in (False, True):
+        name = "framed" if framed else "http"
+        rid0 = (1 << 40) * (2 if framed else 1)
+        rids = [[rid0 + k * FRONTEND_REQUESTS + j
+                 for j in range(FRONTEND_REQUESTS)]
+                for k in range(FRONTEND_CLIENTS)]
+        extras = [[{"req_id": r} if framed else (f"X-Request-Id: {r}",)
+                   for r in ids] for ids in rids]
+        out, wall = _wire_clients(handle.port, framed, obs, mask, rows,
+                                  extras)
+        lat, served_lat, flipped = [], [], 0
+        for k, replies in enumerate(out):
+            for j, (status, reply, secs) in enumerate(replies):
+                i, rid = rows[k][j], rids[k][j]
+                if framed:
+                    header, body, micros, got_rid = reply
+                    if status != wire.KIND_RESP or got_rid != rid:
+                        raise SystemExit(f"framed request {rid}: kind "
+                                         f"{status}, {header!r}")
+                    action = int(wire.unpack_action(header, body).item())
+                    served_lat.append(micros / 1e3)
+                else:
+                    headers, payload = reply
+                    if status != 200 or payload["request_id"] != rid:
+                        raise SystemExit(f"http request {rid}: {status} "
+                                         f"{payload}")
+                    action = payload["action"]
+                    served_lat.append(payload["latency_ms"])
+                if action != ref[i]:
+                    if margin[i] >= MARGIN:
+                        raise SystemExit(
+                            f"{name}: row {i} served {action}, in process "
+                            f"{ref[i]}, at a top-two margin {margin[i]} >= "
+                            f"{MARGIN}")
+                    flipped += 1
+                lat.append(secs * 1e3)
+        flips[name] = flipped
+        dialects[name] = {
+            "clients": FRONTEND_CLIENTS, "requests": len(lat),
+            "decisions_per_s": len(lat) / wall, "wall_s": wall,
+            "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99)),
+            # the server's own submit -> result share of each request
+            "server_p50_ms": float(np.percentile(served_lat, 50)),
+            "server_p99_ms": float(np.percentile(served_lat, 99)),
+            "near_tie_flips": flipped}
+    _line("frontend_traffic", card=smi, config=CONFIG, pool_rows=n,
+          rows_below_margin=int((margin < MARGIN).sum()),
+          dispatches=int(reg.counter("serve_dispatches_total").value),
+          batch_occupancy_mean=server.slo_snapshot()[
+              "batch_occupancy_mean"], **dialects)
+
+    # (3) a deadline burst: 10 us deadlines, 50 requests on each of 4
+    # connections of each dialect; every reply served or shed, the sheds
+    # with a Retry-After in the band
+    shed = {}
+    for framed in (False, True):
+        extra = {"deadline_s": 1e-5} if framed else ("X-Deadline-Ms: 0.01",)
+        out, _ = _wire_clients(handle.port, framed, obs, mask,
+                               [r[:50] for r in rows[:4]],
+                               [[extra] * 50 for _ in range(4)])
+        sheds, retries = 0, []
+        for replies in out:
+            for status, reply, _ in replies:
+                if framed and status == wire.KIND_ERR:
+                    header, _, meta64, _ = reply
+                    if not header.startswith(b"shed:"):
+                        raise SystemExit(f"burst: framed error {header!r}")
+                    sheds += 1
+                    retries.append(meta64 / 1e6)
+                elif not framed and status == 503:
+                    headers, payload = reply
+                    if payload["error"] != "shed":
+                        raise SystemExit(f"burst: http 503 {payload}")
+                    sheds += 1
+                    retries.append(float(headers["retry-after"]))
+                elif status not in (200, wire.KIND_RESP):
+                    raise SystemExit(f"burst: reply {status} {reply}")
+        if not sheds or not all(0.01 <= r <= 30.0 for r in retries):
+            raise SystemExit(f"burst: {sheds} sheds, Retry-After "
+                             f"{min(retries, default=None)}-"
+                             f"{max(retries, default=None)} s")
+        shed["framed" if framed else "http"] = {
+            "requests": 200, "shed": sheds,
+            "retry_after_min_s": min(retries),
+            "retry_after_max_s": max(retries)}
+
+    # (4) the drain with idle keep-alive connections open: bounded, late
+    # work refused with the typed error, every request accounted for
+    idle = [socket.create_connection(("127.0.0.1", handle.port),
+                                     timeout=30) for _ in range(4)]
+    files = [s.makefile("rb") for s in idle]
+    for s, f in zip(idle, files):
+        s.sendall(_http_decide(obs[0], mask[0]))
+        if _http_read(f)[0] != 200:
+            raise SystemExit("front door: an idle client's decide failed")
+    t0 = time.perf_counter()
+    handle.drain(timeout=FRONTEND_DRAIN_BOUND_S)
+    drain_s = time.perf_counter() - t0
+    try:
+        server.submit(obs[0], mask[0])
+        raise SystemExit("a submit after the drain was accepted")
+    except ServerClosedError:
+        pass
+    idle[0].sendall(_http_decide(obs[0], mask[0]))
+    status, headers, payload = _http_read(files[0])
+    eof = [f.readline() for f in files]      # refused, then lingered out
+    for s, f in zip(idle, files):
+        f.close()
+        s.close()
+    handle.close()
+    submitted = reg.counter("serve_requests_total").value
+    served = server.slo_snapshot()["requests"]
+    shed_total = reg.counter("serve_shed_total").value
+    errors = reg.counter("serve_dispatch_errors_total").value
+    _line("frontend_contract", card=smi, shed_burst=shed,
+          drain_s=drain_s, late_http=[status, payload["error"],
+                                      headers["connection"]],
+          submitted=int(submitted), served=served, shed=int(shed_total),
+          dispatch_errors=int(errors), near_tie_flips=flips,
+          recompiles=engine.post_warmup_recompiles,
+          sync_debug_mode_after=torch.cuda.get_sync_debug_mode())
+    if not (drain_s < FRONTEND_DRAIN_BOUND_S and status == 503
+            and payload["error"] == "closed" and all(e == b"" for e in eof)
+            and submitted == served + shed_total and errors == 0
+            and engine.post_warmup_recompiles == 0
+            and torch.cuda.get_sync_debug_mode() == 0):
+        raise SystemExit("front door: the drain, conservation or the sync "
+                         "guard failed")
+
+    # (5) backpressure: a burst past a small high-water mark while no
+    # dispatcher runs pauses the reads; the dispatcher then drains it
+    breg = Registry()
+    bserver = PolicyServer(engine, registry=breg)
+    bhandle = start_frontend(bserver, obs[0], mask[0], port=0,
+                             high_water=8, low_water=2)
+    pauses = breg.counter("serve_frontend_backpressure_pauses_total")
+    results = []
+    clients = [threading.Thread(
+        target=lambda k=k: results.append(_http_once(bhandle.port, obs[k],
+                                                     mask[k])),
+        daemon=True) for k in range(32)]
+    for t in clients:
+        t.start()
+    deadline = time.monotonic() + 30
+    while not pauses.value:
+        if time.monotonic() > deadline:
+            raise SystemExit("backpressure: the reads never paused")
+        time.sleep(0.005)
+    bserver.start()
+    for t in clients:
+        t.join(timeout=60)
+    bhandle.close()
+    bsubmitted = breg.counter("serve_requests_total").value
+    _line("frontend_backpressure", card=smi, pauses=int(pauses.value),
+          statuses=sorted(set(results)), resolved=len(results),
+          submitted=int(bsubmitted), served=bserver.slo_snapshot()["requests"])
+    if results != [200] * 32 or bsubmitted != 32:
+        raise SystemExit(f"backpressure: {len(results)} of 32 resolved, "
+                         f"{sorted(set(results))}")
+    del engine, server, bserver, policy
+
+    # (6) the CLI in one process: the front door around a soak with the
+    # request spans, then the host path with its wire arms; the
+    # post-mortem of one of its requests, and the run's alarms
+    with tempfile.TemporaryDirectory() as d:
+        lines, _, wall = _run_cli(
+            "rlgpuschedule_tpu_torch.serve",
+            ["--config", CONFIG, "--bucket", "256", "--soak", "4",
+             "--frontend-port", "0", "--obs-dir", d, "--trace-spans",
+             "--host-path", "--wire-requests", str(FRONTEND_WIRE_REQUESTS)])
+        (line,) = lines
+        fe, sk, hp = line["frontend"], line["soak"], line["host_path"]
+        rep, _, _ = _run_cli(
+            "rlgpuschedule_tpu_torch.obs.report",
+            [d, "--request", str(fe["request_id"]), "--json"])
+        _run_cli("rlgpuschedule_tpu_torch.obs.report", [d, "--strict-alarms"])
+        stages = [s["stage"] for s in rep[0]["stages"]]
+    legacy, arena = hp["arms"]
+    http, framed = hp["wire_arms"]
+    _line("frontend_cli", card=smi, wall_s=wall,
+          decide_status=fe["decide_status"], late_submit=fe["late_submit"],
+          post_drain_connect=fe["post_drain_connect"],
+          soak_requests=sk["requests"], soak_served=sk["served"],
+          soak_shed=sk["shed"], request_id=fe["request_id"],
+          request_stages=stages, strict_alarms="clean")
+    _line("frontend_host_path", card=smi, bucket=hp["bucket"],
+          legacy_decisions_per_s=legacy["decisions_per_s"],
+          arena_decisions_per_s=arena["decisions_per_s"],
+          arena_alloc_calls=arena["alloc_calls"],
+          http_decisions_per_s=http["decisions_per_s"],
+          framed_decisions_per_s=framed["decisions_per_s"],
+          wire_requests=[http["requests"], framed["requests"]],
+          wire_served=[http["served"], framed["served"]],
+          speedup=hp["speedup"], speedup_inproc=hp["speedup_inproc"])
+    if ((fe["decide_status"], fe["late_submit"], fe["post_drain_connect"])
+            != (200, "server-closed", "refused")
+            or stages != ["enqueue", "served"]
+            or sk["post_warmup_recompiles"] or sk["dispatch_errors"]):
+        raise SystemExit(f"serve --frontend-port: {fe} {sk} {stages}")
+    if arena["alloc_calls"] or not all(
+            a["conservation_ok"] for a in hp["arms"] + hp["wire_arms"]):
+        raise SystemExit(f"serve --host-path --wire-requests: {hp}")
+
+
 def decide_latency(torch, tree: str) -> dict:
     """Graph ``decide`` latency (ms) of one tree's engine: config 2 at
     full width (bf16, seeded), phase 13's sizes, 300 calls a bucket; and
@@ -3443,6 +3860,7 @@ def main() -> int:
     timed(hier_pbt_phase)
     timed(router_phase)
     timed(chaos_phase)
+    timed(frontend_phase)
     _line("done", total_s=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

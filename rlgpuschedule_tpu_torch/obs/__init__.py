@@ -1,35 +1,48 @@
 """Telemetry (L6 aux) of the port: the event bus, the metrics registry
-and its scrape endpoint, span tracing and the SLO burn-rate engine.
+and its scrape endpoint, span tracing, the SLO burn-rate engine, the
+clock-skew merge and the post-mortem report.
 
 Pure-Python copies of the JAX package's ``obs/`` modules of the same
 names, so a serving run of either package exposes the same metrics
-and writes the same events:
+and writes the same events, and either package's report reads both:
 
 - :mod:`.events` -- append-only JSONL streams stamped ``(v, kind, rank,
   pid, seq, mono, wall)``; :func:`merge_dir` orders per-rank streams;
 - :mod:`.metrics` -- counters, gauges and histograms rendered as the
   Prometheus text exposition, to a file (``Registry.write``) or a live
   scrape endpoint (:func:`serve_http`);
-- :mod:`.trace` -- nestable, thread-aware spans and instants on the bus;
+- :mod:`.trace` -- nestable, thread-aware spans and instants on the bus,
+  and their readers: the span tree, the measured async overlap and the
+  Chrome-trace export;
 - :mod:`.slo` -- declarative SLOs evaluated as multi-window burn rates
-  by a pre-scrape collector hook.
+  by a pre-scrape collector hook;
+- :mod:`.skew` -- per-rank clock offsets learned from the bus's
+  ``(wall, mono)`` stamps, and a merged timeline rewritten onto one
+  corrected axis;
+- :mod:`.report` -- ``python -m rlgpuschedule_tpu_torch.obs.report
+  <dir> [--request ID]``: the run post-mortem, or one request's
+  timeline.
 
-The run-loop telemetry, the post-mortem report, the clock-skew merge
-and the span readers wait for the observability slice (``ROADMAP.md``
-queue 1, item 24).
+The run-loop telemetry (``Alarms``, ``RunTelemetry``) waits for the
+observability slice (``ROADMAP.md`` queue 1, item 24).
 """
 from .events import (SCHEMA_VERSION, EventBus, event_streams, merge_dir,
                      merge_events, read_events)
 from .metrics import (Counter, Gauge, Histogram, MetricsHTTPServer,
                       Registry, serve_http)
+from .skew import (RankSkew, correct_events, learn_offsets,
+                   merge_dir_corrected)
 from .slo import DEFAULT_WINDOWS, SLOEngine, SLOSpec, histogram_sli
-from .trace import NULL_TRACER, Tracer, TracerLane
+from .trace import (NULL_TRACER, Tracer, TracerLane, async_overlap_summary,
+                    build_span_tree, to_chrome_trace, tracer_of)
 
 __all__ = [
     "EventBus", "SCHEMA_VERSION", "event_streams", "merge_dir",
     "merge_events", "read_events",
     "Counter", "Gauge", "Histogram", "MetricsHTTPServer", "Registry",
     "serve_http",
-    "NULL_TRACER", "Tracer", "TracerLane",
+    "NULL_TRACER", "Tracer", "TracerLane", "async_overlap_summary",
+    "build_span_tree", "to_chrome_trace", "tracer_of",
+    "RankSkew", "correct_events", "learn_offsets", "merge_dir_corrected",
     "DEFAULT_WINDOWS", "SLOEngine", "SLOSpec", "histogram_sli",
 ]

@@ -1,0 +1,395 @@
+"""Multihost merge and run post-mortem CLI.
+
+The port's copy of the JAX package's ``obs/report.py`` (pure Python).
+``python -m rlgpuschedule_tpu_torch.obs.report <obs-dir>`` merges every
+per-rank event stream under ``<obs-dir>`` (either package's: the port's
+:class:`.events.EventBus` writes the same schema) into one
+monotonic-ordered timeline and prints the run's post-mortem:
+
+- header: schema versions, emitting ranks, event count, time span;
+- phase-time table (host wall seconds per run-loop phase, from the
+  ``iteration`` events);
+- span tree (traced runs): per-phase self and child time from the
+  nested ``span_begin``/``span_end`` extents, torn (crash-open) spans
+  flagged, and the measured async actor/learner occupancy;
+- clock-skew annotation: with two or more sampled ranks the merged
+  timeline is rewritten onto rank 0's corrected monotonic axis
+  (:mod:`.skew`) and the per-rank offsets and residuals are reported;
+- restart / rollback / fault history, in timeline order;
+- steps/s curve (one row per logged iteration);
+- chaos story (``env_fault`` events): the regime x scheduler
+  degradation cells, in one table;
+- flywheel and fleet health: promotion verdicts, serving-fleet
+  lifecycle (``serve_fault`` / ``engine_eject`` / ``engine_readmit`` /
+  ``serve_retry``) and SLO burn alerts, in timeline order;
+- alarm summary (``recompile`` / ``transfer`` / ``slow_iteration``).
+
+``--request ID`` switches to the single-request post-mortem: the request
+id (minted by the server, or carried on the ``X-Request-Id`` header or
+the v2 frame's field) is joined across the serve instants (``enqueue``
+-> ``served`` / ``shed`` / ``dispatch_failed``, with the queue wait and
+end-to-end latency of the dispatch record). Exit 1 when the id appears
+nowhere. The JAX package also joins the id against the data flywheel's
+flight log and promotion ledger (``--flight-log``); the port refuses
+that flag until the flywheel is ported.
+
+Exit codes: 0 ok, 1 no events under the directory (an empty post-mortem
+must fail loudly) or a ``--request`` id found nowhere, 2 usage.
+``--strict-alarms`` also exits 1 when any post-warmup alarm event fired:
+a geometry-stable run must produce a merged timeline with ZERO
+``recompile`` events.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+from .events import merge_dir
+from .skew import correct_events
+from .trace import (SPAN_KINDS, async_overlap_summary, build_span_tree,
+                    to_chrome_trace)
+
+# the data flywheel's flight log and ledger: not in the port yet
+FLIGHT_LOG_REFUSAL = ("--flight-log is not in the PyTorch port yet: it "
+                      "waits for the flywheel slice (ROADMAP.md queue 1, "
+                      "item 23)")
+
+# event kinds that are production alarms (Alarms emissions; ``compile``
+# is the blessed warmup/amnesty record, not an alarm)
+ALARM_KINDS = ("recompile", "transfer", "slow_iteration")
+
+# the restart/rollback/fault story, in one timeline
+_HISTORY_KINDS = (
+    "gang_launch", "rank_failure", "gang_restart", "gang_shrink",
+    "supervisor_done", "rollback", "fault", "ckpt_reject",
+    "ckpt_crc_reject", "ckpt_elastic_restore", "worker_resumed",
+)
+
+# the serving-fleet + flywheel story: promotion verdicts, engine
+# lifecycle, SLO burn alerts (none are alarm kinds)
+_FLEET_KINDS = (
+    "promote_blocked", "promote_apply", "promote_rollback",
+    "serve_fault", "engine_eject", "engine_readmit", "serve_retry",
+    "slo_burn_alert", "slo_burn_clear",
+)
+
+
+def build_report(events: list[dict]) -> dict:
+    """Aggregate a merged timeline into the post-mortem's sections."""
+    ranks = sorted({e.get("rank", 0) for e in events})
+    versions = sorted({e.get("v", 0) for e in events})
+    monos = [e["mono"] for e in events if "mono" in e]
+    span_s = (max(monos) - min(monos)) if monos else 0.0
+    t0 = min(monos) if monos else 0.0
+
+    phases: dict[str, float] = {}
+    curve = []
+    for e in events:
+        if e.get("kind") != "iteration":
+            continue
+        for phase, secs in (e.get("phases") or {}).items():
+            phases[phase] = phases.get(phase, 0.0) + secs
+        curve.append({"iteration": e.get("iteration"),
+                      "rank": e.get("rank", 0),
+                      "steps_per_sec": e.get("steps_per_sec"),
+                      "wall_s": e.get("wall_s")})
+
+    history = [e for e in events if e.get("kind") in _HISTORY_KINDS]
+    fleet = [e for e in events if e.get("kind") in _FLEET_KINDS]
+    restores = [e for e in events if e.get("kind") == "ckpt_restore"]
+    chaos = [{"regime": e.get("regime"), "scheduler": e.get("scheduler"),
+              "avg_jct": e.get("avg_jct"),
+              "completion": e.get("completion"),
+              "degradation": e.get("degradation"),
+              "n_drains": e.get("fault_n_drains"),
+              "chaos_seed": e.get("chaos_seed")}
+             for e in events if e.get("kind") == "env_fault"]
+    alarms = {k: sum(1 for e in events if e.get("kind") == k)
+              for k in ALARM_KINDS}
+    counts: dict[str, int] = {}
+    for e in events:
+        k = str(e.get("kind"))
+        counts[k] = counts.get(k, 0) + 1
+    has_spans = any(e.get("kind") in SPAN_KINDS for e in events)
+    span_tree = build_span_tree(events) if has_spans else []
+    return {"schema_versions": versions, "ranks": ranks,
+            "n_events": len(events), "span_s": span_s, "t0_mono": t0,
+            "phase_seconds": phases, "steps_curve": curve,
+            "history": history, "fleet": fleet,
+            "ckpt_restores": restores,
+            "chaos": chaos, "alarms": alarms, "kind_counts": counts,
+            "span_tree": span_tree,
+            "torn_spans": sum(n["open"] for n in span_tree),
+            "async_overlap": (async_overlap_summary(events)
+                              if has_spans else None)}
+
+
+def build_request_report(events: list[dict], req_id: int,
+                         flight_dir: "str | None" = None) -> dict:
+    """Join one request id across the serve instants: the single-request
+    timeline.
+
+    Stages come from the batching tier's ``span_point`` instants:
+    ``enqueue`` (admission), then exactly one of ``served`` (with the
+    per-row queue wait and end-to-end latency the dispatch recorded),
+    ``shed`` (admission or in-queue expiry), or ``dispatch_failed``.
+    ``flight_dir`` (the flight-log join) is refused until the flywheel
+    is ported; ``flight`` and ``verdicts`` stay empty."""
+    if flight_dir:
+        raise NotImplementedError(FLIGHT_LOG_REFUSAL)
+    req_id = int(req_id)
+    stages = []
+
+    def stage(name, e, **extra):
+        stages.append(dict({"stage": name, "mono": e.get("mono"),
+                            "rank": e.get("rank", 0)}, **extra))
+
+    for e in events:
+        if e.get("kind") != "span_point":
+            continue
+        a = e.get("attrs") or {}
+        span = e.get("span")
+        if span == "enqueue" and a.get("req_id") == req_id:
+            stage("enqueue", e, stall=a.get("stall"))
+        elif span == "shed" and a.get("req_id") == req_id:
+            stage("shed", e, reason=a.get("reason"))
+        elif span in ("served", "dispatch_failed"):
+            rids = a.get("req_ids") or []
+            if req_id not in rids:
+                continue
+            if span == "served":
+                i = rids.index(req_id)
+                waits = a.get("wait_ms") or []
+                lats = a.get("lat_ms") or []
+                stage("served", e, bucket=a.get("bucket"),
+                      batch_rows=len(rids),
+                      queue_wait_ms=waits[i] if i < len(waits) else None,
+                      latency_ms=lats[i] if i < len(lats) else None)
+            else:
+                stage("dispatch_failed", e, error=a.get("error"))
+    return {"req_id": req_id, "stages": stages, "flight": None,
+            "verdicts": [], "found": bool(stages)}
+
+
+def format_request_report(rep: dict) -> str:
+    """The human single-request timeline (JAX's text for a report with
+    no flight-log row)."""
+    rid = rep["req_id"]
+    lines = [f"request 0x{rid:016x} ({rid}):"]
+    if not rep["found"]:
+        lines.append("  not found: no serve instant, flight-log row, or "
+                     "ledger verdict carries this id")
+        return "\n".join(lines)
+    t0 = min((s["mono"] for s in rep["stages"]
+              if s.get("mono") is not None), default=0.0)
+    for s in rep["stages"]:
+        t = (s["mono"] - t0) if s.get("mono") is not None else 0.0
+        detail = " ".join(
+            f"{k}={v}" for k, v in sorted(s.items())
+            if k not in ("stage", "mono", "rank") and v is not None)
+        lines.append(f"  +{t:9.3f}s  rank {s.get('rank', '?'):>3}  "
+                     f"{s['stage']:<16s} {detail}")
+    # the flight-log join is not ported (FLIGHT_LOG_REFUSAL): JAX's
+    # line for a request with no logged row
+    lines.append("  logged: no flight-log row (shed, failed, unsealed "
+                 "tail, or no --flight-log given)")
+    return "\n".join(lines)
+
+
+def _fmt_history_line(e: dict, t0: float) -> str:
+    t = e.get("mono", t0) - t0
+    rank = e.get("rank", "?")
+    detail = {k: v for k, v in e.items()
+              if k not in ("v", "kind", "rank", "pid", "seq", "mono",
+                           "wall")}
+    body = " ".join(f"{k}={v}" for k, v in sorted(detail.items())
+                    if v is not None)
+    return f"  +{t:9.3f}s  rank {rank:>3}  {e.get('kind'):<22s} {body}"
+
+
+def format_report(rep: dict) -> str:
+    """The human post-mortem. Sections keyed to build_report's dict."""
+    lines = [
+        f"run post-mortem: {rep['n_events']} events from "
+        f"{len(rep['ranks'])} emitter(s) (ranks {rep['ranks']}), "
+        f"schema v{rep['schema_versions']}, span {rep['span_s']:.3f}s",
+        "",
+    ]
+    if rep["phase_seconds"]:
+        total = sum(rep["phase_seconds"].values()) or 1.0
+        lines.append("phase-time table (host wall, from iteration spans):")
+        lines.append(f"  {'phase':<12s} {'seconds':>10s} {'share':>7s}")
+        for phase, secs in sorted(rep["phase_seconds"].items(),
+                                  key=lambda kv: -kv[1]):
+            lines.append(f"  {phase:<12s} {secs:>10.3f} "
+                         f"{100.0 * secs / total:>6.1f}%")
+        lines.append("")
+    if rep.get("span_tree"):
+        lines.append("span tree (flight recorder, self/child time):")
+        lines.append(f"  {'span':<28s} {'count':>6s} {'total s':>10s} "
+                     f"{'self s':>10s}")
+        for n in rep["span_tree"]:
+            label = "  " * n["depth"] + n["name"] + \
+                (f"  [open x{n['open']}]" if n["open"] else "")
+            lines.append(f"  {label:<28s} {n['count']:>6d} "
+                         f"{n['total_s']:>10.3f} {n['self_s']:>10.3f}")
+        if rep.get("torn_spans"):
+            lines.append(f"  ({rep['torn_spans']} torn span(s): begin "
+                         f"with no end — writer died mid-span)")
+        lines.append("")
+    if rep.get("async_overlap"):
+        ov = rep["async_overlap"]
+        lines.append(
+            f"async occupancy (measured from actor/learner spans): "
+            f"async_overlap_measured={ov['async_overlap_measured']:.3f} "
+            f"(window {ov['window_s']:.3f}s, actor busy "
+            f"{ov['actor_busy_s']:.3f}s, learner busy "
+            f"{ov['learner_busy_s']:.3f}s, concurrent "
+            f"{ov['concurrent_s']:.3f}s, idle {ov['idle_s']:.3f}s)")
+        lines.append("")
+    if rep.get("skew", {}).get("applied"):
+        sk = rep["skew"]
+        ranks = ", ".join(
+            f"rank {r}: shift {v['shift_s']*1e3:+.3f}ms "
+            f"(±{v['residual_s']*1e3:.3f}ms, n={v['n_samples']})"
+            for r, v in sk["ranks"].items())
+        lines.append(
+            f"clock skew: timeline rewritten onto rank "
+            f"{sk['reference_rank']}'s monotonic axis — {ranks}; "
+            f"max residual {sk['max_residual_s']*1e3:.3f}ms")
+        lines.append("")
+    if rep["history"]:
+        lines.append("restart / rollback / fault history:")
+        for e in rep["history"]:
+            lines.append(_fmt_history_line(e, rep["t0_mono"]))
+        lines.append("")
+    if rep["steps_curve"]:
+        lines.append("steps/s curve (logged iterations):")
+        lines.append(f"  {'iter':>6s} {'rank':>4s} {'steps/s':>12s} "
+                     f"{'iter wall s':>12s}")
+        for row in rep["steps_curve"]:
+            sps = row.get("steps_per_sec")
+            wall = row.get("wall_s")
+            lines.append(
+                f"  {row.get('iteration', '?'):>6} "
+                f"{row.get('rank', 0):>4} "
+                f"{(f'{sps:.1f}' if sps is not None else '?'):>12s} "
+                f"{(f'{wall:.4f}' if wall is not None else '?'):>12s}")
+        lines.append("")
+    if rep.get("fleet"):
+        by_kind = {}
+        for e in rep["fleet"]:
+            k = str(e.get("kind"))
+            by_kind[k] = by_kind.get(k, 0) + 1
+        summary = ", ".join(f"{k}={n}" for k, n in sorted(by_kind.items()))
+        lines.append(f"flywheel & fleet health ({summary}):")
+        for e in rep["fleet"]:
+            lines.append(_fmt_history_line(e, rep["t0_mono"]))
+        lines.append("")
+    if rep.get("chaos"):
+        lines.append("chaos story (env_fault events, evaluate --chaos):")
+        lines.append(f"  {'regime':<12s} {'scheduler':<10s} "
+                     f"{'avg JCT s':>10s} {'done':>6s} {'vs clean':>9s} "
+                     f"{'drains':>7s}")
+        for c in rep["chaos"]:
+            deg = c.get("degradation")
+            done = c.get("completion")
+            jct = c.get("avg_jct")
+            lines.append(
+                f"  {str(c.get('regime')):<12s} "
+                f"{str(c.get('scheduler')):<10s} "
+                f"{(f'{jct:.1f}' if jct is not None else '?'):>10s} "
+                f"{(f'{done:.0%}' if done is not None else '?'):>6s} "
+                f"{(f'x{deg:.2f}' if deg is not None else '—'):>9s} "
+                f"{str(c.get('n_drains', '?')):>7s}")
+        lines.append("")
+    alarm_total = sum(rep["alarms"].values())
+    lines.append(
+        "alarms: " + ", ".join(f"{k}={n}"
+                               for k, n in sorted(rep["alarms"].items()))
+        + ("" if alarm_total else "  (clean)"))
+    return "\n".join(lines)
+
+
+def main(argv: list[str] | None = None) -> int:
+    p = argparse.ArgumentParser(
+        prog="python -m rlgpuschedule_tpu_torch.obs.report",
+        description="Merge per-rank event streams into one timeline and "
+                    "print a run post-mortem.")
+    p.add_argument("obs_dir", help="directory holding events.*.jsonl "
+                                   "streams (--obs-dir of the run)")
+    p.add_argument("--json", action="store_true",
+                   help="print the structured report as JSON instead of "
+                        "the human tables")
+    p.add_argument("--out", default=None,
+                   help="also write the merged ordered timeline to this "
+                        "JSONL file")
+    p.add_argument("--trace-out", default=None,
+                   help="write the timeline as Chrome-trace JSON "
+                        "(open in Perfetto / chrome://tracing)")
+    p.add_argument("--no-skew-correct", action="store_true",
+                   help="keep each rank's raw monotonic axis instead of "
+                        "rewriting onto the learned corrected axis")
+    p.add_argument("--strict-alarms", action="store_true",
+                   help="exit 1 if any post-warmup alarm event "
+                        f"({'/'.join(ALARM_KINDS)}) fired")
+    p.add_argument("--request", default=None, metavar="ID",
+                   help="print the single-request timeline for this "
+                        "64-bit request id (decimal or 0x-hex) instead "
+                        "of the run post-mortem; exit 1 if the id "
+                        "appears nowhere")
+    p.add_argument("--flight-log", default=None, metavar="DIR",
+                   help="with --request: also join the id against a "
+                        "flight-log directory (not in the port yet)")
+    args = p.parse_args(argv)
+    if args.flight_log is not None:
+        raise NotImplementedError(FLIGHT_LOG_REFUSAL)
+    try:
+        events = merge_dir(args.obs_dir)
+    except FileNotFoundError as e:
+        print(str(e), file=sys.stderr)
+        return 1
+    if not events:
+        print(f"event streams under {args.obs_dir} hold no decodable "
+              f"events", file=sys.stderr)
+        return 1
+    skew_info: dict = {"applied": False}
+    if not args.no_skew_correct:
+        events, skew_info = correct_events(events)
+    if args.request is not None:
+        try:
+            req_id = int(args.request, 0)
+        except ValueError:
+            print(f"--request: {args.request!r} is not an integer id",
+                  file=sys.stderr)
+            return 2
+        req = build_request_report(events, req_id,
+                                   flight_dir=args.flight_log)
+        if args.json:
+            print(json.dumps(req, sort_keys=True))
+        else:
+            print(format_request_report(req))
+        return 0 if req["found"] else 1
+    if args.out:
+        with open(args.out, "w") as f:
+            for e in events:
+                f.write(json.dumps(e, sort_keys=True) + "\n")
+    if args.trace_out:
+        with open(args.trace_out, "w") as f:
+            json.dump(to_chrome_trace(events), f)
+    rep = build_report(events)
+    rep["skew"] = skew_info
+    if args.json:
+        print(json.dumps(rep, sort_keys=True))
+    else:
+        print(format_report(rep))
+    if args.strict_alarms and sum(rep["alarms"].values()) > 0:
+        print(f"strict-alarms: {rep['alarms']} alarm event(s) in the "
+              f"timeline", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

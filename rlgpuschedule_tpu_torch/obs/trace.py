@@ -1,16 +1,18 @@
 """Span-tracing flight recorder on the event bus.
 
-The port's copy of the ``Tracer`` half of the JAX package's
-``obs/trace.py`` (pure Python). The event bus records *points* ("this
-happened at t"); this module records *extents*: a :class:`Tracer`
-opens nestable, thread-aware spans (``with tracer.span("dispatch",
-bucket=b):``) that land on the SAME JSONL stream as every other event --
-paired ``span_begin`` / ``span_end`` records whose track is ``(rank,
-thread)`` -- and zero-duration ``span_point`` instants (a request's
-enqueue, a dispatch's served record). The readers of those records
-(``build_span_tree``, ``async_overlap_summary``, ``to_chrome_trace``)
-wait for the observability slice of the port (``ROADMAP.md`` queue 1,
-item 24); the records already carry every field they read.
+The port's copy of the JAX package's ``obs/trace.py`` (pure Python).
+The event bus records *points* ("this happened at t"); this module
+records *extents*: a :class:`Tracer` opens nestable, thread-aware spans
+(``with tracer.span("dispatch", bucket=b):``) that land on the SAME
+JSONL stream as every other event -- paired ``span_begin`` /
+``span_end`` records whose track is ``(rank, thread)`` -- and
+zero-duration ``span_point`` instants (a request's enqueue, a
+dispatch's served record). The readers of those records are pure
+functions over event dicts, so they read either package's streams:
+:func:`build_span_tree` (the post-mortem's phase tree),
+:func:`async_overlap_summary` (measured actor/learner occupancy, from
+lanes no loop of the port emits yet) and :func:`to_chrome_trace` (a
+Chrome-trace JSON that Perfetto and ``chrome://tracing`` open).
 
 Design constraints, in order:
 
@@ -27,14 +29,16 @@ Design constraints, in order:
   track*.
 
 A crash mid-span leaves a ``span_begin`` with no ``span_end`` (a *torn*
-span); readers render it as an open span.
+span): :func:`build_span_tree` renders it as an open span (counted,
+flagged) instead of corrupting the tree, and :func:`to_chrome_trace`
+closes it at the track's last timestamp with ``"torn": true``.
 """
 from __future__ import annotations
 
 import threading
-from typing import Any
+from typing import Any, Iterable
 
-from .events import EventBus
+from .events import RESERVED_FIELDS, EventBus, merge_events
 
 # the bus kinds the tracer owns
 SPAN_BEGIN = "span_begin"
@@ -259,3 +263,207 @@ NULL_LANE = _NullLane()
 # the always-available disabled tracer: run loops hold it when no
 # telemetry (or no --trace) is attached, so call sites never branch
 NULL_TRACER = Tracer(None, enabled=False)
+
+
+def tracer_of(telemetry: Any) -> Tracer:
+    """The run loops' one accessor: ``telemetry.tracer`` when present,
+    :data:`NULL_TRACER` otherwise (bare runs, stand-ins)."""
+    t = getattr(telemetry, "tracer", None)
+    return t if isinstance(t, Tracer) else NULL_TRACER
+
+
+# -- post-processing: span tree --------------------------------------------
+
+def build_span_tree(events: Iterable[dict]) -> list[dict]:
+    """Aggregate span events into a preorder tree of phase rows.
+
+    Each row: ``{"path": "iteration/step", "name", "depth", "count",
+    "total_s", "self_s", "open"}`` — ``self_s`` is total minus child
+    time, ``open`` counts torn spans (begin, no end), which are closed
+    at their track's last seen timestamp instead of corrupting the
+    tree. Pairing is per ``(rank, tid)`` track, so concurrent threads
+    cannot steal each other's ends.
+    """
+    nodes: dict[tuple, dict] = {}
+    stacks: dict[tuple, list] = {}     # track -> [(path, t_begin), ...]
+    last_ts: dict[tuple, float] = {}
+
+    def node(path: tuple) -> dict:
+        n = nodes.get(path)
+        if n is None:
+            n = nodes[path] = {"path": "/".join(path), "name": path[-1],
+                               "depth": len(path) - 1, "count": 0,
+                               "total_s": 0.0, "child_s": 0.0, "open": 0}
+        return n
+
+    def close(track: tuple, path: tuple, t0: float, t1: float,
+              torn: bool) -> None:
+        n = node(path)
+        n["count"] += 1
+        n["total_s"] += max(t1 - t0, 0.0)
+        if torn:
+            n["open"] += 1
+        if len(path) > 1:
+            node(path[:-1])["child_s"] += max(t1 - t0, 0.0)
+
+    for e in merge_events(events):
+        kind = e.get("kind")
+        if kind not in (SPAN_BEGIN, SPAN_END) or "mono" not in e:
+            continue
+        track = (e.get("rank", 0), e.get("tid", 0))
+        ts = e["mono"]
+        last_ts[track] = ts
+        stack = stacks.setdefault(track, [])
+        if kind == SPAN_BEGIN:
+            parent = stack[-1][0] if stack else ()
+            stack.append((parent + (str(e.get("span")),), ts))
+        else:
+            # pop to the matching name: a torn INNER span is closed at
+            # the outer end's timestamp rather than poisoning the stack;
+            # an end whose begin was lost entirely is ignored
+            name = str(e.get("span"))
+            if not any(path[-1] == name for path, _ in stack):
+                continue
+            while stack:
+                path, t0 = stack.pop()
+                if path[-1] == name:
+                    close(track, path, t0, ts, torn=False)
+                    break
+                close(track, path, t0, ts, torn=True)
+    for track, stack in stacks.items():
+        t1 = last_ts.get(track, 0.0)
+        while stack:                       # crash mid-span: open spans
+            path, t0 = stack.pop()
+            close(track, path, t0, t1, torn=True)
+
+    out = [nodes[p] for p in sorted(nodes)]
+    for n in out:
+        n["total_s"] = round(n["total_s"], 6)
+        n["self_s"] = round(n["total_s"] - n.pop("child_s"), 6)
+    return out
+
+
+# -- post-processing: measured async overlap -------------------------------
+
+def _lane_intervals(events: Iterable[dict],
+                    lanes: tuple[str, ...]) -> dict[str, list]:
+    opened: dict[tuple, float] = {}
+    iv: dict[str, list] = {lane: [] for lane in lanes}
+    for e in merge_events(events):
+        name = e.get("span")
+        if e.get("kind") not in (SPAN_BEGIN, SPAN_END) or name not in iv:
+            continue
+        key = (e.get("rank", 0), e.get("tid", 0), name)
+        if e["kind"] == SPAN_BEGIN:
+            opened[key] = e.get("mono", 0.0)
+        elif key in opened:
+            iv[name].append((opened.pop(key), e.get("mono", 0.0)))
+    return iv
+
+
+def _union(intervals: list) -> list:
+    merged: list = []
+    for lo, hi in sorted(intervals):
+        if merged and lo <= merged[-1][1]:
+            merged[-1] = (merged[-1][0], max(merged[-1][1], hi))
+        else:
+            merged.append((lo, hi))
+    return merged
+
+
+def _total(intervals: list) -> float:
+    return sum(hi - lo for lo, hi in intervals)
+
+
+def async_overlap_summary(events: Iterable[dict]) -> dict | None:
+    """Measured actor/learner occupancy from the span timeline. Over the
+    window
+    spanned by actor∪learner spans: ``busy`` is the union of the two
+    lanes' spans, ``idle = window - busy``, ``concurrent`` the lanes'
+    intersection, and ``async_overlap_measured = 1 - idle/window`` (the
+    occupancy of the actor∪learner timeline). None when either lane
+    recorded no spans (not an async traced run)."""
+    iv = _lane_intervals(events, ("actor", "learner"))
+    if not iv["actor"] or not iv["learner"]:
+        return None
+    actor, learner = _union(iv["actor"]), _union(iv["learner"])
+    both = _union(actor + learner)
+    window = (max(hi for _, hi in both) - min(lo for lo, _ in both))
+    busy = _total(both)
+    concurrent = _total(actor) + _total(learner) - busy
+    idle = max(window - busy, 0.0)
+    return {
+        "async_overlap_measured": round(1.0 - idle / window, 6)
+        if window > 0 else 1.0,
+        "window_s": round(window, 6),
+        "actor_busy_s": round(_total(actor), 6),
+        "learner_busy_s": round(_total(learner), 6),
+        "concurrent_s": round(concurrent, 6),
+        "idle_s": round(idle, 6),
+    }
+
+
+# -- Chrome trace export ---------------------------------------------------
+
+def to_chrome_trace(events: Iterable[dict]) -> dict:
+    """Chrome Trace Event Format JSON (the Perfetto/chrome://tracing
+    lingua franca): spans become paired ``B``/``E`` duration events on
+    ``pid=rank, tid=thread`` tracks, ``span_point`` marks and every
+    non-span bus event become ``i`` instants, and metadata events name
+    each rank/thread. Timestamps are the (possibly skew-corrected)
+    ``mono`` clock in microseconds. Torn spans are closed at their
+    track's last timestamp with ``args.torn = true``."""
+    trace: list[dict] = []
+    stacks: dict[tuple, list] = {}
+    last_ts: dict[tuple, float] = {}
+    named_procs: set = set()
+    named_threads: set = set()
+    for e in merge_events(events):
+        if "mono" not in e:
+            continue
+        kind = e.get("kind")
+        pid = e.get("rank", 0)
+        ts = e["mono"] * 1e6
+        if pid not in named_procs:
+            named_procs.add(pid)
+            trace.append({"ph": "M", "name": "process_name", "pid": pid,
+                          "tid": 0, "args": {"name": f"rank {pid}"}})
+        if kind in (SPAN_BEGIN, SPAN_END, SPAN_POINT):
+            tid = e.get("tid", 0)
+            track = (pid, tid)
+            last_ts[track] = ts
+            if e.get("thread") and track not in named_threads:
+                named_threads.add(track)
+                trace.append({"ph": "M", "name": "thread_name",
+                              "pid": pid, "tid": tid,
+                              "args": {"name": e["thread"]}})
+            name = str(e.get("span"))
+            if kind == SPAN_BEGIN:
+                stacks.setdefault(track, []).append(name)
+                trace.append({"ph": "B", "name": name, "cat": "span",
+                              "pid": pid, "tid": tid, "ts": ts,
+                              "args": e.get("attrs") or {}})
+            elif kind == SPAN_END:
+                stack = stacks.get(track) or []
+                if not stack:
+                    continue           # torn end (begin lost): drop
+                stack.pop()
+                trace.append({"ph": "E", "name": name, "cat": "span",
+                              "pid": pid, "tid": tid, "ts": ts})
+            else:
+                trace.append({"ph": "i", "name": name, "cat": "span",
+                              "pid": pid, "tid": tid, "ts": ts, "s": "t",
+                              "args": e.get("attrs") or {}})
+        else:
+            args = {k: v for k, v in e.items()
+                    if k not in RESERVED_FIELDS}
+            trace.append({"ph": "i", "name": str(kind), "cat": "event",
+                          "pid": pid, "tid": 0, "ts": ts, "s": "p",
+                          "args": args})
+    for (pid, tid), stack in stacks.items():
+        ts = last_ts.get((pid, tid), 0.0)
+        while stack:                   # close torn spans at track end
+            trace.append({"ph": "E", "name": stack.pop(), "cat": "span",
+                          "pid": pid, "tid": tid, "ts": ts,
+                          "args": {"torn": True}})
+    return {"traceEvents": trace, "displayTimeUnit": "ms"}

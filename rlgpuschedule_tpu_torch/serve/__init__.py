@@ -1,8 +1,10 @@
 """Serving (L6) of the port: the bucketed inference engine (one CUDA
 graph per bucket on the card), the continuous-batching policy server,
 the multi-engine router with its fault injector and autoscale advisor,
-their benches, and fleet replay. ``python -m
+their benches, fleet replay, and the network front door (asyncio HTTP
+and the framed :mod:`.wire` dialect on one port). ``python -m
 rlgpuschedule_tpu_torch.serve`` is the CLI."""
+from . import wire
 from .batching import (DeadlineSheddedError, Ewma, PolicyServer,
                        Reservoir, ServeResult, ServerClosedError,
                        next_bucket, pad_batch, scatter_results,
@@ -12,6 +14,7 @@ from .bench import (StubEngine, build_request_pool, default_request_sizes,
                     run_host_path, run_scaleout, run_soak)
 from .engine import InferenceEngine
 from .fleet import fleet_replay, fleet_windows
+from .frontend import FrontendHandle, ServeFrontend, start_frontend
 from .router import (SERVE_FAULT_KINDS, AutoscaleAdvisor, EngineRouter,
                      EngineStats, InjectedEngineFault, ServeFaultInjector,
                      ServeFaultSpec, parse_serve_fault)
@@ -22,6 +25,7 @@ __all__ = [
     "EngineRouter", "AutoscaleAdvisor", "EngineStats",
     "SERVE_FAULT_KINDS", "ServeFaultSpec", "ServeFaultInjector",
     "InjectedEngineFault", "parse_serve_fault",
+    "ServeFrontend", "FrontendHandle", "start_frontend", "wire",
     "next_bucket", "pad_batch", "stack_requests", "scatter_results",
     "StubEngine", "build_request_pool", "default_request_sizes",
     "run_bench", "run_host_path", "run_soak", "run_scaleout",

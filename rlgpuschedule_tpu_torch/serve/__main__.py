@@ -19,7 +19,14 @@ Modes, composable in one invocation (at least one is required):
   ``--engines`` routed engines on the same request stream.
 - ``--host-path``: the data-plane bench, a zero-work stub engine
   isolating submit/coalesce/seal/scatter, legacy plane against arena
-  plane, the arena's steady-state numpy allocations counted (must be 0).
+  plane, the arena's steady-state numpy allocations counted (must be 0);
+  ``--wire-requests N`` adds the two socket arms through the front door
+  (HTTP connection per request against framed keep-alive).
+- ``--frontend-port PORT`` (with ``--soak``): the asyncio front door
+  (:mod:`.frontend`, HTTP and framed) on PORT (0 = ephemeral) while the
+  soak runs, SIGTERM draining it; after the soak a self-check: one real
+  ``POST /v1/decide`` (200 with an action), a graceful drain, a late
+  submit refused with the typed error, a new connection refused.
 - ``--fleet N``: greedy replay against N seeded simulated clusters.
 
 ``--engines N`` serves every mode but ``--fleet`` through the
@@ -44,7 +51,6 @@ block of the config.
 regime (flat configs; cluster ``e`` draws ``(--fleet-seed, e)``).
 
 Refused with ``NotImplementedError`` naming their ``ROADMAP.md`` item:
-the network front door (``--frontend-port``, ``--wire-requests``) and
 the flywheel (``--flight-log``, ``--promote``, ``--promote-noise``). A
 hierarchical config
 (``n_pods > 1``, config 5) is served through one engine (dict
@@ -87,13 +93,8 @@ from .router import (AutoscaleAdvisor, EngineRouter, ServeFaultInjector,
 
 # flags of the JAX package's CLI this slice refuses, and what they wait
 # for
-DEFERRED = {
-    **dict.fromkeys(("frontend_port", "wire_requests"),
-                    "the network front door slice (ROADMAP.md queue 1, "
-                    "item 22)"),
-    **dict.fromkeys(("flight_log", "promote", "promote_noise"),
-                    "the flywheel slice (ROADMAP.md queue 1, item 23)"),
-}
+DEFERRED = dict.fromkeys(("flight_log", "promote", "promote_noise"),
+                         "the flywheel slice (ROADMAP.md queue 1, item 23)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -151,6 +152,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "arena plane, steady-state allocations (arena: 0)")
     p.add_argument("--host-rounds", type=int, default=300,
                    help="host-path: measured full-bucket rounds per arm")
+    p.add_argument("--wire-requests", type=int, default=0, metavar="N",
+                   help="host-path: also run the socket arms (HTTP "
+                        "connection-per-request against framed "
+                        "keep-alive) with N measured requests each; the "
+                        "headline speedup becomes the wire ratio")
+    p.add_argument("--frontend-port", type=int, default=None,
+                   metavar="PORT",
+                   help="with --soak: run the asyncio front door on this "
+                        "port (0 = ephemeral) and self-check the wire "
+                        "contract after the soak (200 decide, graceful "
+                        "drain, typed late-submit refusal)")
     p.add_argument("--fleet", type=int, default=None, metavar="N",
                    help="replay the policy against N seeded clusters")
     p.add_argument("--fleet-regime", default=None, metavar="REGIME",
@@ -198,9 +210,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "config's fitted trace arrival process and "
                         "reports request conservation; needs "
                         "--engines >= 2")
-    # the JAX CLI's flags that later slices bring
-    p.add_argument("--frontend-port", type=int, default=None)
-    p.add_argument("--wire-requests", type=int, default=None)
+    # the JAX CLI's flags that a later slice brings
     p.add_argument("--flight-log", default=None, metavar="DIR")
     p.add_argument("--promote", default=None, metavar="CKPTDIR")
     p.add_argument("--promote-noise", type=float, default=None)
@@ -291,6 +301,16 @@ def _check(args) -> "tuple[tuple[int, ...] | None, list | None]":
                  "no-op)")
     if args.host_rounds <= 0:
         sys.exit("--host-rounds must be positive")
+    if args.wire_requests < 0:
+        sys.exit("--wire-requests must be >= 0")
+    if args.wire_requests and not args.host_path:
+        sys.exit("--wire-requests adds socket arms to --host-path; pass "
+                 "--host-path with it (refusing the silent no-op)")
+    if args.frontend_port is not None and args.soak is None:
+        sys.exit("--frontend-port runs the HTTP front door around --soak; "
+                 "pass --soak S with it (refusing the silent no-op)")
+    if args.frontend_port is not None and args.frontend_port < 0:
+        sys.exit("--frontend-port must be >= 0 (0 = ephemeral)")
     if args.pool_steps < 0:
         sys.exit("--pool-steps must be >= 0")
     if args.trace_spans and not args.obs_dir:
@@ -322,6 +342,11 @@ def main(argv: "list[str] | None" = None) -> dict:
                                    "hier": cfg.n_pods > 1})
     except ModeCombinationError as e:
         sys.exit(str(e))
+    if cfg.n_pods > 1 and (args.frontend_port is not None
+                           or args.wire_requests):
+        sys.exit("--frontend-port and --wire-requests serve one-array rows; "
+                 "a hierarchical config's dict requests are served in "
+                 "process only (--bench, --soak)")
     check_source_jobs(args, cfg)
     dev = resolve_device(args.device)
     env_params = build_env_params(cfg)
@@ -396,8 +421,11 @@ def main(argv: "list[str] | None" = None) -> dict:
                   f"recompiles: {b['post_warmup_recompiles']}",
                   file=sys.stderr)
         if args.soak is not None:
-            report["soak"] = _soak(args, cfg, engine, pool, registry,
-                                   tracer, bus, chaos_specs)
+            report["soak"], frontend = _soak(args, cfg, engine, pool,
+                                             registry, tracer, bus,
+                                             chaos_specs)
+            if frontend is not None:
+                report["frontend"] = frontend
         if args.scaleout:
             so = report["scaleout"] = run_scaleout(
                 policy, env_params, pool, max_bucket=args.bucket,
@@ -416,7 +444,8 @@ def main(argv: "list[str] | None" = None) -> dict:
                 print(f"scaleout caveat: {so['caveat']}", file=sys.stderr)
         if args.host_path:
             hp = report["host_path"] = run_host_path(
-                pool, max_bucket=args.bucket, rounds=args.host_rounds)
+                pool, max_bucket=args.bucket, rounds=args.host_rounds,
+                wire_requests=args.wire_requests)
             for arm in hp["arms"]:
                 print(f"host-path[{arm['data_plane']}]: "
                       f"{arm['decisions_per_s']:.0f} decisions/s, "
@@ -425,6 +454,16 @@ def main(argv: "list[str] | None" = None) -> dict:
                       f"conservation "
                       + ("ok" if arm["conservation_ok"] else "VIOLATED"),
                       file=sys.stderr)
+            for arm in hp.get("wire_arms", ()):
+                print(f"host-path[{arm['transport']}]: "
+                      f"{arm['decisions_per_s']:.0f} decisions/s over "
+                      f"{arm['clients']} clients, conservation "
+                      + ("ok" if arm["conservation_ok"] else "VIOLATED"),
+                      file=sys.stderr)
+            line = f"host-path speedup: {hp['speedup']:.2f}x"
+            if "wire_arms" in hp:
+                line += f" (wire; in-process {hp['speedup_inproc']:.2f}x)"
+            print(line, file=sys.stderr)
         if args.fleet is not None:
             windows, traces = fleet_windows(cfg, args.fleet, device=dev)
             faults = (sample_fleet_faults(cfg.n_nodes, args.fleet_regime,
@@ -468,10 +507,12 @@ def main(argv: "list[str] | None" = None) -> dict:
 
 
 def _soak(args, cfg, engine, pool, registry, tracer, bus,
-          chaos_specs) -> dict:
+          chaos_specs) -> "tuple[dict, dict | None]":
     """``--soak``: every bucket of every engine warmed, then paced load
     through one dispatcher thread per engine (the autoscale loop or the
-    chaos soak over a router)."""
+    chaos soak over a router), with ``--frontend-port`` the front door
+    open meanwhile; returns the soak's report and the front door's
+    self-check (None without it)."""
     from ..traces.fit import domain_fit
     obs0, mask0 = pool[0]
     engine.warmup(obs0, mask0)
@@ -484,7 +525,16 @@ def _soak(args, cfg, engine, pool, registry, tracer, bus,
     deadline_s = (args.deadline_ms / 1e3 if args.deadline_ms is not None
                   else None)
     server.start(dispatchers=args.engines)
+    fe_handle = None
+    frontend = None
     try:
+        if args.frontend_port is not None:
+            from .frontend import start_frontend
+            fe_handle = start_frontend(server, obs0, mask0,
+                                       port=args.frontend_port)
+            fe_handle.install_sigterm()
+            print(f"http front door: {fe_handle.url} (SIGTERM drains "
+                  f"gracefully)", file=sys.stderr)
         if chaos_specs is not None:
             soak = run_chaos_soak(
                 server, pool, fit=domain_fit(cfg), duration_s=args.soak,
@@ -496,8 +546,17 @@ def _soak(args, cfg, engine, pool, registry, tracer, bus,
                             else 200.0,
                             deadline_s=deadline_s, router=router,
                             advisor=advisor)
+        if fe_handle is not None:
+            frontend = _frontend_selfcheck(fe_handle, obs0, mask0)
     finally:
-        server.stop()
+        if fe_handle is not None:
+            fe_handle.close()       # the drain also closes the server
+        else:
+            server.stop()
+    if frontend is not None:
+        print(f"front door: decide {frontend['decide_status']}, late "
+              f"submit {frontend['late_submit']}, post-drain connect "
+              f"{frontend['post_drain_connect']}", file=sys.stderr)
     soak["post_warmup_recompiles"] = engine.post_warmup_recompiles
     soak["dispatch_errors"] = int(
         registry.counter("serve_dispatch_errors_total").value)
@@ -520,7 +579,48 @@ def _soak(args, cfg, engine, pool, registry, tracer, bus,
               f"readmissions {fs['readmissions']}, retry hedges "
               f"{fs['retry_hedges']}, conservation "
               + ("ok" if conserved else "VIOLATED"), file=sys.stderr)
-    return soak
+    return soak, frontend
+
+
+def _frontend_selfcheck(handle, obs0, mask0) -> dict:
+    """The wire contract on the live front door: one real POST decide
+    answers 200 with an action (no deadline attached, so a loaded server
+    still serves), then a graceful drain, after which a late submit gets
+    the typed :class:`.batching.ServerClosedError` and a new connection
+    is refused."""
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+
+    from .batching import ServerClosedError
+
+    body = (np.ascontiguousarray(obs0).tobytes()
+            + np.ascontiguousarray(mask0).tobytes())
+    req = urllib.request.Request(handle.url + "/v1/decide", data=body,
+                                 method="POST")
+    with urllib.request.urlopen(req, timeout=30) as resp:
+        decide_status = resp.status
+        payload = json.loads(resp.read().decode())
+    handle.drain()
+    try:
+        handle.frontend.server.submit(obs0, mask0)
+        late_submit = "accepted"          # a contract violation
+    except ServerClosedError:
+        late_submit = "server-closed"
+    try:
+        urllib.request.urlopen(
+            urllib.request.Request(handle.url + "/v1/decide", data=body,
+                                   method="POST"), timeout=5)
+        post_drain_connect = "accepted"   # a contract violation
+    except (urllib.error.URLError, ConnectionError):
+        post_drain_connect = "refused"
+    return {"url": handle.url, "port": handle.port,
+            "decide_status": decide_status,
+            "decide_has_action": "action" in payload,
+            "request_id": payload.get("request_id"),
+            "drained": True, "late_submit": late_submit,
+            "post_drain_connect": post_drain_connect}
 
 
 def _self_scrape(scraper) -> dict:

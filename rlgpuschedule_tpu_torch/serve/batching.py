@@ -1349,6 +1349,15 @@ class PolicyServer:
     def closed(self) -> bool:
         return self._closed
 
+    def queue_depth(self) -> int:
+        """Requests currently queued (the front door's backpressure
+        signal; sampled, so a momentarily stale value is fine)."""
+        if self.data_plane == "legacy":
+            with self._lock:
+                return len(self._pending)
+        ring = self._ring
+        return ring.depth if ring is not None else 0
+
     def service_time_s(self) -> "float | None":
         """The learned per-dispatch service time, ``None`` until the
         first dispatch (and after a fleet change)."""

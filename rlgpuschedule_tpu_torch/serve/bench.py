@@ -5,9 +5,9 @@ benches of the policy server.
 Counterparts of ``default_request_sizes``, ``build_request_pool``,
 ``run_bench``, ``run_scaleout``, ``run_soak`` (with the router's
 autoscale loop), ``fit_paced_gaps``, ``run_chaos_soak``, ``StubEngine``,
-``_AllocCounter`` and the in-process arms of ``run_host_path`` in the
-JAX package's ``serve/bench.py``. The socket arms of the host path wait
-for the network front door.
+``_AllocCounter``, ``_run_wire_arm`` and ``run_host_path`` (its
+in-process arms, and with ``wire_requests`` its two socket arms through
+the front door) in the JAX package's ``serve/bench.py``.
 
 Requests are real observations: the pool is built by resetting the
 config's env windows and stepping them a few decisions under the greedy
@@ -512,16 +512,127 @@ class _AllocCounter:
         return False
 
 
+# the wire arms' concurrent client threads (enough to keep the batcher
+# fed so dispatches coalesce), and their warm-up requests in all
+WIRE_CLIENTS = 8
+WIRE_WARMUP = 64
+
+
+def _run_wire_arm(pool: "list[tuple]", *, bucket: int, framed: bool,
+                  n_requests: int) -> dict:
+    """One transport arm over a LIVE stack (a dispatcher thread, the
+    asyncio front door and real sockets): one HTTP connection per
+    request over the legacy plane, or one framed keep-alive connection
+    per client over the arena. ``WIRE_CLIENTS`` concurrent client
+    threads keep the batcher fed so dispatches coalesce. Clients and server
+    share one interpreter, so the number is the whole host path, the
+    wire parse included."""
+    import socket
+    import threading
+
+    from . import wire
+    from .frontend import start_frontend
+
+    plane = "arena" if framed else "legacy"
+    obs0, mask0 = pool[0]
+    reg = Registry()
+    engine = StubEngine(bucket)
+    server = PolicyServer(engine, registry=reg, data_plane=plane,
+                          example_obs=obs0, example_mask=mask0)
+    server.start(dispatchers=1)
+    handle = start_frontend(server, obs0, mask0, registry=reg)
+    addr = ("127.0.0.1", handle.port)
+    clients = WIRE_CLIENTS
+    per_client = max(n_requests // clients, 1)
+    warm_per_client = max(WIRE_WARMUP // clients, 1)
+    ok = [0] * clients
+    barrier = threading.Barrier(clients + 1)
+
+    def http_request(obs, mask):
+        body = (np.ascontiguousarray(obs).tobytes()
+                + np.ascontiguousarray(mask).tobytes())
+        return (f"POST /v1/decide HTTP/1.1\r\nHost: bench\r\n"
+                f"Content-Length: {len(body)}\r\n"
+                f"Connection: close\r\n\r\n").encode() + body
+
+    def run_http(k: int) -> None:
+        req = http_request(*pool[k % len(pool)])
+        for phase, n in (("warm", warm_per_client),
+                         ("measure", per_client)):
+            if phase == "measure":
+                barrier.wait()
+            for _ in range(n):
+                with socket.create_connection(addr) as s:
+                    s.sendall(req)
+                    buf = b""
+                    while True:         # Connection: close -> read to EOF
+                        c = s.recv(65536)
+                        if not c:
+                            break
+                        buf += c
+                if phase == "measure" and buf.startswith(b"HTTP/1.1 200"):
+                    ok[k] += 1
+
+    def run_framed(k: int) -> None:
+        frame = wire.pack_request(*pool[k % len(pool)])
+        with socket.create_connection(addr) as s:
+            for phase, n in (("warm", warm_per_client),
+                             ("measure", per_client)):
+                if phase == "measure":
+                    barrier.wait()
+                for _ in range(n):
+                    s.sendall(frame)
+                    kind = wire.recv_frame(s)[0]
+                    if phase == "measure" and kind == wire.KIND_RESP:
+                        ok[k] += 1
+
+    target = run_framed if framed else run_http
+    threads = [threading.Thread(target=target, args=(k,), daemon=True)
+               for k in range(clients)]
+    try:
+        for t in threads:
+            t.start()
+        barrier.wait(timeout=120)
+        t0 = time.perf_counter()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        occupancy = reg.gauge("serve_batch_occupancy").value
+    finally:
+        handle.close()
+    served = sum(ok)
+    return {
+        "transport": ("framed keep-alive" if framed
+                      else "http connection-per-request"),
+        "data_plane": plane,
+        "clients": clients,
+        "requests": per_client * clients,
+        "served": served,
+        "conservation_ok": served == per_client * clients,
+        "decisions_per_s": served / wall,
+        "wall_s": wall,
+        "last_batch_occupancy": float(occupancy),
+        "post_warmup_recompiles": engine.post_warmup_recompiles,
+    }
+
+
 def run_host_path(pool: "list[tuple]", *,
                   max_bucket: int = 8, rounds: int = 300,
-                  warmup_rounds: int = 12) -> dict:
+                  warmup_rounds: int = 12, wire_requests: int = 0) -> dict:
     """Host-path decisions/s of the two data planes: one in-process arm
     per plane (fresh registry, :class:`StubEngine` and server,
     inline-pumped so every dispatch is exactly ``max_bucket`` rows), the
     same request stream. The measured window wraps the numpy batch
     constructors (:class:`_AllocCounter`): the legacy arm's count is the
     per-batch churn, the arena arm's must be 0, and the arena's slab
-    counter must stay flat."""
+    counter must stay flat.
+
+    With ``wire_requests > 0`` two more arms measure the whole data
+    plane through real sockets (:func:`_run_wire_arm`): one HTTP
+    connection per request over the legacy plane against framed
+    keep-alive connections over the arena, ``WIRE_CLIENTS`` client
+    threads each. The headline ``speedup`` is then the wire arms' ratio, the
+    in-process one kept as ``speedup_inproc``."""
     if rounds <= 0 or warmup_rounds < 1:
         raise ValueError(f"need rounds > 0 and warmup_rounds >= 1, got "
                          f"{rounds} / {warmup_rounds}")
@@ -599,4 +710,13 @@ def run_host_path(pool: "list[tuple]", *,
     out["speedup_inproc"] = (arms["arena"]["decisions_per_s"] / base
                              if base > 0 else None)
     out["speedup"] = out["speedup_inproc"]
+    if wire_requests > 0:
+        before = _run_wire_arm(pool, bucket=bucket, framed=False,
+                               n_requests=wire_requests)
+        after = _run_wire_arm(pool, bucket=bucket, framed=True,
+                              n_requests=wire_requests)
+        out["wire_arms"] = [before, after]
+        base = before["decisions_per_s"]
+        out["speedup"] = (after["decisions_per_s"] / base
+                          if base > 0 else None)
     return out

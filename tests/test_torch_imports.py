@@ -380,3 +380,45 @@ def test_the_chaos_and_domain_slice_has_its_pieces():
                 assert getattr(m, n).__module__ == m.__name__, (mod, n)
     finally:
         sys.path.remove(ROOT)
+
+
+def test_importing_the_front_door_and_post_mortem_leaves_jax_out():
+    _leaves_jax_out(("serve.wire", "serve.frontend", "serve.bench",
+                     "serve.__main__", "obs.skew", "obs.report",
+                     "obs.trace"))
+
+
+def test_the_front_door_and_post_mortem_slice_has_its_pieces():
+    """The wire framing, the front door, the clock-skew merge, the
+    post-mortem and the span readers are the port's own code."""
+    import importlib
+    sys.path.insert(0, ROOT)
+    try:
+        names = {os.path.relpath(p, ROOT) for p in _port_files()}
+        for f in ("serve/wire.py", "serve/frontend.py", "obs/skew.py",
+                  "obs/report.py"):
+            assert f"rlgpuschedule_tpu_torch/{f}" in names, f
+        for mod, names in {
+                "serve.wire": ("WireError", "descriptor", "pack_frame",
+                               "unpack_prefix", "pack_request",
+                               "pack_response", "pack_error", "recv_frame",
+                               "unpack_action"),
+                "serve.frontend": ("ServeFrontend", "FrontendHandle",
+                                   "start_frontend"),
+                "serve.bench": ("_run_wire_arm", "run_host_path"),
+                "serve.__main__": ("_frontend_selfcheck",),
+                "obs.skew": ("stamp", "RankSkew", "learn_offsets",
+                             "correct_events", "merge_dir_corrected"),
+                "obs.report": ("build_report", "build_request_report",
+                               "format_request_report", "format_report",
+                               "main"),
+                "obs.trace": ("tracer_of", "build_span_tree",
+                              "async_overlap_summary",
+                              "to_chrome_trace")}.items():
+            m = importlib.import_module(f"rlgpuschedule_tpu_torch.{mod}")
+            for n in names:
+                assert getattr(m, n).__module__ == m.__name__, (mod, n)
+        from rlgpuschedule_tpu_torch.serve import PolicyServer
+        assert callable(PolicyServer.queue_depth)
+    finally:
+        sys.path.remove(ROOT)

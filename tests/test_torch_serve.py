@@ -209,8 +209,6 @@ def test_serve_cli_serves_jax_weights_from_npz(tmp_path):
 
 
 DEFERRED_FLAGS = [
-    (["--frontend-port", "0"], "item 22"), (["--wire-requests", "8"],
-                                            "item 22"),
     (["--flight-log", "d"], "item 23"), (["--promote", "d"], "item 23"),
     (["--promote-noise", "0.1"], "item 23")]
 
@@ -245,6 +243,62 @@ def test_serve_cli_refuses_what_the_slice_lacks():
     with pytest.raises(jconfigs.ModeCombinationError) as want:
         jconfigs.validate_mode_combination({"router": True, "hier": True})
     assert p.returncode != 0 and str(want.value) in p.stderr
+
+
+def test_serve_cli_runs_the_front_door_around_a_soak(tmp_path):
+    """``serve --soak 1 --frontend-port 0 --obs-dir D --trace-spans``: the
+    self-check's decide answers 200, the drain refuses a late submit with
+    the typed error and new connections; the post-mortem then rebuilds
+    the self-check request's timeline from D, and the run is clean."""
+    d = str(tmp_path / "obs")
+    p = _run(["-m", "rlgpuschedule_tpu_torch.serve", "--config",
+              "ppo-mlp-synth64", "--soak", "1", "--frontend-port", "0",
+              "--device", "cpu", "--obs-dir", d, "--trace-spans"])
+    assert p.returncode == 0, p.stderr
+    rep = json.loads(p.stdout.strip().splitlines()[-1])
+    fe = rep["frontend"]
+    assert (fe["decide_status"], fe["decide_has_action"], fe["late_submit"],
+            fe["post_drain_connect"]) == (200, True, "server-closed",
+                                          "refused")
+    assert rep["soak"]["requests"] == rep["soak"]["served"] + \
+        rep["soak"]["shed"]
+    p = _run(["-m", "rlgpuschedule_tpu_torch.obs.report", d, "--request",
+              str(fe["request_id"]), "--json"])
+    assert p.returncode == 0, p.stderr
+    stages = [s["stage"] for s in json.loads(p.stdout)["stages"]]
+    assert stages == ["enqueue", "served"]
+    p = _run(["-m", "rlgpuschedule_tpu_torch.obs.report", d,
+              "--strict-alarms"])
+    assert p.returncode == 0, p.stdout + p.stderr
+
+
+def test_serve_cli_runs_the_wire_arms_of_the_host_path():
+    """``serve --host-path --wire-requests 64``: both socket arms serve
+    every request, beside the in-process arms (the arena's allocations
+    0); the flags' silent no-ops are refused."""
+    p = _run(["-m", "rlgpuschedule_tpu_torch.serve", "--config",
+              "ppo-mlp-synth64", "--host-path", "--wire-requests", "64",
+              "--host-rounds", "20", "--device", "cpu"])
+    assert p.returncode == 0, p.stderr
+    hp = json.loads(p.stdout.strip().splitlines()[-1])["host_path"]
+    legacy, arena = hp["arms"]
+    assert arena["alloc_calls"] == 0 and arena["conservation_ok"]
+    http, framed = hp["wire_arms"]
+    assert (http["data_plane"], framed["data_plane"]) == ("legacy", "arena")
+    for arm in (http, framed):
+        assert arm["conservation_ok"] and arm["served"] == 64
+        assert arm["decisions_per_s"] > 0
+    assert hp["speedup"] == framed["decisions_per_s"] / \
+        http["decisions_per_s"]
+    for argv in (["--bench", "--wire-requests", "8"],
+                 ["--bench", "--frontend-port", "0"],
+                 ["--host-path", "--wire-requests", "-1"],
+                 ["--soak", "1", "--frontend-port", "-1"],
+                 ["--config", "hier-pbt-member", "--soak", "1",
+                  "--frontend-port", "0"]):
+        with pytest.raises(SystemExit) as e:
+            serve_cli.main(argv + ["--device", "cpu"])
+        assert e.value.code and "--" in str(e.value.code)
 
 
 @pytest.mark.parametrize("name", ["gnn-gang-place", "ppo-mlp-preempt"])
