@@ -160,7 +160,7 @@ imports nothing of JAX. Phases, each fatal on failure:
 15. ``ppo-mlp-synth64`` at its preset on the drain curriculum
     (``drain_frac=1.0``): 6 iterations, a checkpoint every 2, 3 kept;
     ``python -m rlgpuschedule_tpu_torch.select_checkpoint`` ranks them
-    by full-trace avg JCT over Tiresias on a 256-job seed-2000
+    by full-trace avg JCT over Tiresias on a 128-job seed-2000
     validation stream (the reference's default is 1,024 jobs); the
     chosen step's ``full_trace_report`` over a 256-job seed-123 stream
     (``drain_completions=8``), every row finite; and that stitched
@@ -217,13 +217,13 @@ imports nothing of JAX. Phases, each fatal on failure:
     ``Experiment``: a warm-up and 3 timed iterations (env-steps/s), a
     32-step rollout under ``torch.profiler`` (device ops per rollout
     step, idle share), finite losses. A ``PopulationExperiment``
-    of 4 members exploiting every 2 iterations: 3 iterations, a
-    checkpoint (bytes, save ms), 2 more, a snapshot, 1 more; at least one
+    of 4 members exploiting every 2 iterations: 2 iterations, a
+    checkpoint (bytes, save ms), 1 more, a snapshot, 1 more; at least one
     PBT round, finite fitness, every member exploited in the last round
     holding its source's parameters (the ms of the exploit's weight
     copy printed, and the env-steps/s over ``T*E*P`` per iteration); a
-    fresh population restored from the checkpoint (restore ms) and run 2
-    iterations must equal the snapshot bit for bit (parameters, Adam
+    fresh population restored from the checkpoint (restore ms) and run 1
+    iteration must equal the snapshot bit for bit (parameters, Adam
     state, carries, generators, hyperparameters, decisions). Then the
     fittest member's ``jct_report`` on 16 held-out windows (seed
     ``cfg.seed + 1000``) against FIFO, SJF, SRTF and Tiresias, every row
@@ -267,7 +267,7 @@ imports nothing of JAX. Phases, each fatal on failure:
     (what ``serve --fleet-regime storm`` runs), each profiled (device
     ops per step, idle share); then ``eval.replay`` under a ``mixed``
     ``DomainSchedule`` over 512 windows from ``make_domain_windows``.
-    For each schedule the first 16 clusters replay on the card with the
+    For each schedule the first 8 clusters replay on the card with the
     policy and on the CPU with the card's actions fed back: the final
     states, the per-job JCTs and every ``EvalResult`` field must be
     bit-identical, but ``avg_jct`` (an f32 sum whose order differs
@@ -288,7 +288,7 @@ imports nothing of JAX. Phases, each fatal on failure:
     sync guard on in every dispatch) and ``start_frontend(port=0)``.
     Every row of a 320-row pool is first served in process
     (``submit``, inline pump); then 8 HTTP keep-alive clients and 8
-    framed clients, one process each, send 2,000 requests each over
+    framed clients, one process each, send 1,000 requests each over
     real sockets, each with its own request id: every reply echoes its
     id, and every action equals the in-process one for its row, but at
     a top-two margin below 1e-4 (the flips counted and printed);
@@ -305,13 +305,39 @@ imports nothing of JAX. Phases, each fatal on failure:
     high-water mark of 8 with no dispatcher pause the reads, and all 32
     answer 200 once it starts. In subprocesses: ``serve --config
     ppo-cnn-philly512 --bucket 256 --soak 4 --frontend-port 0 --obs-dir
-    D --trace-spans --host-path --wire-requests 2000`` (self-check 200,
+    D --trace-spans --host-path --wire-requests 1000`` (self-check 200,
     ``server-closed``, ``refused``; then both wire arms' decisions/s,
     the arena arm's allocations 0), then ``python -m
     rlgpuschedule_tpu_torch.obs.report D --request ID --json`` for the
     self-check's id (stages ``enqueue`` then ``served``) and
     ``--strict-alarms`` (exit 0). Every line carries the card's name and
     power limit.
+23. The data flywheel (each check fatal): config 2 at full width (bf16,
+    seeded weights, phase 22's 320-row pool). (1) A plain and a capture
+    ``InferenceEngine`` warmed to bucket 256: graph ``decide`` p50 of
+    each at phase 4's sizes of buckets 16 and 256; the capture graph's
+    actions equal the plain graph's at every size, and its log-prob and
+    value against ``policy_decision_full`` on the CPU copy of the policy
+    hold phase 17's bf16 band (``|mean ratio - 1|`` and the value's
+    largest relative difference within 5e-2). (2) Two 4 s soaks at
+    2,000 requests/s (50 ms deadlines) through the capture engine, one
+    without a flight log and one with the durable log (512-row shards,
+    fsync), its writer on the dispatcher thread under the sync guard:
+    decisions/s, p99 halves and shed of each; ``rows_logged == served``,
+    the crc-verified reload holds every row with a unique request id, 0
+    dispatch errors and recompiles, the sync-debug mode back at 0. (3)
+    ``run_continual`` over that log for 2 learn steps, the learner
+    starting from the served weights (saved first as step 0): 0 shards
+    refused, every shard's ``|rho_mean - 1|`` within 5e-2, the loss
+    finite. (4) The incumbent's replay of the logged window: every row
+    it decides otherwise than the log has a top-two margin below 1e-4
+    (the disagreements and near ties printed). (5) ``python -m
+    rlgpuschedule_tpu_torch.serve --flight-log D --durable-log
+    --promote-noise 0.5`` is blocked, then ``--promote CKPTDIR
+    --promote-fault`` (the retrained candidate if the canary passes it,
+    else the served weights' step 0) promotes with 0 swap recompiles,
+    rolls back on the injected p99 breach with the probe bit for bit, and
+    the ledger reads ``blocked, promote, rollback``.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it is the card's name and power limit. Without a CUDA device, or
@@ -361,7 +387,7 @@ CKPT_DRAIN, CKPT_RESAMPLE, CKPT_ITERS = 0.5, 2, 4   # phase 14
 CKPT_FLEET = 64           # serve --ckpt-dir --fleet 64
 CKPT_COMPARE_FROM = 2     # phase 14 replays windows 2-5: 2 of each kind
 SELECT_ITERS = 6          # phase 15: 3 checkpoints kept, one every 2
-SELECT_VAL_JOBS, SELECT_TEST_SEED, SELECT_TEST_JOBS = 256, 123, 256
+SELECT_VAL_JOBS, SELECT_TEST_SEED, SELECT_TEST_JOBS = 128, 123, 256
 SELECT_STITCH_DRAIN = 8
 FAIR_CONFIG = "a2c-pai-fair"
 FAIR_TIMED = 20           # phase 16: timed A2C iterations after a warm-up
@@ -377,8 +403,8 @@ HIER_TIMED = 3            # phase 19: timed iterations after a warm-up
 HIER_PROFILE_STEPS = 32   # phase 19's profiled rollout
 HIER_POP = 4              # phase 19's population
 HIER_READY = 2            # its exploit/explore cadence
-HIER_POP_ITERS = 6
-HIER_RESUME = (3, 2)      # 3 iterations, a save, 2 more against 5
+HIER_POP_ITERS = 4
+HIER_RESUME = (2, 1)      # 2 iterations, a save, 1 more against 3
 HIER_WINDOWS = 16         # phase 19's held-out JCT table
 ROUTER_SIZES = (129, 200, 256)  # phase 20's scale-out request sizes
 ROUTER_ROUNDS = 64
@@ -389,12 +415,19 @@ CHAOS_FAULTS = ("engine-raise@20:engine=1,engine-hang@60:engine=1,"
                 "engine-slow@100:engine=1")
 HIER_SERVE_SIZES = (5, 17, 32)
 HIER_SERVE_SEEDS = 8      # phase 20 (5): seeds tried for weights that route
-CHAOS_COMPARE = 16        # phase 21: clusters replayed card against CPU
+CHAOS_COMPARE = 8         # phase 21: clusters replayed card against CPU
 CHAOS_TRAIN_ITERS = 4     # phase 21: config-1 train CLI runs
 FRONTEND_CLIENTS = 8      # phase 22: clients of each dialect
-FRONTEND_REQUESTS = 2000  # phase 22: requests each client sends
+FRONTEND_REQUESTS = 1000  # phase 22: requests each client sends
 FRONTEND_DRAIN_BOUND_S = 10.0   # phase 22: the drain's bound
-FRONTEND_WIRE_REQUESTS = 2000   # phase 22: serve --wire-requests
+FRONTEND_WIRE_REQUESTS = 1000   # phase 22: serve --wire-requests
+FLY_SOAK_S, FLY_RATE, FLY_DEADLINE_S = 4.0, 2000.0, 0.05   # phase 23
+FLY_CAPACITY = 512        # phase 23: flight-log rows per shard
+FLY_ITERS = 2             # phase 23: continual learn steps
+# phase 23: the soak arms in run order, each twice more after its first
+# place (A B B A A B), so neither arm always runs first
+FLY_ARMS = ("no_log", "durable_log", "durable_log", "no_log", "no_log",
+            "durable_log")
 ROWS = ("policy", "random", "fifo", "sjf", "srtf", "tiresias")
 BASELINES = ("fifo", "sjf", "srtf", "tiresias")
 
@@ -2678,8 +2711,8 @@ def hier_pbt_phase(torch, dev):
         del exp
 
         # 3. the PBT population; 4. its checkpoint and a bit-for-bit
-        # resume (3 iterations, a save, 2 more, against a fresh build
-        # restored from the save and run 2)
+        # resume (2 iterations, a save, 1 more, against a fresh build
+        # restored from the save and run 1)
         pbt_cfg = PBTConfig(ready_iters=HIER_READY, seed=cfg.seed)
         build = lambda: PopulationExperiment.build(
             cfg, n_pop=HIER_POP, pbt_cfg=pbt_cfg, device=dev)
@@ -2794,6 +2827,13 @@ def hier_pbt_phase(torch, dev):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _top2_margin(torch, logits):
+    """The gap between the two largest logits of each row, on the host
+    (the near-tie rule's measure)."""
+    top2 = torch.topk(logits.float(), 2, -1).values.cpu().numpy()
+    return top2[..., 0] - top2[..., 1]
+
+
 def _margin_ok(torch, got, want, logits, what):
     """Per head, actions that differ must sit below ``MARGIN`` of the
     reference's top-two logits (phase 3's rule). Returns the count of
@@ -2805,8 +2845,7 @@ def _margin_ok(torch, got, want, logits, what):
         g = got[k] if k is not None else got
         w = want[k] if k is not None else want
         lg = logits[k] if k is not None else logits
-        top2 = torch.topk(lg.float(), 2, -1).values.cpu().numpy()
-        margin = (top2[..., 0] - top2[..., 1])[:g.shape[0]]
+        margin = _top2_margin(torch, lg)[:g.shape[0]]
         diff = np.asarray(g) != np.asarray(w)
         if (diff & (margin >= MARGIN)).any():
             raise SystemExit(f"{what}: head {k} differs at a margin >= "
@@ -3752,6 +3791,287 @@ def frontend_phase(torch, dev):
         raise SystemExit(f"serve --host-path --wire-requests: {hp}")
 
 
+def flywheel_phase(torch, dev):
+    """Phase 23: the data flywheel over config 2 on the card."""
+    import copy
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from rlgpuschedule_tpu_torch.algos.action_dist import log_prob
+    from rlgpuschedule_tpu_torch.checkpoint import Checkpointer
+    from rlgpuschedule_tpu_torch.configs import CONFIGS
+    from rlgpuschedule_tpu_torch.experiment import (Experiment,
+                                                    build_env_params,
+                                                    build_policy)
+    from rlgpuschedule_tpu_torch.flywheel import (FlightLogWriter,
+                                                  read_flight_log,
+                                                  read_ledger,
+                                                  replay_decisions,
+                                                  run_continual)
+    from rlgpuschedule_tpu_torch.obs import Registry
+    from rlgpuschedule_tpu_torch.serve import (InferenceEngine, PolicyServer,
+                                               build_request_pool, run_soak)
+    from rlgpuschedule_tpu_torch.serve.fleet import fleet_windows
+
+    smi = _nvidia_smi()
+    t_phase = time.perf_counter()
+    cfg = CONFIGS[CONFIG]
+    env_params = build_env_params(cfg)
+    policy = build_policy(cfg, env_params, device=dev)
+    _, traces = fleet_windows(cfg, 64, device=dev)
+    pool = build_request_pool(policy, env_params, traces, steps=4)
+    del traces
+    obs = np.stack([o for o, _ in pool])
+    mask = np.stack([m for _, m in pool])
+    band = RHO_BAND["bfloat16"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_flywheel_")
+    try:
+        # (1) the capture graph against the plain one, bucket by bucket:
+        # the same actions; its log-prob and value against the plain
+        # PyTorch rule on the CPU (the ratio band of phase 17)
+        plain = InferenceEngine(policy, max_bucket=256, device=dev,
+                                strict=True)
+        cap = InferenceEngine(policy, max_bucket=256, device=dev,
+                              strict=True, capture=True)
+        plain.warmup(obs[0], mask[0])
+        cap.warmup(obs[0], mask[0])
+        lat = {}
+        for bucket, sizes in BUCKETS.items():
+            for name, eng in (("plain", plain), ("capture", cap)):
+                ts = []
+                for r in range(LATENCY_REPS):
+                    for k in sizes:
+                        rows = (np.arange(k) * 7 + r) % len(pool)
+                        t0 = time.perf_counter()
+                        eng.decide(obs[rows], mask[rows])
+                        ts.append((time.perf_counter() - t0) * 1e3)
+                lat[f"{name}_p50_ms_{bucket}"] = float(np.percentile(ts, 50))
+        cpu = copy.deepcopy(policy).to("cpu")
+        rho_dev, v_dev, compared = 0.0, 0.0, 0
+        for bucket, sizes in BUCKETS.items():
+            for k in sizes:
+                rows = np.arange(k) * 7 % len(pool)
+                a_p, _ = plain.decide(obs[rows], mask[rows])
+                (a_c, lp_c, v_c), b = cap.decide(obs[rows], mask[rows])
+                if b != bucket or not np.array_equal(a_p, a_c):
+                    raise SystemExit(f"capture at {k} rows (bucket {b}): "
+                                     f"its actions differ from the plain "
+                                     f"graph's")
+                with torch.no_grad():
+                    logits, value = cpu(torch.from_numpy(obs[rows]),
+                                        torch.from_numpy(mask[rows]))
+                    lp_ref = log_prob(logits, torch.from_numpy(a_c))
+                rho = np.exp(lp_c.astype(np.float64)
+                             - lp_ref.double().numpy())
+                v_ref = value.double().numpy()
+                rho_dev = max(rho_dev, abs(float(rho.mean()) - 1.0))
+                v_dev = max(v_dev, float(np.abs(v_c - v_ref).max())
+                            / max(1.0, float(np.abs(v_ref).max())))
+                compared += k
+        del cpu
+        _line("flywheel_capture", card=smi, config=CONFIG,
+              elapsed_s=time.perf_counter() - t_phase, **lat,
+              rows_compared=compared, actions_equal=True,
+              capture_vs_cpu_max_abs_rho_mean_minus_1=rho_dev,
+              capture_vs_cpu_value_max_rel_diff=v_dev, band=band,
+              recompiles=[plain.post_warmup_recompiles,
+                          cap.post_warmup_recompiles])
+        if rho_dev > band or v_dev > band:
+            raise SystemExit(f"capture against the CPU: rho {rho_dev}, "
+                             f"value {v_dev} leave the band {band}")
+
+        # (2) the same soak without the flight log and with the durable
+        # one, through the capture engine (the sync guard on in every
+        # dispatch, the writer on the dispatcher thread), in FLY_ARMS'
+        # order; each durable log is reloaded crc-verified, and the first
+        # one feeds the rest of the phase
+        runs = {"no_log": [], "durable_log": []}
+        for i, arm in enumerate(FLY_ARMS):
+            reg = Registry()
+            flog = os.path.join(tmp, f"flog{i}")
+            writer = (FlightLogWriter(flog, capacity=FLY_CAPACITY,
+                                      registry=reg, durable=True)
+                      if arm == "durable_log" else None)
+            server = PolicyServer(cap, registry=reg, flight_log=writer)
+            server.start()
+            try:
+                sk = run_soak(server, pool, duration_s=FLY_SOAK_S,
+                              rate_hz=FLY_RATE, deadline_s=FLY_DEADLINE_S)
+            finally:
+                server.close()
+            sk["dispatch_errors"] = int(
+                reg.counter("serve_dispatch_errors_total").value)
+            sk["decisions_per_s"] = sk["served"] / sk["duration_s"]
+            if writer is not None:
+                writer.close()
+                data = read_flight_log(flog)
+                rids = np.concatenate([s.req_id for s in data.shards])
+                sk.update(log=flog, rows_logged=writer.rows_logged,
+                          shards_sealed=writer.shards_sealed,
+                          reloaded_rows=data.rows, torn_tail=data.torn_tail,
+                          unique_req_ids=int(np.unique(rids).size))
+                if (writer.rows_logged != sk["served"]
+                        or data.rows != sk["served"] or data.torn_tail
+                        or np.unique(rids).size != data.rows
+                        or (rids == 0).any()):
+                    raise SystemExit(f"flight log: {sk}")
+            runs[arm].append(sk)
+        first = runs["durable_log"][0]
+        flog = first["log"]
+        for sk in runs["durable_log"][1:]:
+            shutil.rmtree(sk["log"])
+        data = read_flight_log(flog)
+        per_arm = ("requests", "served", "shed", "decisions_per_s",
+                   "p99_first_half_ms", "p99_second_half_ms")
+        _line("flywheel_soak", card=smi, config=CONFIG, rate_hz=FLY_RATE,
+              duration_s=FLY_SOAK_S, deadline_ms=FLY_DEADLINE_S * 1e3,
+              elapsed_s=time.perf_counter() - t_phase, order=FLY_ARMS,
+              **{f"{arm}_{k}": [sk[k] for sk in sks]
+                 for arm, sks in runs.items()
+                 for k in per_arm + ("dispatch_errors",)},
+              **{f"{arm}_median_{k}": float(np.median([sk[k] for sk in sks]))
+                 for arm, sks in runs.items() for k in per_arm},
+              rows_logged=[sk["rows_logged"] for sk in runs["durable_log"]],
+              shards_sealed=[sk["shards_sealed"]
+                             for sk in runs["durable_log"]],
+              reloaded_rows=[sk["reloaded_rows"]
+                             for sk in runs["durable_log"]],
+              unique_req_ids=[sk["unique_req_ids"]
+                              for sk in runs["durable_log"]],
+              sync_debug_mode_after=torch.cuda.get_sync_debug_mode())
+        if (any(sk["dispatch_errors"] for sks in runs.values()
+                for sk in sks)
+                or cap.post_warmup_recompiles
+                or torch.cuda.get_sync_debug_mode() != 0):
+            raise SystemExit(f"soaks: {runs}")
+
+        # (3) train --continual's loop on the logged traffic, the
+        # learner starting from the served weights
+        exp = Experiment.build(cfg, device=dev)
+        exp.net.load_state_dict(policy.state_dict())
+        cand_dir = os.path.join(tmp, "cand")
+        with Checkpointer(cand_dir, max_to_keep=FLY_ITERS) as ck:
+            t0 = _sync(torch)
+            cont = run_continual(exp, flog, iterations=FLY_ITERS,
+                                 registry=Registry(), ckpt=ck)
+            cont_s = _sync(torch) - t0
+        means = [s["rho_mean"] for s in cont["per_shard"]]
+        rho_mean_dev = max(abs(m - 1.0) for m in means)
+        _line("flywheel_continual", card=smi, config=CONFIG,
+              elapsed_s=time.perf_counter() - t_phase, wall_s=cont_s,
+              iterations=FLY_ITERS, shards_seen=cont["shards_seen"],
+              shards_refused=cont["shards_refused"],
+              rows_trained=cont["rows_trained"],
+              pseudo_steps=cont["pseudo_steps"],
+              final_step=cont["final_step"],
+              max_abs_shard_rho_mean_minus_1=rho_mean_dev,
+              max_shard_rho_max=max(s["rho_max"]
+                                    for s in cont["per_shard"]),
+              rho_mean_trained=cont["rho_mean_trained"],
+              rho_max_trained=cont["rho_max_trained"],
+              total_loss=cont["total_loss"], band=band)
+        if (cont["shards_refused"] or rho_mean_dev > band
+                or not _finite(cont["total_loss"])):
+            raise SystemExit(f"continual: {cont}")
+
+        # (4) the canary's incumbent replay of the logged window: a row
+        # it decides differently from the log must be a near tie. Every
+        # logged row is a pool row, so the margins are the pool's
+        window = data.concat()
+        acts = window.act_leaves[0]
+        at = {(o.tobytes(), m.tobytes()): i for i, (o, m) in enumerate(pool)}
+        idx = np.array([at[o.tobytes(), m.tobytes()] for o, m in
+                        zip(window.obs_leaves[0], window.mask_leaves[0])])
+        obs_d, mask_d = torch.from_numpy(obs).to(dev), torch.from_numpy(
+            mask).to(dev)
+        with torch.no_grad():
+            inc_margin = _top2_margin(torch, policy(obs_d, mask_d)[0])
+            cand_margin = _top2_margin(torch, exp.net(obs_d, mask_d)[0])
+        margin = inc_margin[idx]
+        inc = replay_decisions(policy, policy.state_dict(),
+                               window.obs_leaves[0], window.mask_leaves[0],
+                               window.stall, env_params)[0]
+        diff = inc != acts
+        if (diff & (margin >= MARGIN)).any():
+            raise SystemExit(f"canary: the incumbent replay differs from "
+                             f"the log at a margin >= {MARGIN}")
+        # what the retrain did to the seeded policy: its decisions, the
+        # logits' top-two margins and the policy head's move, against the
+        # log's outcome mix (the reward: +1, -1 when late)
+        cnd = replay_decisions(policy, exp.net.state_dict(),
+                               window.obs_leaves[0], window.mask_leaves[0],
+                               window.stall, env_params)[0]
+        n_act = int(mask.shape[-1])
+        share = lambda a, n: (np.bincount(a, minlength=n) / a.size).tolist()
+        inc_sd, cand_sd = policy.state_dict(), exp.net.state_dict()
+        head = [k for k in inc_sd if k.startswith("policy.")]
+        head_norm = lambda sd: float(torch.sqrt(sum(
+            (sd[k].float() ** 2).sum() for k in head)))
+        head_move = float(torch.sqrt(sum(
+            ((cand_sd[k].float() - inc_sd[k].float()) ** 2).sum()
+            for k in head)))
+        del exp
+
+        # (5) the serve CLI: a regressed candidate blocked, then the
+        # retrained one promoted (the gate loosened, still run and
+        # recorded), watched, rolled back by an injected fault
+        base = ["--config", CONFIG, "--bucket", "256", "--flight-log", flog,
+                "--durable-log"]
+        lines, _, blk_wall = _run_cli("rlgpuschedule_tpu_torch.serve",
+                                      base + ["--promote-noise", "0.5"])
+        blk = lines[-1]["promote"]
+        lines, _, pro_wall = _run_cli(
+            "rlgpuschedule_tpu_torch.serve",
+            base + ["--promote", cand_dir, "--canary-tol", "1.0",
+                    "--promote-fault"])
+        pro = lines[-1]["promote"]
+        sealed, tail = read_ledger(flog)
+        actions = [e["action"] for e in sealed]
+        _line("flywheel_promotion", card=smi, config=CONFIG,
+              elapsed_s=time.perf_counter() - t_phase,
+              window_rows=window.rows, incumbent_disagreements=int(
+                  diff.sum()), near_tie_rows=int((margin < MARGIN).sum()),
+              outcome_share=share(window.outcome.astype(np.int64), 3),
+              log_action_share=share(acts.astype(np.int64), n_act),
+              retrained_action_share=share(cnd.astype(np.int64), n_act),
+              retrained_log_agreement=float((cnd == acts).mean()),
+              pool_median_margin=[float(np.median(inc_margin)),
+                                  float(np.median(cand_margin))],
+              policy_head_norm=head_norm(inc_sd),
+              policy_head_move=head_move,
+              blocked_verdict=blk["verdict"],
+              blocked_candidate_agreement=blk["canary"][
+                  "candidate_agreement"],
+              blocked_streak=blk["canary"]["max_regress_streak"],
+              blocked_cli_wall_s=blk_wall, promoted_candidate=pro[
+                  "candidate"], promoted=pro["promoted"],
+              promoted_candidate_agreement=pro["canary"][
+                  "candidate_agreement"],
+              probe_rows_changed=pro.get("probe_rows_changed"),
+              swap_recompiles=pro.get("swap_recompiles"),
+              rollback=pro["rollback"],
+              rollback_reasons=pro.get("rollback_reasons"),
+              probe_bit_identical=pro.get("probe_bit_identical"),
+              post_warmup_recompiles=pro.get("post_warmup_recompiles"),
+              promote_cli_wall_s=pro_wall, ledger=actions,
+              ledger_tail=len(tail))
+        # the rollback must restore decisions the swap really changed
+        if (blk["verdict"] != "blocked" or not pro["promoted"]
+                or not pro["candidate"].endswith(f"@{cont['final_step']}")
+                or not pro["canary"]["candidate_agreement"] < 1.0
+                or not pro["probe_rows_changed"]
+                or pro["swap_recompiles"] != 0 or not pro["rollback"]
+                or pro["probe_bit_identical"] is not True
+                or pro["post_warmup_recompiles"] != 0
+                or actions != ["blocked", "promote", "rollback"] or tail):
+            raise SystemExit(f"promotion: blocked {blk}, promoted {pro}, "
+                             f"ledger {actions} + {len(tail)}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def decide_latency(torch, tree: str) -> dict:
     """Graph ``decide`` latency (ms) of one tree's engine: config 2 at
     full width (bf16, seeded), phase 13's sizes, 300 calls a bucket; and
@@ -3861,6 +4181,7 @@ def main() -> int:
     timed(router_phase)
     timed(chaos_phase)
     timed(frontend_phase)
+    timed(flywheel_phase)
     _line("done", total_s=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

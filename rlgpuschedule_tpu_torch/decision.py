@@ -2,12 +2,14 @@
 preempt stall gate.
 
 Counterpart of ``preempt_slice``, ``stall_threshold``, ``gate_stalled``,
-``greedy_actions`` and ``policy_decision`` in the JAX package's
-``decision.py``: :func:`..eval.replay` and
+``greedy_actions``, ``policy_decision`` and ``policy_decision_full`` in
+the JAX package's ``decision.py``: :func:`..eval.replay` and
 :class:`..serve.engine.InferenceEngine` both decide through
 :func:`policy_decision` and gate through :func:`gate_stalled`, so a
 served action is the action replay would take on the same observation
-and stall count."""
+and stall count; the engine's capture mode and the flywheel's canary
+decide through :func:`policy_decision_full`, the same rule with the
+behavior record beside it."""
 from __future__ import annotations
 
 import torch
@@ -60,3 +62,18 @@ def policy_decision(policy: nn.Module, obs, mask):
     """The deterministic decision: masked logits -> greedy actions."""
     logits, _ = policy(obs, mask)
     return greedy_actions(logits)
+
+
+def policy_decision_full(policy: nn.Module, obs, mask):
+    """:func:`policy_decision` plus the behavior record the flywheel
+    logs: ``(actions, log_prob, value)``. The actions come from the same
+    masked logits and argmax; ``log_prob`` is the joint log-probability
+    of the greedy action (:func:`..algos.action_dist.log_prob`, summed
+    over the heads of a dict policy) and ``value`` the critic's
+    estimate, both f32."""
+    from .algos import action_dist
+    logits, value = policy(obs, mask)
+    actions = greedy_actions(logits)
+    return (actions,
+            action_dist.log_prob(logits, actions).to(torch.float32),
+            value.to(torch.float32))

@@ -28,10 +28,11 @@ monotonic-ordered timeline and prints the run's post-mortem:
 id (minted by the server, or carried on the ``X-Request-Id`` header or
 the v2 frame's field) is joined across the serve instants (``enqueue``
 -> ``served`` / ``shed`` / ``dispatch_failed``, with the queue wait and
-end-to-end latency of the dispatch record). Exit 1 when the id appears
-nowhere. The JAX package also joins the id against the data flywheel's
-flight log and promotion ledger (``--flight-log``); the port refuses
-that flag until the flywheel is ported.
+end-to-end latency of the dispatch record) and, with ``--flight-log
+DIR``, against the data flywheel's flight log (which sealed shard and
+row logged the decision, and its deadline outcome) and promotion ledger
+(the verdicts whose canary window covered that row). Exit 1 when the id
+appears nowhere.
 
 Exit codes: 0 ok, 1 no events under the directory (an empty post-mortem
 must fail loudly) or a ``--request`` id found nowhere, 2 usage.
@@ -49,11 +50,6 @@ from .events import merge_dir
 from .skew import correct_events
 from .trace import (SPAN_KINDS, async_overlap_summary, build_span_tree,
                     to_chrome_trace)
-
-# the data flywheel's flight log and ledger: not in the port yet
-FLIGHT_LOG_REFUSAL = ("--flight-log is not in the PyTorch port yet: it "
-                      "waits for the flywheel slice (ROADMAP.md queue 1, "
-                      "item 23)")
 
 # event kinds that are production alarms (Alarms emissions; ``compile``
 # is the blessed warmup/amnesty record, not an alarm)
@@ -125,19 +121,23 @@ def build_report(events: list[dict]) -> dict:
                               if has_spans else None)}
 
 
+# flight-log deadline-outcome codes (flywheel.flightlog's schema)
+_OUTCOME_NAMES = {0: "no-deadline", 1: "met", 2: "served-late"}
+
+
 def build_request_report(events: list[dict], req_id: int,
                          flight_dir: "str | None" = None) -> dict:
-    """Join one request id across the serve instants: the single-request
-    timeline.
+    """Join one request id across the serve instants, the flight log and
+    the promotion ledger: the single-request timeline.
 
     Stages come from the batching tier's ``span_point`` instants:
     ``enqueue`` (admission), then exactly one of ``served`` (with the
     per-row queue wait and end-to-end latency the dispatch recorded),
     ``shed`` (admission or in-queue expiry), or ``dispatch_failed``.
-    ``flight_dir`` (the flight-log join) is refused until the flywheel
-    is ported; ``flight`` and ``verdicts`` stay empty."""
-    if flight_dir:
-        raise NotImplementedError(FLIGHT_LOG_REFUSAL)
+    With ``flight_dir`` the id is also looked up in the sealed shards'
+    ``req_id`` column (the shard and row that logged the decision) and,
+    by the row's global position, matched against the ledger entries
+    whose canary window covered it."""
     req_id = int(req_id)
     stages = []
 
@@ -168,13 +168,43 @@ def build_request_report(events: list[dict], req_id: int,
                       latency_ms=lats[i] if i < len(lats) else None)
             else:
                 stage("dispatch_failed", e, error=a.get("error"))
-    return {"req_id": req_id, "stages": stages, "flight": None,
-            "verdicts": [], "found": bool(stages)}
+    flight = None
+    verdicts: list[dict] = []
+    if flight_dir:
+        import numpy as np
+
+        from ..flywheel.canary import read_ledger
+        from ..flywheel.flightlog import read_flight_log
+        data = read_flight_log(flight_dir)
+        preceding = 0
+        for s in data.shards:
+            if s.req_id is not None:
+                for i in np.flatnonzero(s.req_id == req_id):
+                    i = int(i)
+                    flight = {"shard_seq": s.seq, "path": s.path,
+                              "row": i, "global_row": preceding + i,
+                              "outcome": int(s.outcome[i]),
+                              "outcome_name": _OUTCOME_NAMES.get(
+                                  int(s.outcome[i]), "?")}
+            preceding += s.rows
+        if flight is not None:
+            sealed, tail = read_ledger(flight_dir)
+            for entry in sealed + tail:
+                rows = entry.get("window_rows")
+                if rows is not None and int(rows) > flight["global_row"]:
+                    verdicts.append(
+                        {"action": entry.get("action"),
+                         "verdict": entry.get("verdict"),
+                         "candidate": entry.get("candidate"),
+                         "window_rows": int(rows),
+                         "sealed": entry in sealed})
+    return {"req_id": req_id, "stages": stages, "flight": flight,
+            "verdicts": verdicts,
+            "found": bool(stages or flight is not None)}
 
 
 def format_request_report(rep: dict) -> str:
-    """The human single-request timeline (JAX's text for a report with
-    no flight-log row)."""
+    """The human single-request timeline."""
     rid = rep["req_id"]
     lines = [f"request 0x{rid:016x} ({rid}):"]
     if not rep["found"]:
@@ -190,10 +220,23 @@ def format_request_report(rep: dict) -> str:
             if k not in ("stage", "mono", "rank") and v is not None)
         lines.append(f"  +{t:9.3f}s  rank {s.get('rank', '?'):>3}  "
                      f"{s['stage']:<16s} {detail}")
-    # the flight-log join is not ported (FLIGHT_LOG_REFUSAL): JAX's
-    # line for a request with no logged row
-    lines.append("  logged: no flight-log row (shed, failed, unsealed "
-                 "tail, or no --flight-log given)")
+    if rep["flight"] is not None:
+        f = rep["flight"]
+        lines.append(
+            f"  logged: shard {f['shard_seq']:06d} row {f['row']} "
+            f"(global row {f['global_row']}, outcome "
+            f"{f['outcome_name']}) — {f['path']}")
+    elif not rep["verdicts"]:
+        lines.append("  logged: no flight-log row (shed, failed, "
+                     "unsealed tail, or no --flight-log given)")
+    for v in rep["verdicts"]:
+        seal = "sealed" if v["sealed"] else "unsealed tail"
+        lines.append(
+            f"  replayed: ledger {v['action']} "
+            f"(verdict={v['verdict']}, candidate={v['candidate']}, "
+            f"window={v['window_rows']} rows, {seal})")
+    if rep["flight"] is not None and not rep["verdicts"]:
+        lines.append("  replayed: no canary window covered this row yet")
     return "\n".join(lines)
 
 
@@ -340,11 +383,10 @@ def main(argv: list[str] | None = None) -> int:
                         "of the run post-mortem; exit 1 if the id "
                         "appears nowhere")
     p.add_argument("--flight-log", default=None, metavar="DIR",
-                   help="with --request: also join the id against a "
-                        "flight-log directory (not in the port yet)")
+                   help="with --request: also join the id against this "
+                        "flight-log directory's shards and promotion "
+                        "ledger")
     args = p.parse_args(argv)
-    if args.flight_log is not None:
-        raise NotImplementedError(FLIGHT_LOG_REFUSAL)
     try:
         events = merge_dir(args.obs_dir)
     except FileNotFoundError as e:

@@ -28,6 +28,20 @@ Modes, composable in one invocation (at least one is required):
   ``POST /v1/decide`` (200 with an action), a graceful drain, a late
   submit refused with the typed error, a new connection refused.
 - ``--fleet N``: greedy replay against N seeded simulated clusters.
+- ``--flight-log DIR`` (the data flywheel): with ``--soak``, every
+  served decision is recorded into crc-sidecar'd shards under DIR
+  (:mod:`..flywheel.flightlog`; the engine runs in capture mode, the
+  same graph with the behavior log-prob and value as extra outputs) and
+  the report's ``flight_log`` block checks ``rows_logged == served``;
+  ``--durable-log`` fsyncs each shard and ledger line.
+- ``--promote CKPTDIR`` and/or ``--promote-noise SIGMA`` (with
+  ``--flight-log``): canary-gated promotion of a candidate (a port
+  checkpoint, seeded noise on the served weights, or both): the logged
+  window replayed under candidate and incumbent, the verdict in the
+  ledger ``DIR/promotions.jsonl``, then, if the gate clears, a probe,
+  the live swap with its blessed re-warm and the SLO watchdog, which
+  rolls back on a breach (``--promote-fault`` injects one) and checks
+  that the probe's decisions come back bit for bit.
 
 ``--engines N`` serves every mode but ``--fleet`` through the
 :class:`.router.EngineRouter` (N engines, least-loaded dispatch, one
@@ -50,9 +64,7 @@ block of the config.
 ``--fleet-regime`` replays every fleet cluster under a seeded fault
 regime (flat configs; cluster ``e`` draws ``(--fleet-seed, e)``).
 
-Refused with ``NotImplementedError`` naming their ``ROADMAP.md`` item:
-the flywheel (``--flight-log``, ``--promote``, ``--promote-noise``). A
-hierarchical config
+A hierarchical config
 (``n_pods > 1``, config 5) is served through one engine (dict
 observations, per-head actions); ``--engines > 1`` with it exits with
 the mode table's refusal, in JAX's words. From a population's
@@ -62,6 +74,10 @@ Example::
 
     python -m rlgpuschedule_tpu_torch.serve --config ppo-cnn-philly512 \\
         --bench --bucket 256
+    python -m rlgpuschedule_tpu_torch.serve --config ppo-mlp-synth64 \\
+        --soak 4 --flight-log out/flog --durable-log
+    python -m rlgpuschedule_tpu_torch.serve --config ppo-mlp-synth64 \\
+        --flight-log out/flog --promote out/cont --promote-fault
 """
 from __future__ import annotations
 
@@ -90,11 +106,6 @@ from .engine import InferenceEngine
 from .fleet import fleet_replay, fleet_windows, sample_fleet_faults
 from .router import (AutoscaleAdvisor, EngineRouter, ServeFaultInjector,
                      parse_serve_fault)
-
-# flags of the JAX package's CLI this slice refuses, and what they wait
-# for
-DEFERRED = dict.fromkeys(("flight_log", "promote", "promote_noise"),
-                         "the flywheel slice (ROADMAP.md queue 1, item 23)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -210,33 +221,72 @@ def build_parser() -> argparse.ArgumentParser:
                         "config's fitted trace arrival process and "
                         "reports request conservation; needs "
                         "--engines >= 2")
-    # the JAX CLI's flags that a later slice brings
-    p.add_argument("--flight-log", default=None, metavar="DIR")
-    p.add_argument("--promote", default=None, metavar="CKPTDIR")
-    p.add_argument("--promote-noise", type=float, default=None)
+    # the data flywheel: flight log and canary-gated promotion
+    p.add_argument("--flight-log", default=None, metavar="DIR",
+                   help="with --soak: record every served decision (obs, "
+                        "mask, action, behavior log-prob, value, stall, "
+                        "deadline outcome, request id) into crc-sidecar'd "
+                        "shards under DIR; with --promote*: the logged "
+                        "window the canary replays. Switches the engine "
+                        "to capture mode (the same graph, two more "
+                        "outputs)")
+    p.add_argument("--flight-capacity", type=int, default=512,
+                   help="flight log rows per sealed shard")
+    p.add_argument("--durable-log", action="store_true",
+                   help="fsync flight-log shards and promotion-ledger "
+                        "lines (power-loss durability; the default "
+                        "flushes only)")
+    p.add_argument("--promote", default=None, metavar="CKPTDIR",
+                   help="canary-gated promotion: the candidate policy of "
+                        "this checkpoint dir (the port's train "
+                        "--ckpt-dir, e.g. a --continual retrain) replays "
+                        "the --flight-log window beside the incumbent; "
+                        "the serving weights swap only if the hysteresis "
+                        "gate clears, and the post-swap SLO watchdog "
+                        "rolls back on a regression")
+    p.add_argument("--promote-step", type=int, default=None,
+                   help="candidate checkpoint step (default: the newest "
+                        "that restores)")
+    p.add_argument("--promote-noise", type=float, default=None,
+                   metavar="SIGMA",
+                   help="perturb the candidate with seeded N(0, SIGMA) "
+                        "noise (alone: noise on the served weights; with "
+                        "--promote: on the loaded candidate); a large "
+                        "SIGMA is the regressed candidate the gate must "
+                        "block")
+    p.add_argument("--promote-fault", action="store_true",
+                   help="inject a post-swap SLO regression (the "
+                        "watchdog's observed p99 inflated 10x) to prove "
+                        "that the rollback restores the incumbent bit "
+                        "for bit")
+    p.add_argument("--canary-slices", type=int, default=8,
+                   help="held-out window slices the hysteresis gate "
+                        "scores")
+    p.add_argument("--canary-tol", type=float, default=0.02,
+                   help="per-slice agreement regression tolerance")
+    p.add_argument("--canary-hysteresis", type=int, default=2,
+                   help="consecutive regressed slices that block "
+                        "promotion")
     return p
 
 
 def _check(args) -> "tuple[tuple[int, ...] | None, list | None]":
-    """Refuse the deferred flags and the silent no-ops (the router's
-    checks are JAX's, word for word); returns the parsed
-    ``--request-sizes`` and ``--chaos-faults``."""
-    for dest, what in DEFERRED.items():
-        value = getattr(args, dest)
-        if value is not None and value is not False:   # 0 is a value
-            flag = "--" + dest.replace("_", "-")
-            raise NotImplementedError(f"{flag} is not in the PyTorch port "
-                                      f"yet: it waits for {what}")
+    """Refuse the silent no-ops (the router's and the flywheel's checks
+    are JAX's, word for word); returns the parsed ``--request-sizes``
+    and ``--chaos-faults``."""
     if args.weights and args.ckpt_dir:
         sys.exit("--weights and --ckpt-dir both name the served weights; "
                  "pass one")
     if args.ckpt_step is not None and not args.ckpt_dir:
         sys.exit("--ckpt-step picks a step of --ckpt-dir; pass --ckpt-dir "
                  "with it")
+    promote_mode = (args.promote is not None
+                    or args.promote_noise is not None)
     if not (args.bench or args.soak is not None or args.scaleout
-            or args.host_path or args.fleet is not None):
+            or args.host_path or args.fleet is not None or promote_mode):
         sys.exit("nothing to do: pass --bench, --soak S, --scaleout, "
-                 "--host-path and/or --fleet N")
+                 "--host-path, --promote/--promote-noise, and/or "
+                 "--fleet N")
     if args.fleet is not None and args.fleet <= 0:
         sys.exit("--fleet must be a positive cluster count")
     if args.fleet_regime is not None and args.fleet_regime not in \
@@ -316,6 +366,36 @@ def _check(args) -> "tuple[tuple[int, ...] | None, list | None]":
     if args.trace_spans and not args.obs_dir:
         sys.exit("--trace-spans records spans on the event bus; pass "
                  "--obs-dir with it (refusing the silent no-op)")
+    if args.flight_log is not None and args.soak is None \
+            and not promote_mode:
+        sys.exit("--flight-log records --soak traffic or feeds "
+                 "--promote replay; pass one of them (refusing the "
+                 "silent no-op)")
+    if promote_mode and args.flight_log is None:
+        sys.exit("promotion replays a logged window; pass "
+                 "--flight-log DIR with --promote/--promote-noise")
+    if args.flight_capacity <= 0:
+        sys.exit("--flight-capacity must be a positive row count")
+    if args.promote_step is not None and args.promote is None:
+        sys.exit("--promote-step picks the --promote candidate step; "
+                 "pass --promote CKPTDIR with it (refusing the silent "
+                 "no-op)")
+    if args.promote_noise is not None and args.promote_noise <= 0:
+        sys.exit("--promote-noise must be a positive sigma")
+    if args.promote_fault and not promote_mode:
+        sys.exit("--promote-fault injects a post-swap SLO regression; "
+                 "pass --promote/--promote-noise with it (refusing "
+                 "the silent no-op)")
+    if args.canary_slices < 1:
+        sys.exit("--canary-slices must be >= 1")
+    if args.canary_tol < 0:
+        sys.exit("--canary-tol must be >= 0")
+    if args.canary_hysteresis < 1:
+        sys.exit("--canary-hysteresis must be >= 1")
+    if args.durable_log and args.flight_log is None:
+        sys.exit("--durable-log hardens the --flight-log shards and "
+                 "ledger; pass --flight-log DIR with it (refusing the "
+                 "silent no-op)")
     if args.request_sizes is None:
         return None, chaos_specs
     if not args.bench:
@@ -352,6 +432,8 @@ def main(argv: "list[str] | None" = None) -> dict:
     env_params = build_env_params(cfg)
     policy = build_policy(cfg, env_params, device=dev)
     repro = repro_tuple(cfg, ckpt_dir=args.ckpt_dir)
+    promote_mode = (args.promote is not None
+                    or args.promote_noise is not None)
     if args.ckpt_dir:
         with Checkpointer(os.path.abspath(args.ckpt_dir)) as ckpt:
             meta = restore_policy(ckpt, policy, args.ckpt_step)
@@ -385,11 +467,14 @@ def main(argv: "list[str] | None" = None) -> dict:
                   file=sys.stderr)
         injector = (ServeFaultInjector(chaos_specs, bus=bus)
                     if chaos_specs is not None else None)
+        # recording and the canary's probe need the engine's capture
+        # outputs (the behavior log-prob and value from the same graph)
+        capture = args.flight_log is not None
         if args.engines > 1:
             engine = EngineRouter(policy, env_params, max_bucket=args.bucket,
                                   registry=registry, bus=bus, tracer=tracer,
                                   n_engines=args.engines, device=dev,
-                                  fault_injector=injector)
+                                  fault_injector=injector, capture=capture)
             print(f"engine router: {args.engines} engines on "
                   f"{[str(e.device) for e in engine.engines]}"
                   + (" (CPU: dispatch serialized)"
@@ -399,10 +484,10 @@ def main(argv: "list[str] | None" = None) -> dict:
             engine = InferenceEngine(policy, max_bucket=args.bucket,
                                      device=dev, env_params=env_params,
                                      registry=registry, bus=bus,
-                                     tracer=tracer)
+                                     tracer=tracer, capture=capture)
         pool = None
         if (args.bench or args.soak is not None or args.scaleout
-                or args.host_path):
+                or args.host_path or promote_mode):
             _, traces = fleet_windows(cfg, cfg.n_envs, device=dev)
             pool = build_request_pool(policy, env_params, traces,
                                       steps=args.pool_steps)
@@ -420,12 +505,29 @@ def main(argv: "list[str] | None" = None) -> dict:
                   f"{b['decisions_per_s']:.0f} decisions/s, post-warmup "
                   f"recompiles: {b['post_warmup_recompiles']}",
                   file=sys.stderr)
+        # the behavior policy's train step: the served checkpoint's, or
+        # 0 for seeded or converted weights
+        policy_step = int(repro.get("ckpt_step") or 0)
         if args.soak is not None:
+            writer = None
+            if args.flight_log is not None:
+                from ..flywheel import FlightLogWriter
+                writer = FlightLogWriter(
+                    os.path.abspath(args.flight_log),
+                    capacity=args.flight_capacity, policy_step=policy_step,
+                    registry=registry, bus=bus, durable=args.durable_log)
             report["soak"], frontend = _soak(args, cfg, engine, pool,
                                              registry, tracer, bus,
-                                             chaos_specs)
+                                             chaos_specs, writer)
             if frontend is not None:
                 report["frontend"] = frontend
+            if writer is not None:
+                report["flight_log"] = _seal_flight_log(
+                    args, writer, report["soak"], frontend)
+        if promote_mode:
+            report["promote"] = _run_promotion(
+                args, cfg, policy, env_params, engine, pool, registry, bus,
+                warmed=args.soak is not None, incumbent_step=policy_step)
         if args.scaleout:
             so = report["scaleout"] = run_scaleout(
                 policy, env_params, pool, max_bucket=args.bucket,
@@ -507,17 +609,19 @@ def main(argv: "list[str] | None" = None) -> dict:
 
 
 def _soak(args, cfg, engine, pool, registry, tracer, bus,
-          chaos_specs) -> "tuple[dict, dict | None]":
+          chaos_specs, flight_log=None) -> "tuple[dict, dict | None]":
     """``--soak``: every bucket of every engine warmed, then paced load
     through one dispatcher thread per engine (the autoscale loop or the
     chaos soak over a router), with ``--frontend-port`` the front door
-    open meanwhile; returns the soak's report and the front door's
-    self-check (None without it)."""
+    open meanwhile and ``flight_log`` (a writer) recording every served
+    row; returns the soak's report and the front door's self-check
+    (None without it)."""
     from ..traces.fit import domain_fit
     obs0, mask0 = pool[0]
     engine.warmup(obs0, mask0)
     server = PolicyServer(engine, registry=registry, tracer=tracer,
-                          bus=bus, adaptive_wait=args.adaptive_wait)
+                          bus=bus, adaptive_wait=args.adaptive_wait,
+                          flight_log=flight_log)
     router = engine if args.engines > 1 else None
     advisor = (AutoscaleAdvisor(registry, n_max=args.engines,
                                 initial=args.engines)
@@ -580,6 +684,190 @@ def _soak(args, cfg, engine, pool, registry, tracer, bus,
               f"{fs['retry_hedges']}, conservation "
               + ("ok" if conserved else "VIOLATED"), file=sys.stderr)
     return soak, frontend
+
+
+def _seal_flight_log(args, writer, soak: dict, frontend) -> dict:
+    """Seal the soak's flight log and check conservation: every served
+    row was logged and nothing else (the front door's self-check served
+    one more request through the same server)."""
+    writer.close()
+    served = soak["served"] + (1 if frontend is not None
+                               and frontend["decide_status"] == 200 else 0)
+    fl = {"dir": os.path.abspath(args.flight_log),
+          "rows_logged": writer.rows_logged,
+          "shards_sealed": writer.shards_sealed, "served": served,
+          "durable": bool(args.durable_log),
+          "conservation_ok": writer.rows_logged == served}
+    print(f"flight log: {fl['rows_logged']} rows in {fl['shards_sealed']} "
+          f"shards under {fl['dir']}, conservation "
+          + ("ok" if fl["conservation_ok"] else "VIOLATED"),
+          file=sys.stderr)
+    return fl
+
+
+def _swap_weights(engine, state_dict) -> "tuple[int, ...]":
+    """Live swap and blessed re-warm through whichever serving surface is
+    up: the router swaps every engine; a lone engine swaps in place.
+    Both re-drive the warmed buckets, so a drift shows here as a
+    recompile alarm, not on live traffic."""
+    if hasattr(engine, "swap_params"):
+        return engine.swap_params(state_dict)
+    engine.set_params(state_dict)
+    return engine.rewarm()
+
+
+def _run_promotion(args, cfg, policy, env_params, engine, pool, registry,
+                   bus, warmed: bool, incumbent_step: int) -> dict:
+    """``serve --promote``: canary-gate the candidate on the logged
+    window, swap only if the gate clears, then watch the post-swap SLOs
+    and roll back on a regression.
+
+    The candidate is the policy of ``--promote CKPTDIR`` and/or the
+    served weights with seeded ``--promote-noise`` (``default_rng(seed)``
+    normal noise, tensor by tensor in the state dict's order, which is
+    not JAX's leaf order: the same seed gives another candidate than
+    JAX's). ``--promote-fault`` inflates the watchdog's observed p99 10x
+    after the swap; the rollback itself is real, and the probe must
+    give the pre-promotion decisions back bit for bit.
+    ``probe_rows_changed`` counts the probe rows that the swapped-in
+    candidate decided otherwise, so a rollback is known to have
+    restored something."""
+    import time
+
+    import numpy as np
+
+    from ..experiment import build_policy, restore_policy
+    from ..flywheel import (PromotionLedger, SLOWatchdog, read_flight_log,
+                            run_canary, unflatten_like)
+    from ..tree import leaves
+
+    flight_dir = os.path.abspath(args.flight_log)
+    data = (read_flight_log(flight_dir) if os.path.isdir(flight_dir)
+            else None)
+    if data is None or not data.shards:
+        sys.exit(f"--promote: no verified flight-log shards under "
+                 f"{flight_dir}"
+                 + (f" (torn tail: {data.torn_reason})"
+                    if data is not None and data.torn_tail else ""))
+    window = data.concat()
+    obs0, mask0 = pool[0]
+    # the served weights, copied: a lone engine's swap writes into them
+    incumbent = {k: v.detach().clone()
+                 for k, v in policy.state_dict().items()}
+    candidate = incumbent
+    source = "incumbent"
+    if args.promote is not None:
+        cand = build_policy(cfg, env_params, device=next(
+            policy.parameters()).device)
+        with Checkpointer(os.path.abspath(args.promote)) as cckpt:
+            restore_policy(cckpt, cand, args.promote_step)
+            source = (f"{os.path.abspath(args.promote)}"
+                      f"@{cckpt.last_restored_step}")
+        candidate = cand.state_dict()
+    if args.promote_noise is not None:
+        rng = np.random.default_rng(cfg.seed)
+        candidate = {
+            k: (v + torch.from_numpy(rng.normal(
+                0.0, args.promote_noise, tuple(v.shape)).astype(np.float32)
+                ).to(v.device, v.dtype))
+            if v.is_floating_point() else v
+            for k, v in candidate.items()}
+        source += f"+noise(sigma={args.promote_noise:g},seed={cfg.seed})"
+
+    rep = run_canary(policy, incumbent, candidate, window, obs0, mask0,
+                     env_params=env_params, slices=args.canary_slices,
+                     tol=args.canary_tol, hysteresis=args.canary_hysteresis,
+                     registry=registry, bus=bus)
+    ledger = PromotionLedger(flight_dir, durable=args.durable_log)
+    lineage = {"candidate": source, "incumbent_step": int(incumbent_step),
+               "window_rows": window.rows, "verdict": rep.verdict,
+               "incumbent_agreement": rep.incumbent_agreement,
+               "candidate_agreement": rep.candidate_agreement}
+    out = {"candidate": source, "verdict": rep.verdict,
+           "canary": rep.to_json(), "promoted": False,
+           "rollback": False, "ledger_entries": 1}
+    if rep.verdict != "promote":
+        ledger.append(dict(lineage, action="blocked",
+                           regress_streak=rep.max_regress_streak))
+        print(f"promotion BLOCKED: candidate agreement "
+              f"{rep.candidate_agreement:.3f} vs incumbent "
+              f"{rep.incumbent_agreement:.3f} on the logged window "
+              f"(regressed streak {rep.max_regress_streak} >= "
+              f"{args.canary_hysteresis})", file=sys.stderr)
+        return out
+
+    # the gate cleared: the pre-promotion probe, the swap, the watchdog
+    if not warmed:
+        engine.warmup(obs0, mask0)
+    k = min(args.bucket, window.rows)
+    probe_obs = unflatten_like(obs0, [l[:k] for l in window.obs_leaves])
+    probe_mask = unflatten_like(mask0, [l[:k] for l in window.mask_leaves])
+    probe_stall = window.stall[:k]
+
+    def probe() -> "tuple[list, float]":
+        t0 = time.perf_counter()
+        (acts, _, _), _ = engine.decide(probe_obs, probe_mask, probe_stall)
+        return ([np.asarray(a) for a in leaves(acts)],
+                (time.perf_counter() - t0) * 1e3)
+
+    g_p99 = registry.gauge("serve_decision_latency_p99_ms")
+    wd = SLOWatchdog(registry, engine=engine, breach_after=2, bus=bus)
+    pre_acts: list = []
+    for _ in range(4):
+        pre_acts, ms = probe()
+        g_p99.set(ms)
+        wd.sample_baseline()
+    recomp_before = int(engine.post_warmup_recompiles)
+    driven = _swap_weights(engine, candidate)
+    wd.arm()
+    swap_recompiles = int(engine.post_warmup_recompiles) - recomp_before
+    if bus is not None:
+        bus.emit("promote_apply", candidate=source,
+                 rewarmed_buckets=list(driven),
+                 swap_recompiles=swap_recompiles)
+    ledger.append(dict(lineage, action="promote",
+                       rewarmed_buckets=list(driven),
+                       swap_recompiles=swap_recompiles))
+    out.update(promoted=True, rewarmed_buckets=list(driven),
+               swap_recompiles=swap_recompiles, ledger_entries=2)
+    print(f"promoted {source}: canary agreement "
+          f"{rep.candidate_agreement:.3f}, re-warmed buckets "
+          f"{tuple(driven)}, swap recompiles {swap_recompiles}",
+          file=sys.stderr)
+
+    ticks, breach, changed = [], None, 0
+    for _ in range(max(3, args.canary_hysteresis + 1)):
+        acts, ms = probe()
+        # probe rows the candidate decides otherwise: the graphs read
+        # the swapped weights (0 when the candidate agrees on them)
+        changed = max(changed, sum(int((a != b).sum())
+                                   for a, b in zip(acts, pre_acts)))
+        if args.promote_fault:
+            ms *= 10.0        # the injected post-swap SLO regression
+        g_p99.set(ms)
+        tick = wd.observe()
+        ticks.append({k_: tick[k_] for k_ in
+                      ("rollback", "reasons", "streak", "p99_ms",
+                       "baseline_p99_ms")})
+        if tick["rollback"]:
+            breach = tick
+            break
+    out.update(watchdog_ticks=ticks, probe_rows_changed=changed)
+    if breach is not None:
+        _swap_weights(engine, incumbent)
+        post_acts, _ = probe()
+        bit = (len(pre_acts) == len(post_acts)
+               and all(np.array_equal(a, b)
+                       for a, b in zip(pre_acts, post_acts)))
+        ledger.append(dict(lineage, action="rollback",
+                           reasons=breach["reasons"],
+                           bit_identical=bool(bit)))
+        out.update(rollback=True, rollback_reasons=breach["reasons"],
+                   probe_bit_identical=bool(bit), ledger_entries=3)
+        print(f"ROLLBACK: {breach['reasons']}; incumbent restored, "
+              f"probe decisions bit-identical: {bit}", file=sys.stderr)
+    out["post_warmup_recompiles"] = int(engine.post_warmup_recompiles)
+    return out
 
 
 def _frontend_selfcheck(handle, obs0, mask0) -> dict:

@@ -2,9 +2,9 @@
 scatter, in front of one :class:`~.engine.InferenceEngine`.
 
 Counterpart of the JAX package's ``serve/batching.py`` (pure numpy and
-threads: it ports as it stands, with the flight log left for the
-flywheel slice; its ``jax.tree`` calls are :mod:`..tree`'s). Many independent decision streams become ONE dispatch
-when their observations are stacked along a batch axis:
+threads: it ports as it stands, the flywheel's flight-log tap included;
+its ``jax.tree`` calls are :mod:`..tree`'s). Many independent decision
+streams become ONE dispatch when their observations are stacked along a batch axis:
 
 - **coalesce**: pending requests are drained FIFO and rounded up to the
   next power-of-two *bucket* (:func:`next_bucket`), so the engine builds
@@ -474,8 +474,15 @@ class PolicyServer:
     ``serve_batch`` (``arena_seal`` or ``stack`` -> the engine's
     ``pad``/``dispatch`` -> ``scatter``) per pump.
 
-    ``flight_log`` (the served-traffic log of the flywheel) waits for its
-    slice.
+    **Flight log** (the flywheel's tap): with ``flight_log=`` (a
+    :class:`..flywheel.FlightLogWriter`) over a capture-mode engine
+    (``capture=True``: ``decide`` returns ``(actions, log_prob,
+    value)``), every served row is appended after its dispatch with its
+    deadline outcome (0 no deadline, 1 met, 2 late) and request id. Shed
+    rows never dispatch, so ``rows_logged`` equals the served count. The
+    append runs on the dispatcher thread and touches only numpy and
+    files (the sync guard allows it); a failing append fails its batch's
+    futures. A writer over a plain engine raises ``ValueError``.
     """
 
     def __init__(self, engine, registry: "Registry | None" = None,
@@ -484,10 +491,16 @@ class PolicyServer:
                  adaptive_wait: bool = False, data_plane: str = "arena",
                  example_obs=None, example_mask=None,
                  flight_log=None, bus=None):
-        if flight_log is not None:
-            raise NotImplementedError(
-                "flight_log= (the served-traffic log) waits for the "
-                "flywheel slice (ROADMAP.md queue 1, item 23)")
+        # the flywheel's tap: a capture-mode engine returns (actions,
+        # behavior log-prob, value) per dispatch
+        self._capture = bool(getattr(engine, "capture", False))
+        self._flight_log = flight_log
+        if flight_log is not None and not self._capture:
+            raise ValueError(
+                "flight_log requires a capture-mode engine "
+                "(capture=True): the log's behavior log-prob and value "
+                "columns come out of the engine's decision graph, never "
+                "a post-hoc recompute")
         self.engine = engine
         self.registry = registry if registry is not None else Registry()
         self.tracer = tracer if tracer is not None else NULL_TRACER
@@ -1048,10 +1061,17 @@ class PolicyServer:
                     obs = stack_requests([r.obs for r in batch])
                     mask = stack_requests([r.mask for r in batch])
                     stall = np.asarray([r.stall for r in batch], np.int32)
-                actions, bucket = self.engine.decide(obs, mask, stall)
+                out, bucket = self.engine.decide(obs, mask, stall)
+                actions, blp, bval = self._split_capture(out)
                 now = self._clock()
                 with self.tracer.span("scatter"):
                     per_req = scatter_results(actions, n)
+            lats = [now - r.t_submit for r in batch]
+            if self._flight_log is not None:
+                # inside the try: a failing append fails the batch's
+                # futures, never strands them
+                self._log_rows(obs, mask, stall, actions, blp, bval, n,
+                               lats, [r.deadline_s for r in batch], rids)
         except BaseException as e:
             self._end_dispatch(ran=True)
             for r in batch:
@@ -1061,7 +1081,6 @@ class PolicyServer:
                 self.tracer.instant("dispatch_failed", req_ids=rids,
                                     error=type(e).__name__)
             raise
-        lats = [now - r.t_submit for r in batch]
         t_subs = [r.t_submit for r in batch]
         self._account_dispatch(now, t_disp, n, bucket, lats, t_subs, rids)
         for r, a, lat in zip(batch, per_req, lats):
@@ -1170,18 +1189,27 @@ class PolicyServer:
             return 0
         try:
             if self.tracer is NULL_TRACER:   # span-free hot path
-                actions, bucket = self.engine.decide(
-                    *self._arena_views(blk, n_live))
+                views = self._arena_views(blk, n_live)
+                out, bucket = self.engine.decide(*views)
+                actions, blp, bval = self._split_capture(out)
                 now = self._clock()
                 per_req = self._scatter_arena(blk, actions, n_live)
             else:
                 with self.tracer.span("serve_batch", n=n_live):
                     with self.tracer.span("arena_seal"):
                         views = self._arena_views(blk, n_live)
-                    actions, bucket = self.engine.decide(*views)
+                    out, bucket = self.engine.decide(*views)
+                    actions, blp, bval = self._split_capture(out)
                     now = self._clock()
                     with self.tracer.span("scatter"):
                         per_req = self._scatter_arena(blk, actions, n_live)
+            lats = [now - t for t in t_subs]
+            if self._flight_log is not None:
+                # the slab views stay valid until ring.recycle below, and
+                # the writer copies the rows before it returns; inside
+                # the try, so a failing append fails the batch's futures
+                self._log_rows(*views, actions, blp, bval, n_live, lats,
+                               deads, rids)
         except BaseException as e:
             self._end_dispatch(ran=True)
             for fut in futs:
@@ -1193,7 +1221,6 @@ class PolicyServer:
                                     error=type(e).__name__)
             ring.recycle(blk)
             raise
-        lats = [now - t for t in t_subs]
         self._account_dispatch(now, t_disp, n_live, bucket, lats,
                                t_subs, rids)
         for fut, a, lat, rid in zip(futs, per_req, lats, rids):
@@ -1211,6 +1238,31 @@ class PolicyServer:
                 lat_ms=[round(l * 1e3, 3) for l in lats])
         ring.recycle(blk)
         return n_live
+
+    def _split_capture(self, out):
+        """One dispatch's output as ``(actions, log_prob, value)``: a
+        capture engine returns the triple, a plain engine the actions
+        (log-prob and value None)."""
+        if self._capture:
+            return out
+        return out, None, None
+
+    def _log_rows(self, obs, mask, stall, actions, blp, bval, n: int,
+                  lats: "list[float]", deads, req_ids) -> None:
+        """Append this dispatch's ``n`` served rows to the flight log,
+        each with its deadline outcome: 0 no deadline, 1 met, 2 served
+        late (resolved past its deadline, not shed)."""
+        # per call, not a shared scratch: dispatcher threads reach here
+        # concurrently, and the writer copies only under its own lock
+        outcome = np.zeros(n, np.int8)
+        for i, d in enumerate(deads):
+            if d is not None:
+                outcome[i] = 1 if lats[i] <= d else 2
+        head = lambda t: tree_map(lambda x: np.asarray(x)[:n], t)
+        self._flight_log.append_batch(
+            head(obs), head(mask), head(actions), np.asarray(blp)[:n],
+            np.asarray(bval)[:n], np.asarray(stall)[:n], outcome,
+            req_id=np.asarray(req_ids, np.int64)[:n])
 
     def _end_dispatch(self, ran: bool) -> None:
         """A taken batch that failed, or held no live row: it is no

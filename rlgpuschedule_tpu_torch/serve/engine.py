@@ -63,8 +63,13 @@ actions out of the key's download buffers under that lock, so a later
 dispatch or :meth:`InferenceEngine.rewarm` never overwrites what a
 caller holds.
 
-Capture mode (the behavior log-prob and value of the flywheel) waits
-for its slice.
+**Capture mode** (``capture=True``, the flywheel's tap): the program
+decides through :func:`..decision.policy_decision_full`, so the same
+graph also writes the greedy action's joint log-prob and the value
+(f32 per row), downloaded by the same non-blocking copies and event as
+the actions; ``decide`` then returns ``((actions, log_prob, value),
+bucket)``, as the JAX engine does. The actions come from the same
+masked logits and argmax as the plain engine's.
 """
 from __future__ import annotations
 
@@ -78,8 +83,8 @@ from torch import nn
 
 from ..analysis.sentinels import (BUILD, CAPTURE, RecompileSentinelError,
                                   no_implicit_transfers, note_build)
-from ..decision import (gate_stalled, policy_decision, preempt_slice,
-                        stall_threshold)
+from ..decision import (gate_stalled, policy_decision,
+                        policy_decision_full, preempt_slice, stall_threshold)
 from ..device import resolve_device
 from ..obs.metrics import Registry
 from ..obs.trace import NULL_TRACER
@@ -97,8 +102,9 @@ class _Program:
     their numpy views, one per obs leaf, mask leaf and (with the stall
     gate) the stall lane; the device inputs (the staging buffers
     themselves on the CPU); the outputs (an i32 tensor, or a dict of
-    them per head), their host download buffers and numpy views (the
-    same structure), and the graph."""
+    them per head; in capture mode with the f32 log-prob and value
+    beside them), their host download buffers and numpy views (the same
+    structure), and the graph."""
     staging: "tuple[torch.Tensor, ...]"
     staging_np: "tuple[np.ndarray, ...]"
     inputs: "tuple[torch.Tensor, ...]"
@@ -121,11 +127,7 @@ class InferenceEngine:
         if max_bucket <= 0 or (max_bucket & (max_bucket - 1)):
             raise ValueError(f"max_bucket must be a positive power of "
                              f"two, got {max_bucket}")
-        if capture:
-            raise NotImplementedError(
-                "capture=True (the behavior log-prob and value of the "
-                "flight log) waits for the flywheel slice (ROADMAP.md "
-                "queue 1, item 23)")
+        self.capture = bool(capture)
         self.device = resolve_device(device)
         cuda = self.device.type == "cuda"
         self.graphs = cuda and not eager
@@ -253,15 +255,20 @@ class InferenceEngine:
 
     def _decision(self, prog: _Program, obs_like, mask_like, n_obs: int):
         """The served rule on the key's device inputs: i32 actions (a
-        dict of per-head i32 actions for the hierarchical policy)."""
+        dict of per-head i32 actions for the hierarchical policy); in
+        capture mode the triple ``(actions, log_prob, value)``."""
         n_mask = len(leaves(mask_like))
         obs = unflatten(obs_like, prog.inputs[:n_obs])
         mask = unflatten(mask_like, prog.inputs[n_obs:n_obs + n_mask])
         if self._pre is not None:
             mask = gate_stalled(mask, prog.inputs[-1], self._thresh,
                                 self._pre)
-        return tree_map(lambda a: a.to(torch.int32),
-                        policy_decision(self.policy, obs, mask))
+        i32 = lambda a: a.to(torch.int32)
+        if self.capture:
+            actions, log_prob, value = policy_decision_full(self.policy,
+                                                            obs, mask)
+            return tree_map(i32, actions), log_prob, value
+        return tree_map(i32, policy_decision(self.policy, obs, mask))
 
     def _buffers(self, bucket: int, rows: "list[np.ndarray]") -> _Program:
         """Allocate a key's input buffers (its first dispatch only)."""
@@ -323,8 +330,9 @@ class InferenceEngine:
         ``i32[n]`` consecutive zero-dt steps per request (zeros if None;
         ignored unless the action space has preempt actions to gate).
         Returns ``(i32 actions[:n], bucket)`` (a dict of per-head
-        actions for the hierarchical policy); the actions are the
-        caller's own copy."""
+        actions for the hierarchical policy), in capture mode
+        ``((actions[:n], log_prob[:n], value[:n]), bucket)``; the arrays
+        are the caller's own copies."""
         obs_l = [np.asarray(x) for x in leaves(obs)]
         mask_l = [np.asarray(x) for x in leaves(mask)]
         n = int(obs_l[0].shape[0])

@@ -196,6 +196,8 @@ class EngineRouter:
     ``post_warmup_recompiles``, ``warmed_buckets``): point the server at
     a router and ``start(dispatchers=N)`` to keep N dispatches in
     flight. ``policy`` is copied into each engine (on its device).
+    ``capture=True`` builds every engine in capture mode (``decide``
+    returns the ``(actions, log_prob, value)`` triple).
     """
 
     def __init__(self, policy: nn.Module, env_params: Any = None,
@@ -205,7 +207,8 @@ class EngineRouter:
                  device=None,
                  fault_injector: "ServeFaultInjector | None" = None,
                  eject_after: int = 2, probe_backoff_s: float = 0.25,
-                 probe_backoff_max_s: float = 8.0, clock=time.monotonic):
+                 probe_backoff_max_s: float = 8.0, clock=time.monotonic,
+                 capture: bool = False):
         self.registry = registry if registry is not None else Registry()
         self.tracer = tracer if tracer is not None else NULL_TRACER
         if eject_after < 1:
@@ -223,9 +226,13 @@ class EngineRouter:
                 copy.deepcopy(policy).to(devices[i]), max_bucket=max_bucket,
                 device=devices[i], env_params=env_params,
                 registry=self.registry, bus=bus, strict=strict,
-                tracer=self.tracer.lane(f"engine-{i}"), engine_id=i)
+                tracer=self.tracer.lane(f"engine-{i}"), engine_id=i,
+                capture=capture)
             for i in range(n_engines)
         ]
+        # capture mode (the flywheel's tap): every engine returns the
+        # (actions, log_prob, value) triple
+        self.capture = bool(capture)
         self.max_bucket = max_bucket
         self.graphs = self.engines[0].graphs
         # device work is serialized on the CPU (as JAX's router does

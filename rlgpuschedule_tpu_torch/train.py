@@ -35,6 +35,15 @@ under seeded per-env fault schedules and ``--domains REGIME`` across
 seeded per-env cluster and arrival draws (flat configs see per-node
 health and geometry; a population member draws its own schedules).
 
+``--continual LOGDIR`` trains on served traffic instead of simulator
+rollouts: the crc-verified flight log under LOGDIR (``serve
+--flight-log``) is admitted shard by shard through the importance-ratio
+trust region (``--continual-trust``, ``--continual-rho-max``) and
+``--iterations`` (default 1) V-trace-corrected PPO learn steps run over
+its pseudo-trajectories (:func:`.flywheel.run_continual`); with
+``--ckpt-dir`` (and ``--resume``, to start from the incumbent) each step
+is saved, the candidate a ``serve --promote`` gates.
+
 Examples::
 
     python -m rlgpuschedule_tpu_torch.train --config ppo-cnn-philly512 \\
@@ -49,6 +58,8 @@ Examples::
         --iterations 100 --reward-norm --fused-chunk 10 --log-every 10
     python -m rlgpuschedule_tpu_torch.train --config hier-pbt-member \\
         --pbt --n-pop 4 --pbt-ready 10 --ckpt-dir out/pbt
+    python -m rlgpuschedule_tpu_torch.train --config ppo-mlp-synth64 \\
+        --continual out/flog --ckpt-dir out/run --resume --iterations 2
 """
 from __future__ import annotations
 
@@ -84,9 +95,6 @@ UNPORTED_FLAGS: dict[str, str] = {
     **dict.fromkeys(("--mesh", "--max-rollbacks", "--fault"),
                     f"the data-parallel and resilience slice ({_Q1}, "
                     f"item 21)"),
-    **dict.fromkeys(("--continual", "--continual-trust",
-                     "--continual-rho-max"),
-                    f"the data-flywheel slice ({_Q1}, item 23)"),
     **dict.fromkeys(
         ("--log-csv", "--tb-dir", "--profile-dir", "--obs-dir", "--alarms",
          "--alarm-slow-iter", "--trace-spans", "--debug-nans"),
@@ -202,6 +210,21 @@ def build_parser() -> argparse.ArgumentParser:
                         "select_checkpoint on a validation stream")
     p.add_argument("--resume", action="store_true",
                    help="restore the latest checkpoint from --ckpt-dir")
+    p.add_argument("--continual", default=None, metavar="LOGDIR",
+                   help="continual training: instead of simulator "
+                        "rollouts, ingest the crc-verified served-traffic "
+                        "flight log under LOGDIR (serve --flight-log) and "
+                        "run --iterations (default 1) V-trace-corrected "
+                        "updates over its pseudo-trajectories; shards "
+                        "outside the trust region are refused. Composes "
+                        "with --ckpt-dir/--resume (restore the incumbent, "
+                        "retrain, save the candidate)")
+    p.add_argument("--continual-trust", type=float, default=2.0,
+                   help="ingest trust region: refuse shards whose mean "
+                        "importance ratio leaves [1/T, T]")
+    p.add_argument("--continual-rho-max", type=float, default=8.0,
+                   help="ingest trust region: refuse shards whose max "
+                        "importance ratio exceeds this")
     p.add_argument("--report", action="store_true",
                    help="print the JCT-vs-baselines table after training "
                         "(stderr) and add it to the summary line")
@@ -342,6 +365,33 @@ def _keep_best(exp: Experiment, ckpt: Checkpointer, probe):
     return keep_best_probe
 
 
+def _continual(args, exp: Experiment, ckpt) -> dict:
+    """``--continual LOGDIR``: the flywheel's retraining in place of the
+    simulator loop; one JSON summary line."""
+    from .flywheel import FlightLogError, run_continual
+    from .obs import Registry
+    try:
+        summary = run_continual(
+            exp, os.path.abspath(args.continual),
+            iterations=args.iterations if args.iterations is not None
+            else 1, trust=args.continual_trust,
+            rho_max_cap=args.continual_rho_max, registry=Registry(),
+            ckpt=ckpt)
+    except FlightLogError as e:
+        sys.exit(f"continual ingest refused: {e}")
+    dev = exp.device
+    summary.update(device=str(dev), device_name=(
+        torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"))
+    print(f"continual: {summary['shards_accepted']}/"
+          f"{summary['shards_seen']} shards admitted "
+          f"({summary['shards_refused']} refused by the trust region), "
+          f"{summary['rows_trained']} rows as {summary['pseudo_steps']} "
+          f"pseudo-steps x {summary['iterations']} iterations -> step "
+          f"{summary['final_step']}", file=sys.stderr)
+    print(json.dumps(summary), flush=True)
+    return summary
+
+
 def main(argv: "list[str] | None" = None) -> dict:
     parser = build_parser()
     args, extra = parser.parse_known_args(argv)
@@ -375,6 +425,20 @@ def main(argv: "list[str] | None" = None) -> dict:
     if args.domains is not None and args.domains not in DOMAIN_REGIMES:
         sys.exit(f"unknown --domains regime {args.domains!r}; known: "
                  f"{sorted(DOMAIN_REGIMES)}")
+    if args.continual is None:
+        for flag, val, default in (
+                ("--continual-trust", args.continual_trust, 2.0),
+                ("--continual-rho-max", args.continual_rho_max, 8.0)):
+            if val != default:
+                sys.exit(f"{flag} tunes the --continual ingest trust "
+                         f"region; pass --continual LOGDIR with it "
+                         f"(refusing the silent no-op)")
+    else:
+        if args.continual_trust < 1.0:
+            sys.exit("--continual-trust must be >= 1.0 (the region is "
+                     "[1/T, T])")
+        if args.continual_rho_max <= 0:
+            sys.exit("--continual-rho-max must be positive")
     cfg = apply_overrides(CONFIGS[args.config], args)
     # the one mode-combination gate (modes that wait for a slice were
     # refused above, with their flags)
@@ -391,9 +455,17 @@ def main(argv: "list[str] | None" = None) -> dict:
             "hier": cfg.n_pods > 1,
             "vtrace": cfg.algo == "ppo" and cfg.ppo.correction == "vtrace",
             "sync": True,
+            # not the "vtrace" flag: continual forces the correction
+            # against the measured serving lag, which the vtrace x sync
+            # refusal (ratios == 1 on-policy) does not cover
+            "continual": args.continual is not None,
         })
     except ModeCombinationError as e:
         sys.exit(str(e))
+    if args.continual is not None and cfg.algo != "ppo":
+        sys.exit("--continual retrains through the V-trace-corrected "
+                 "PPO pipeline; the A2C update has no importance-"
+                 "corrected variant")
     check_source_jobs(args, cfg)
     try:
         if args.pbt:
@@ -415,6 +487,8 @@ def main(argv: "list[str] | None" = None) -> dict:
             print(f"resumed from step {ckpt.last_restored_step} "
                   f"(iteration {meta['iteration']}, {where})",
                   file=sys.stderr)
+        if args.continual is not None:
+            return _continual(args, exp, ckpt)
         view = FittestMemberView(exp) if args.pbt else exp
         eval_kw = {}
         if args.eval_every:

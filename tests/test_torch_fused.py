@@ -378,11 +378,17 @@ def test_train_refusals_are_jaxs_word_for_word(argv):
 
 @pytest.mark.parametrize("argv,item", [
     (["--async"], 20), (["--mesh", "auto"], 21), (["--pbt", "--async"], 20),
-    (["--continual", "x"], 23),
+    (["--continual", "x", "--fused-chunk", "2"], "fused_chunk"),
     (["--correction", "vtrace", "--async"], 20)])
 def test_train_modes_still_refused_name_their_item(argv, item):
     text = _exit_text(ttrain.main, argv + ["--device", "cpu"])
-    assert f"item {item})" in text
+    if isinstance(item, int):
+        assert f"item {item})" in text
+    else:
+        # --continual is ported; with --fused-chunk it is the mode
+        # table's refusal, JAX's word for word
+        assert text == _exit_text(jtrain.main, argv)
+        assert "--continual LOGDIR" in text and "--fused-chunk" in text
 
 
 def test_train_refuses_an_indivisible_fused_chunk():

@@ -422,3 +422,30 @@ def test_the_front_door_and_post_mortem_slice_has_its_pieces():
         assert callable(PolicyServer.queue_depth)
     finally:
         sys.path.remove(ROOT)
+
+
+def test_importing_the_flywheel_leaves_jax_out():
+    _leaves_jax_out(("flywheel", "flywheel.flightlog", "flywheel.canary",
+                     "flywheel.continual", "obs.report", "train"))
+
+
+def test_the_flywheel_slice_has_its_pieces():
+    """The flight log, the canary and the continual loop are the port's
+    own code, with the JAX package's public names."""
+    import importlib
+    sys.path.insert(0, ROOT)
+    try:
+        names = {os.path.relpath(p, ROOT) for p in _port_files()}
+        for f in ("__init__", "flightlog", "canary", "continual"):
+            assert f"rlgpuschedule_tpu_torch/flywheel/{f}.py" in names, f
+        fly = importlib.import_module("rlgpuschedule_tpu_torch.flywheel")
+        from rlgpuschedule_tpu import flywheel as jfly
+        assert sorted(fly.__all__) == sorted(jfly.__all__)
+        for n in fly.__all__:
+            assert getattr(fly, n).__module__.startswith(
+                "rlgpuschedule_tpu_torch.flywheel."), n
+        decision = importlib.import_module(
+            "rlgpuschedule_tpu_torch.decision")
+        assert decision.policy_decision_full.__module__ == decision.__name__
+    finally:
+        sys.path.remove(ROOT)

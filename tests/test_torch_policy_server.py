@@ -556,10 +556,15 @@ def test_stall_gate_is_served_through_the_server():
 
 
 def test_what_the_slice_lacks_is_refused(world):
-    with pytest.raises(NotImplementedError, match="item 23"):
+    # a flight log needs a capture engine; a capture engine decides the
+    # (actions, log_prob, value) triple
+    with pytest.raises(ValueError, match="capture"):
         PolicyServer(ArgmaxEngine(8), flight_log=object())
-    with pytest.raises(NotImplementedError, match="item 23"):
-        _engine(world, capture=True)
+    cap = _engine(world, capture=True)
+    (acts, lp, val), b = cap.decide(world["obs"][:5], world["mask"][:5])
+    assert cap.capture and b == 8 and acts.shape == lp.shape == val.shape
+    np.testing.assert_array_equal(
+        acts, _engine(world).decide(world["obs"][:5], world["mask"][:5])[0])
     # several dispatchers are the router's (tests/test_torch_router.py):
     # two of them over a 2-engine router serve every request
     router = EngineRouter(world["policy"], max_bucket=8, n_engines=2,

@@ -11,8 +11,10 @@ package reads the other's, and over one merged timeline
 ``build_report``, ``format_report``, ``to_chrome_trace``,
 ``build_span_tree``, ``async_overlap_summary``, ``learn_offsets`` and
 ``correct_events`` agree exactly. The CLI's exit codes (0, 1, 2),
-``--strict-alarms``, ``--trace-out`` and ``--out`` are JAX's, and
-``--flight-log`` is refused naming its ROADMAP item. Last,
+``--strict-alarms``, ``--trace-out`` and ``--out`` are JAX's, and so is
+``--request ID --flight-log DIR``, the join against a flight log (the
+row's shard and outcome) and a promotion ledger (the verdicts whose
+window covers it) that either package wrote. Last,
 ``build_request_report`` rebuilds the timelines of requests sent
 through the port's front door from the port server's own stream.
 """
@@ -228,13 +230,56 @@ def test_the_cli_fails_loudly_without_events(tmp_path, capsys):
     assert rc == 1 and "no decodable events" in err
 
 
-def test_the_flight_log_join_is_refused_naming_its_item(runs):
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1, item 23"):
-        treport.main([runs["torch", True], "--request", "7",
-                      "--flight-log", "x"])
-    with pytest.raises(NotImplementedError, match="item 23"):
-        treport.build_request_report([], 7, flight_dir="x")
+def test_the_flight_log_join_is_refused_naming_its_item(runs, tmp_path,
+                                                      capsys):
+    """Once refused, now ported: the request's flight-log row and the
+    ledger verdicts covering it, as JAX's report joins them."""
+    from rlgpuschedule_tpu.flywheel import canary as jcanary
+    from rlgpuschedule_tpu_torch.flywheel import (FlightLogWriter,
+                                                  PromotionLedger)
+    d = runs["torch", True]
+    rng = np.random.default_rng(2)
+    flogs = {}
+    for side in ("jax", "torch"):
+        f = str(tmp_path / side)
+        with FlightLogWriter(f, capacity=4) as w:
+            for lo in (0, 6):
+                rid = np.arange(lo, lo + 6, dtype=np.int64) + 3  # ids 3-14
+                w.append_batch(rng.random((6, 2), np.float32),
+                               np.ones((6, 3), bool),
+                               np.zeros(6, np.int32),
+                               np.zeros(6, np.float32),
+                               np.zeros(6, np.float32),
+                               np.zeros(6, np.int32),
+                               np.arange(6, dtype=np.int8) % 3, req_id=rid)
+        led = (jcanary.PromotionLedger(f) if side == "jax"
+               else PromotionLedger(f))
+        for action, rows in (("blocked", 12), ("promote", 3),
+                             ("rollback", 12)):
+            led.append({"action": action, "verdict": "promote",
+                        "candidate": "c", "window_rows": rows})
+        flogs[side] = f
+    for rid in ("7", "0x9", "4242", "14"):
+        for extra in ([], ["--json"]):
+            for f in flogs.values():
+                argv = [d, "--request", rid, "--flight-log", f] + extra
+                assert _main("torch", argv, capsys) == \
+                    _main("jax", argv, capsys)
+    events = jevents.merge_dir(d)
+    got = treport.build_request_report(events, 7, flight_dir=flogs["jax"])
+    assert got == jreport.build_request_report(events, 7,
+                                               flight_dir=flogs["jax"])
+    assert got["flight"]["shard_seq"] == 1 and got["flight"]["row"] == 0
+    assert got["flight"]["outcome_name"] == "met"
+    assert [v["action"] for v in got["verdicts"]] == ["blocked", "rollback"]
+    # an id only the log holds is found there; one nowhere is not
+    only = treport.build_request_report(events, 14,
+                                        flight_dir=flogs["torch"])
+    assert only["found"] and not only["stages"]
+    assert not treport.build_request_report(events, 4242, flogs["torch"])[
+        "found"]
+    assert "logged: shard 000001 row 0" in treport.format_request_report(
+        got)
 
 
 class SlowHostEngine:

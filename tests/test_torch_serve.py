@@ -208,22 +208,13 @@ def test_serve_cli_serves_jax_weights_from_npz(tmp_path):
     assert got["per_cluster"] == want["per_cluster"]
 
 
-DEFERRED_FLAGS = [
-    (["--flight-log", "d"], "item 23"), (["--promote", "d"], "item 23"),
-    (["--promote-noise", "0.1"], "item 23")]
-
-
 def test_serve_cli_refuses_what_the_slice_lacks():
-    """Each flag of the JAX CLI that a later slice brings fails with
-    NotImplementedError naming its ROADMAP.md item, in a subprocess as a
-    user meets it. The hierarchical preset's ``--bench`` runs through
-    one engine, and ``--engines 2`` of it exits with the mode table's
-    refusal in JAX's words (the router flags themselves are served:
-    ``tests/test_torch_router.py``)."""
-    for extra, item in DEFERRED_FLAGS:
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP.md queue 1, {item}"):
-            serve_cli.main(["--bench", "--device", "cpu"] + extra)
+    """The fault-regime fleet replay runs in a subprocess as a user meets
+    it. The hierarchical preset's ``--bench`` runs through one engine,
+    and ``--engines 2`` of it exits with the mode table's refusal in
+    JAX's words (the router flags themselves are served:
+    ``tests/test_torch_router.py``; the flywheel's flags:
+    ``tests/test_torch_flywheel_cli.py``)."""
     # the fault-regime fleet replay came with the chaos slice: it runs
     p = _run(["-m", "rlgpuschedule_tpu_torch.serve", "--config",
               "ppo-mlp-synth64", "--fleet", "2", "--device", "cpu",
