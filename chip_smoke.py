@@ -5,7 +5,11 @@ on one NVIDIA GPU.
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with one CUDA card. It
-imports nothing of JAX. Phases, each fatal on failure:
+imports nothing of JAX. A CLI named below runs through its ``main`` in
+this process, under torch's default cuDNN/TF32 switches, as ``python -m``
+would run it without a new interpreter's start; phase 18's bench and
+phase 24's train, evaluate and bench runs are processes of their own.
+Phases, each fatal on failure:
 
 1. Device: the card's name and power limit (nvidia-smi), and the list
    of hand-written kernels on the path (none in this slice).
@@ -14,7 +18,7 @@ imports nothing of JAX. Phases, each fatal on failure:
    in bf16 with seeded weights) against 512 simulated clusters through
    ``fleet_replay``; then a ``torch.profiler`` account of the decision
    step (launches per step, top device ops, device idle share).
-3. Card against CPU: the first 8 clusters replayed at f32 with TF32
+3. Card against CPU: the first 4 clusters replayed at f32 with TF32
    off on ``cuda`` and on ``cpu`` with the same weights. Greedy actions
    must agree step by step, except at a step where the CPU's top-two
    logit margin is below 1e-4; that cluster is no longer compared from
@@ -76,7 +80,7 @@ imports nothing of JAX. Phases, each fatal on failure:
    Python oracle, finish and start within atol 1e-6, status equal, avg
    JCT within rel 1e-9 (``tests/test_torch_oracle.py``'s tolerances),
    with the time per window of each backend.
-10. The entry points, each in a subprocess that must exit 0:
+10. The entry points, each of which must return:
     ``python -m rlgpuschedule_tpu_torch.evaluate --config
     ppo-cnn-philly512 --eval-windows 8 --max-steps 4096 --percentiles``
     and ``python -m rlgpuschedule_tpu_torch.train --config
@@ -88,9 +92,9 @@ imports nothing of JAX. Phases, each fatal on failure:
     the GNN over the 24-node topology graph), each at its published
     width: ``fleet_replay`` of 512 seeded clusters at horizon 1024
     (bf16, seeded weights) with decisions/s, device ops per decision
-    step and the unprofiled idle share (phase 2's profile); card against
-    CPU at f32 on 8 clusters under phase 3's rule, at the preset's
-    horizon; and a host-drawn
+    step and the unprofiled idle share (phase 2's profile over 4 and 12
+    steps); card against CPU at f32 on 4 clusters under phase 3's rule,
+    at the preset's horizon; and a host-drawn
     (numpy, seeded) masked-uniform action sequence fed through
     ``env.step`` on both devices on integer-valued traces, the sim
     state, mask and reward bit-identical at every step. Then a policy
@@ -106,7 +110,8 @@ imports nothing of JAX. Phases, each fatal on failure:
     f32 (parameters within atol 1e-5, phase 7's rule); ``jct_report``
     on 16 held-out windows (every row finite, completion printed,
     ``stall_guard`` recorded for ``ppo-mlp-preempt``); and the
-    ``evaluate`` CLI for ``gnn-gang-place`` in a subprocess.
+    ``evaluate`` CLI for ``gnn-gang-place`` (its ``main``, in this
+    process).
 
 13. The continuous-batching policy server of config 2 at full width
     (bf16, seeded weights) on one CUDA graph per bucket, the request
@@ -151,7 +156,7 @@ imports nothing of JAX. Phases, each fatal on failure:
     save and to restore are printed. The newest step's payload is then
     truncated: ``restore()`` must fall back to the older step and say
     so. ``evaluate --ckpt-dir --drain-frac 0.5`` and ``serve --ckpt-dir
-    --fleet 64`` in subprocesses on the card must restore that step and
+    --fleet 64`` on the card must restore that step and
     equal the same replays in this process, row for row and cluster for
     cluster. Last, the checkpoint on the CPU: a CPU experiment must
     refuse to continue its CUDA generators, and its policy at f32 (TF32
@@ -162,7 +167,7 @@ imports nothing of JAX. Phases, each fatal on failure:
     ``python -m rlgpuschedule_tpu_torch.select_checkpoint`` ranks them
     by full-trace avg JCT over Tiresias on a 128-job seed-2000
     validation stream (the reference's default is 1,024 jobs); the
-    chosen step's ``full_trace_report`` over a 256-job seed-123 stream
+    chosen step's ``full_trace_report`` over a 128-job seed-123 stream
     (``drain_completions=8``), every row finite; and that stitched
     replay at f32 on the card and on the CPU: the same number of windows
     and the avg JCT within rtol 1e-6, unless a decision where the CPU's
@@ -184,8 +189,8 @@ imports nothing of JAX. Phases, each fatal on failure:
     1e-5, metrics within phase 7's rule). ``fairness_report`` of the
     trained policy on 16 held-out windows (seed ``cfg.seed + 1000``),
     printed with its Jain column, every row finite; and ``evaluate
-    --fairness`` in a subprocess, restoring that policy from a
-    checkpoint, equal to it row for row.
+    --fairness`` (its ``main``, in this process), restoring that policy
+    from a checkpoint, equal to it row for row.
 17. Config 1 at its preset with each option: one iteration each with
     ``reward_norm``, ``bf16_update`` and ``bf16_advantages`` (finite
     metrics; f32 parameters, grads and Adam moments; the advantages
@@ -201,7 +206,7 @@ imports nothing of JAX. Phases, each fatal on failure:
     config 1 at the bench geometry (512 envs x 128 steps, 2 x 8), bit
     for bit under torch's default cuDNN switches (else within 10x of a
     second plain run's difference); then ``python -m
-    rlgpuschedule_tpu_torch.bench`` in a subprocess, its JSON line
+    rlgpuschedule_tpu_torch.bench`` in a process of its own, its JSON line
     (median env-steps/s, spread, the card's name and power limit)
     printed.
 
@@ -215,7 +220,7 @@ imports nothing of JAX. Phases, each fatal on failure:
     batch with the same permutations and hyperparameters (parameters
     within atol 1e-5, metrics within phase 7's rule). One hierarchical
     ``Experiment``: a warm-up and 3 timed iterations (env-steps/s), a
-    32-step rollout under ``torch.profiler`` (device ops per rollout
+    16-step rollout under ``torch.profiler`` (device ops per rollout
     step, idle share), finite losses. A ``PopulationExperiment``
     of 4 members exploiting every 2 iterations: 2 iterations, a
     checkpoint (bytes, save ms), 1 more, a snapshot, 1 more; at least one
@@ -225,11 +230,11 @@ imports nothing of JAX. Phases, each fatal on failure:
     fresh population restored from the checkpoint (restore ms) and run 1
     iteration must equal the snapshot bit for bit (parameters, Adam
     state, carries, generators, hyperparameters, decisions). Then the
-    fittest member's ``jct_report`` on 16 held-out windows (seed
+    fittest member's ``jct_report`` on 8 held-out windows (seed
     ``cfg.seed + 1000``) against FIFO, SJF, SRTF and Tiresias, every row
-    finite, completion and ``vs_tiresias`` printed; and ``python -m
-    rlgpuschedule_tpu_torch.evaluate --pbt`` from the population's
-    checkpoint in a subprocess, equal to it row for row.
+    finite, completion and ``vs_tiresias`` printed; and ``evaluate
+    --pbt`` (its ``main``, in this process) from the population's
+    checkpoint, equal to it row for row.
 
 20. The multi-engine router of config 2 at full width (bf16, seeded
     weights; phase 13's 320-row pool) with its engines sharing the card,
@@ -264,17 +269,18 @@ imports nothing of JAX. Phases, each fatal on failure:
 21. Cluster chaos and domain randomization (each check fatal): config
     2 at full width (bf16, seeded weights) replays the 512-cluster fleet
     clean and under ``storm`` schedules from ``sample_fleet_faults``
-    (what ``serve --fleet-regime storm`` runs), each profiled (device
-    ops per step, idle share); then ``eval.replay`` under a ``mixed``
-    ``DomainSchedule`` over 512 windows from ``make_domain_windows``.
-    For each schedule the first 8 clusters replay on the card with the
+    (what ``serve --fleet-regime storm`` runs), each profiled over 4 and
+    12 steps (device ops per step, idle share); then ``eval.replay``
+    under a ``mixed`` ``DomainSchedule`` over 512 windows from
+    ``make_domain_windows``.
+    For each schedule the first 4 clusters replay on the card with the
     policy and on the CPU with the card's actions fed back: the final
     states, the per-job JCTs and every ``EvalResult`` field must be
     bit-identical, but ``avg_jct`` (an f32 sum whose order differs
     between the devices) within rtol 1e-6. Config 1
     (``ppo-mlp-synth64``, its preset width) trains clean, with
     ``--faults storm`` and with ``--domains mixed`` through the train
-    CLI's ``main`` (4 iterations each, env-steps/s printed side by side); ``evaluate --chaos`` over none, sporadic,
+    CLI's ``main`` (2 iterations each, env-steps/s printed side by side); ``evaluate --chaos`` over none, sporadic,
     storm and straggler and ``evaluate --matrix`` over none, baseline,
     hetero and overload run on the trained checkpoints (every cell's
     conservation check holds, 0 jobs lost), and each table's policy rows
@@ -288,7 +294,7 @@ imports nothing of JAX. Phases, each fatal on failure:
     sync guard on in every dispatch) and ``start_frontend(port=0)``.
     Every row of a 320-row pool is first served in process
     (``submit``, inline pump); then 8 HTTP keep-alive clients and 8
-    framed clients, one process each, send 1,000 requests each over
+    framed clients, one process each, send 500 requests each over
     real sockets, each with its own request id: every reply echoes its
     id, and every action equals the in-process one for its row, but at
     a top-two margin below 1e-4 (the flips counted and printed);
@@ -303,9 +309,9 @@ imports nothing of JAX. Phases, each fatal on failure:
     ``serve_requests_total`` equals served plus shed, 0 dispatch errors,
     0 recompiles, the sync-debug mode back at 0. 32 requests past a
     high-water mark of 8 with no dispatcher pause the reads, and all 32
-    answer 200 once it starts. In subprocesses: ``serve --config
+    answer 200 once it starts. Then ``serve --config
     ppo-cnn-philly512 --bucket 256 --soak 4 --frontend-port 0 --obs-dir
-    D --trace-spans --host-path --wire-requests 1000`` (self-check 200,
+    D --trace-spans --host-path --wire-requests 500`` (self-check 200,
     ``server-closed``, ``refused``; then both wire arms' decisions/s,
     the arena arm's allocations 0), then ``python -m
     rlgpuschedule_tpu_torch.obs.report D --request ID --json`` for the
@@ -334,10 +340,36 @@ imports nothing of JAX. Phases, each fatal on failure:
     (the disagreements and near ties printed). (5) ``python -m
     rlgpuschedule_tpu_torch.serve --flight-log D --durable-log
     --promote-noise 0.5`` is blocked, then ``--promote CKPTDIR
-    --promote-fault`` (the retrained candidate if the canary passes it,
-    else the served weights' step 0) promotes with 0 swap recompiles,
+    --promote-fault --canary-tol 1.0`` promotes the retrained candidate
+    (the canary still runs and is recorded) with 0 swap recompiles,
     rolls back on the injected p99 breach with the probe bit for bit, and
     the ledger reads ``blocked, promote, rollback``.
+24. Run-loop observability (each check fatal), config 1: (5b)
+    ``profile_breakdown --sweep-minibatch`` (its ``main``, in this
+    process under torch's default switches) at 64 envs x 128 steps (one
+    repeat): ranked fastest first; then side by side (no wall or rate
+    of theirs is kept) ``bench --sweep`` on that artifact on the host
+    CPU (it must run the sweep's best geometry; the card's bench is
+    phase 18's), (1) ``train
+    --obs-dir --alarms --trace-spans --log-csv --tb-dir`` at the
+    preset's width (4 envs x 128 steps, 3 iterations: 3 iteration events,
+    0 recompile and 0 transfer events, the CSV and the TensorBoard file
+    written), (2) the same with ``--alarm-slow-iter 0.001`` (slow
+    iterations, exactly one profiler capture under ``<obs>/profile``
+    holding CUDA kernel events), (4) ``evaluate --matrix --obs-dir
+    --alarms``, and in this process (3) an ``Alarms`` scope: a warm
+    engine dispatch stays clean under the sync guard, a forced
+    ``.item()`` raises ``AlarmError`` with a ``transfer`` event, and a
+    dispatch at a bucket the engine never captured (guard off: a capture
+    synchronizes) is a ``recompile``; (6) ``debug_checks`` passes a clean
+    iteration and raises ``FloatingPointError`` on a NaN weight.
+    ``obs.report --strict-alarms`` (its ``main``) exits 0 on (1) and (4)
+    and 1 on (2). (5) ``profile_breakdown`` (its ``main``) at 512 x 128,
+    ``--repeats 3`` of 3 calls, alone: every stage's wall, its event-pair
+    span and its busy milliseconds on the card (the profiler's kernel
+    intervals), the sum of the parts against the fused loop,
+    ``mfu_update`` priced on the card's bf16 peak, and a ``--trace-dir``
+    capture.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it is the card's name and power limit. Without a CUDA device, or
@@ -357,7 +389,7 @@ import time
 
 CONFIG = "ppo-cnn-philly512"
 N_CLUSTERS = 512          # the serve CLI's documented --fleet 512
-N_COMPARE = 8
+N_COMPARE = 4             # clusters card against CPU (phases 3, 11)
 MARGIN = 1e-4
 BUCKETS = {16: (9, 12, 16), 256: (129, 200, 256)}
 LATENCY_REPS = 30
@@ -387,7 +419,7 @@ CKPT_DRAIN, CKPT_RESAMPLE, CKPT_ITERS = 0.5, 2, 4   # phase 14
 CKPT_FLEET = 64           # serve --ckpt-dir --fleet 64
 CKPT_COMPARE_FROM = 2     # phase 14 replays windows 2-5: 2 of each kind
 SELECT_ITERS = 6          # phase 15: 3 checkpoints kept, one every 2
-SELECT_VAL_JOBS, SELECT_TEST_SEED, SELECT_TEST_JOBS = 128, 123, 256
+SELECT_VAL_JOBS, SELECT_TEST_SEED, SELECT_TEST_JOBS = 128, 123, 128
 SELECT_STITCH_DRAIN = 8
 FAIR_CONFIG = "a2c-pai-fair"
 FAIR_TIMED = 20           # phase 16: timed A2C iterations after a warm-up
@@ -400,12 +432,12 @@ FUSED_ITERS = 4           # phase 18: run_fused(4) against run(4)
 HIER_CONFIG = "hier-pbt-member"
 HIER_REPLAY_STEPS = 32    # phase 19's rollout replayed on the CPU
 HIER_TIMED = 3            # phase 19: timed iterations after a warm-up
-HIER_PROFILE_STEPS = 32   # phase 19's profiled rollout
+HIER_PROFILE_STEPS = 16   # phase 19's profiled rollout
 HIER_POP = 4              # phase 19's population
 HIER_READY = 2            # its exploit/explore cadence
 HIER_POP_ITERS = 4
 HIER_RESUME = (2, 1)      # 2 iterations, a save, 1 more against 3
-HIER_WINDOWS = 16         # phase 19's held-out JCT table
+HIER_WINDOWS = 8          # phase 19's held-out JCT table
 ROUTER_SIZES = (129, 200, 256)  # phase 20's scale-out request sizes
 ROUTER_ROUNDS = 64
 ROUTER_SOAK_S, ROUTER_RATE = 4.0, 2000.0
@@ -415,14 +447,22 @@ CHAOS_FAULTS = ("engine-raise@20:engine=1,engine-hang@60:engine=1,"
                 "engine-slow@100:engine=1")
 HIER_SERVE_SIZES = (5, 17, 32)
 HIER_SERVE_SEEDS = 8      # phase 20 (5): seeds tried for weights that route
-CHAOS_COMPARE = 8         # phase 21: clusters replayed card against CPU
-CHAOS_TRAIN_ITERS = 4     # phase 21: config-1 train CLI runs
+CHAOS_COMPARE = 4         # phase 21: clusters replayed card against CPU
+CHAOS_TRAIN_ITERS = 2     # phase 21: config-1 train CLI runs
 FRONTEND_CLIENTS = 8      # phase 22: clients of each dialect
-FRONTEND_REQUESTS = 1000  # phase 22: requests each client sends
+FRONTEND_REQUESTS = 500   # phase 22: requests each client sends
 FRONTEND_DRAIN_BOUND_S = 10.0   # phase 22: the drain's bound
-FRONTEND_WIRE_REQUESTS = 1000   # phase 22: serve --wire-requests
+FRONTEND_WIRE_REQUESTS = 500    # phase 22: serve --wire-requests
 FLY_SOAK_S, FLY_RATE, FLY_DEADLINE_S = 4.0, 2000.0, 0.05   # phase 23
 FLY_CAPACITY = 512        # phase 23: flight-log rows per shard
+OBS_ITERS = 3             # phase 24: train CLI iterations per run
+OBS_SLOW_S = 0.001        # phase 24: --alarm-slow-iter, below any iteration
+OBS_NAN_STEPS = 16        # phase 24: the rollout of the --debug-nans run
+BREAKDOWN_GEOMETRY = ("512", "128")   # phase 24: the breakdown's envs x steps
+SWEEP_GEOMETRY = ("64", "128")   # phase 24: the sweep's envs x steps
+SHORT_PROFILE = (4, 12)   # phases 11 and 21: the replay lengths profiled
+KERNEL_EVENT = b'"cat": "kernel"'  # a card kernel in a torch Chrome trace
+BREAKDOWN = "rlgpuschedule_tpu_torch.profile_breakdown"
 FLY_ITERS = 2             # phase 23: continual learn steps
 # phase 23: the soak arms in run order, each twice more after its first
 # place (A B B A A B), so neither arm always runs first
@@ -1152,25 +1192,90 @@ def eval_compare_phase(torch, dev, windows):
           baseline_s_per_window=secs)
 
 
-def _run_cli(module: str, args: list[str], timeout: int = 600):
-    """``python -m <module> <args>`` from the checkout; its JSON lines."""
+def _spawn(module: str, args: list[str], env: "dict | None" = None):
+    """``python -m <module> <args>`` from the checkout, started and not
+    waited for (:func:`_reap_all` collects it), with ``env`` added to
+    this process's environment. Its stdout and stderr go to unnamed
+    temporary files, never to pipes: a child whose pipe nobody reads
+    would block once it filled."""
+    import tempfile
     root = os.path.dirname(os.path.abspath(__file__))
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    p = subprocess.Popen([sys.executable, "-m", module, *args], cwd=root,
+                         env=dict(os.environ, PYTHONPATH=root, **(env or {})),
+                         stdout=out, stderr=err, text=True)
+    return p, out, err, time.perf_counter()
+
+
+def _reap_all(children: dict, timeout: int = 600) -> dict:
+    """Wait for :func:`_spawn`-ed CLIs, each at most ``timeout`` s from
+    its start (past that every one is killed); per child its JSON lines,
+    stderr and wall from start to exit (polled every 50 ms). Fatal if
+    one fails."""
+    walls = {}
+    while len(walls) < len(children):
+        for k, (p, _, _, t0) in children.items():
+            if k not in walls and p.poll() is not None:
+                walls[k] = time.perf_counter() - t0
+            elif k not in walls and time.perf_counter() - t0 > timeout:
+                _kill(children)
+                raise SystemExit(f"python -m {p.args[2]} ran past "
+                                 f"{timeout} s")
+        time.sleep(0.05)
+    done = {}
+    for k, (p, out, err, _) in children.items():
+        out.seek(0)
+        err.seek(0)
+        stdout, stderr = out.read(), err.read()
+        out.close()
+        err.close()
+        if p.returncode != 0:
+            print(stderr[-4000:], file=sys.stderr)
+            raise SystemExit(f"python -m {p.args[2]} exited {p.returncode}")
+        done[k] = ([json.loads(x) for x in stdout.splitlines()
+                    if x.startswith("{")], stderr, walls[k])
+    return done
+
+
+def _kill(children: dict) -> None:
+    """Kill and wait for every :func:`_spawn`-ed CLI still running."""
+    for p, *_ in children.values():
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def _run_main(module: str, args: list[str]):
+    """``<module>.main(args)`` in this process: the CLI as ``python -m
+    <module>`` runs it but without a new interpreter's start and card
+    setup (10-20 s each), under torch's default cuDNN/TF32 switches as a
+    new process has them (earlier phases change them); its JSON lines,
+    what ``main`` returned and its wall. Fatal if ``main`` returns a
+    nonzero exit code."""
+    import importlib
+    import io
+
+    import torch
+    out = io.StringIO()
+    old = _flags(torch, tf32=True, deterministic=False)
     t0 = time.perf_counter()
-    p = subprocess.run([sys.executable, "-m", module, *args], cwd=root,
-                       env=dict(os.environ, PYTHONPATH=root),
-                       capture_output=True, text=True, timeout=timeout)
+    try:
+        with contextlib.redirect_stdout(out):
+            ret = importlib.import_module(module).main(args)
+    finally:
+        _restore_flags(torch, old)
     wall = time.perf_counter() - t0
-    if p.returncode != 0:
-        print(p.stderr[-4000:], file=sys.stderr)
-        raise SystemExit(f"python -m {module} exited {p.returncode}")
-    lines = [json.loads(x) for x in p.stdout.splitlines()
+    if isinstance(ret, int) and ret:
+        print(out.getvalue()[-4000:], file=sys.stderr)
+        raise SystemExit(f"{module}.main{tuple(args)} returned {ret}")
+    lines = [json.loads(x) for x in out.getvalue().splitlines()
              if x.startswith("{")]
-    return lines, p.stderr, wall
+    return lines, ret, wall
 
 
 def entry_point_phase(torch, dev):
     """The evaluate and train CLIs on the card (phase 10)."""
-    lines, err, wall = _run_cli(
+    lines, _, wall = _run_main(
         "rlgpuschedule_tpu_torch.evaluate",
         ["--config", CONFIG, "--eval-windows", "8", "--max-steps",
          str(EVAL_STEPS), "--percentiles"])
@@ -1180,7 +1285,7 @@ def entry_point_phase(torch, dev):
             _finite(line["policy"], line["vs_tiresias"],
                     line["policy_completion"])):
         raise SystemExit(f"evaluate CLI: {line}")
-    lines, err, wall = _run_cli(
+    lines, _, wall = _run_main(
         "rlgpuschedule_tpu_torch.train",
         ["--config", BENCH_CONFIG, "--iterations", "6", "--eval-every", "3",
          "--report"])
@@ -1293,7 +1398,8 @@ def action_space_phase(torch, dev):
         policy = fleet_phase(torch, cfg, env_params, traces, dev)
         # phase 2's method over a shorter window (the profiler's own
         # processing of the events is most of its cost)
-        prof = _replay_profile(torch, env_params, traces, policy, 4, 20)
+        prof = _replay_profile(torch, env_params, traces, policy,
+                               *SHORT_PROFILE)
         _line("new_profile", config=name,
               fleet_and_profile_wall_s=time.perf_counter() - t0,
               **{k: prof[k] for k in (
@@ -1459,7 +1565,7 @@ def preset_train_eval_phase(torch, dev):
                              f"{report.get('stall_guard')}")
         del exp
 
-    lines, err, wall = _run_cli(
+    lines, err, wall = _run_main(
         "rlgpuschedule_tpu_torch.evaluate",
         ["--config", "gnn-gang-place", "--percentiles"])
     (line,) = lines
@@ -1749,8 +1855,8 @@ def policy_server_phase(torch, dev, eager_latency):
         raise SystemExit(f"host path: the arena arm allocated {arena}")
 
     # (9) the serve CLI's bench
-    lines, err, wall = _run_cli(
-        "rlgpuschedule_tpu_torch.serve",
+    lines, _, wall = _run_main(
+        "rlgpuschedule_tpu_torch.serve.__main__",
         ["--config", CONFIG, "--bench", "--bucket", "256"])
     (line,) = lines
     b = line["bench"]
@@ -1934,9 +2040,9 @@ def checkpoint_phase(torch, dev):
             raise SystemExit(f"the crc fallback did not fire: restored "
                              f"{ck.last_restored_step}, said {said!r}")
 
-        # (4) evaluate and serve in processes of their own (they fall
-        # back to the same step) against the same replays in this one
-        lines, _, eval_wall = _run_cli(
+        # (4) the evaluate and serve CLIs (they fall back to the same
+        # step) against the same replays done here
+        lines, _, eval_wall = _run_main(
             "rlgpuschedule_tpu_torch.evaluate",
             ["--config", CONFIG, "--ckpt-dir", d, "--drain-frac",
              str(CKPT_DRAIN), "--no-random", "--max-steps",
@@ -1945,8 +2051,8 @@ def checkpoint_phase(torch, dev):
         here = Experiment.build(cfg, device=dev)
         here.restore_checkpoint(Checkpointer(d), train=False)
         want = jct_report(here, max_steps=EVAL_STEPS, include_random=False)
-        lines, _, serve_wall = _run_cli(
-            "rlgpuschedule_tpu_torch.serve",
+        lines, _, serve_wall = _run_main(
+            "rlgpuschedule_tpu_torch.serve.__main__",
             ["--config", CONFIG, "--ckpt-dir", d, "--fleet",
              str(CKPT_FLEET)])
         (sv,) = lines
@@ -2036,7 +2142,7 @@ def select_phase(torch, dev):
                   ckpt_every=SELECT_ITERS // 3)
     wall["train"] = _sync(torch) - t0
     steps = Checkpointer(d).all_steps()
-    lines, _, wall["select_checkpoint"] = _run_cli(
+    lines, _, wall["select_checkpoint"] = _run_main(
         "rlgpuschedule_tpu_torch.select_checkpoint",
         ["--config", BENCH_CONFIG, "--ckpt-dir", d, "--val-jobs",
          str(SELECT_VAL_JOBS), "--test-seed", str(SELECT_TEST_SEED)])
@@ -2344,7 +2450,7 @@ def fair_phase(torch, dev):
     try:
         with Checkpointer(os.path.join(tmp, "ck")) as ck:
             exp.save_checkpoint(ck)
-        lines, _, wall = _run_cli(
+        lines, _, wall = _run_main(
             "rlgpuschedule_tpu_torch.evaluate",
             ["--config", cfg.name, "--fairness", "--ckpt-dir",
              os.path.join(tmp, "ck"), "--seed", str(held.seed), "--n-envs",
@@ -2517,8 +2623,11 @@ def fused_phase(torch, dev):
         del a, b
     finally:
         _restore_flags(torch, old)
-    lines, err, wall = _run_cli("rlgpuschedule_tpu_torch.bench", [],
-                                timeout=900)
+    # the bench in a process of its own, as its users run it: in this
+    # process, after the earlier phases, the same fused loop runs slower
+    lines, _, wall = _reap_all(
+        {"bench": _spawn("rlgpuschedule_tpu_torch.bench", [])},
+        timeout=900)["bench"]
     (line,) = lines
     print(json.dumps(line), flush=True)
     _line("bench_cli", wall_s=wall, value=line["value"],
@@ -2805,7 +2914,7 @@ def hier_pbt_phase(torch, dev):
         if not _finite(*rows.values(), report["vs_tiresias"],
                        report["policy_completion"]):
             raise SystemExit(f"config 5: non-finite JCT table {report}")
-        lines, _, wall = _run_cli(
+        lines, _, wall = _run_main(
             "rlgpuschedule_tpu_torch.evaluate",
             ["--config", cfg.name, "--pbt", "--n-pop", str(HIER_POP),
              "--ckpt-dir", os.path.join(tmp, "final"), "--seed",
@@ -3121,8 +3230,8 @@ def chaos_phase(torch, dev):
                  faults=storm)
     for name, f in (("clean", None), ("storm", storm)):
         fl = fleet_replay(policy, env_params, traces, device=dev, faults=f)
-        prof = _replay_profile(torch, env_params, traces, policy, 4, 20,
-                               faults=f)
+        prof = _replay_profile(torch, env_params, traces, policy,
+                               *SHORT_PROFILE, faults=f)
         _line("chaos_fleet", config=cfg.name, regime=name,
               n_clusters=fl["n_clusters"], decisions=fl["decisions"],
               wall_s=fl["wall_s"], decisions_per_s=fl["decisions_per_s"],
@@ -3158,7 +3267,7 @@ def chaos_phase(torch, dev):
     t0 = _sync(torch)
     res = replay(policy, dparams, dtraces, faults=mixed)
     wall = _sync(torch) - t0
-    prof = _replay_profile(torch, dparams, dtraces, policy, 4, 20,
+    prof = _replay_profile(torch, dparams, dtraces, policy, *SHORT_PROFILE,
                            faults=mixed)
     done, valid = int(res.n_done.sum()), int(res.n_valid.sum())
     _line("chaos_domains", config=cfg.name, regime="mixed",
@@ -3388,8 +3497,8 @@ def _hier_serve(torch, dev):
         # every row no-op: the top head's comparison would hold one
         # constant action
         raise SystemExit(f"config 5: no row routed ({routable} could)")
-    lines, err, wall = _run_cli(
-        "rlgpuschedule_tpu_torch.serve",
+    lines, _, wall = _run_main(
+        "rlgpuschedule_tpu_torch.serve.__main__",
         ["--config", HIER_CONFIG, "--bench", "--bucket", "64", "--soak",
          "2", "--rate", "1000", "--deadline-ms", "50"])
     (line,) = lines
@@ -3748,21 +3857,22 @@ def frontend_phase(torch, dev):
                          f"{sorted(set(results))}")
     del engine, server, bserver, policy
 
-    # (6) the CLI in one process: the front door around a soak with the
+    # (6) the CLI in one run: the front door around a soak with the
     # request spans, then the host path with its wire arms; the
     # post-mortem of one of its requests, and the run's alarms
     with tempfile.TemporaryDirectory() as d:
-        lines, _, wall = _run_cli(
-            "rlgpuschedule_tpu_torch.serve",
+        lines, _, wall = _run_main(
+            "rlgpuschedule_tpu_torch.serve.__main__",
             ["--config", CONFIG, "--bucket", "256", "--soak", "4",
              "--frontend-port", "0", "--obs-dir", d, "--trace-spans",
              "--host-path", "--wire-requests", str(FRONTEND_WIRE_REQUESTS)])
         (line,) = lines
         fe, sk, hp = line["frontend"], line["soak"], line["host_path"]
-        rep, _, _ = _run_cli(
+        rep, _, _ = _run_main(
             "rlgpuschedule_tpu_torch.obs.report",
             [d, "--request", str(fe["request_id"]), "--json"])
-        _run_cli("rlgpuschedule_tpu_torch.obs.report", [d, "--strict-alarms"])
+        _run_main("rlgpuschedule_tpu_torch.obs.report",
+                  [d, "--strict-alarms"])
         stages = [s["stage"] for s in rep[0]["stages"]]
     legacy, arena = hp["arms"]
     http, framed = hp["wire_arms"]
@@ -4019,11 +4129,12 @@ def flywheel_phase(torch, dev):
         # recorded), watched, rolled back by an injected fault
         base = ["--config", CONFIG, "--bucket", "256", "--flight-log", flog,
                 "--durable-log"]
-        lines, _, blk_wall = _run_cli("rlgpuschedule_tpu_torch.serve",
-                                      base + ["--promote-noise", "0.5"])
+        lines, _, blk_wall = _run_main(
+            "rlgpuschedule_tpu_torch.serve.__main__",
+            base + ["--promote-noise", "0.5"])
         blk = lines[-1]["promote"]
-        lines, _, pro_wall = _run_cli(
-            "rlgpuschedule_tpu_torch.serve",
+        lines, _, pro_wall = _run_main(
+            "rlgpuschedule_tpu_torch.serve.__main__",
             base + ["--promote", cand_dir, "--canary-tol", "1.0",
                     "--promote-fault"])
         pro = lines[-1]["promote"]
@@ -4070,6 +4181,223 @@ def flywheel_phase(torch, dev):
                              f"ledger {actions} + {len(tail)}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _events(obs_dir: str) -> list[dict]:
+    from rlgpuschedule_tpu_torch.obs import merge_dir
+    return merge_dir(obs_dir)
+
+
+def telemetry_phase(torch, dev):
+    """Phase 24: the run-loop observability of config 1 on the card."""
+    import io
+    import shutil
+    import tempfile
+
+    from rlgpuschedule_tpu_torch.obs import report as report_cli
+
+    from rlgpuschedule_tpu_torch.bench import card_info
+    from rlgpuschedule_tpu_torch.configs import CONFIGS
+    from rlgpuschedule_tpu_torch.experiment import Experiment
+    from rlgpuschedule_tpu_torch.obs import (AlarmError, Alarms, EventBus,
+                                             Registry)
+    from rlgpuschedule_tpu_torch.profile_breakdown import BF16_PEAK
+    from rlgpuschedule_tpu_torch.serve import InferenceEngine
+    from rlgpuschedule_tpu_torch.utils import profiling
+
+    smi = _nvidia_smi()
+    name, limit = card_info()
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    procs = {}
+    try:
+        d = {k: os.path.join(tmp, k) for k in
+             ("clean", "slow", "matrix", "alarms", "trace")}
+        # (5b) the minibatch sweep at a cut width, alone on the card (in
+        # this process, under torch's default switches, as the CLI runs)
+        sweep = os.path.join(tmp, "sweep.json")
+        _, art, sweep_wall = _run_main(BREAKDOWN, [
+            "--sweep-minibatch", "--n-envs", SWEEP_GEOMETRY[0],
+            "--n-steps", SWEEP_GEOMETRY[1], "--repeats", "1",
+            "--iters-per-repeat", "1", "--sweep-out", sweep])
+        best = art["best"]
+        times = [r["update_s_per_iteration"] for r in art["results"]]
+        if times != sorted(times) or best != art["results"][0]:
+            raise SystemExit(f"sweep not ranked fastest first: {times}")
+        # then side by side, as no wall or rate of theirs is kept: the
+        # bench fed the sweep, (1) and (2) the train CLI, (4) the matrix
+        train = ["--config", BENCH_CONFIG, "--iterations", str(OBS_ITERS),
+                 "--log-every", "1", "--alarms"]
+        procs.update({
+            # on the host CPU: it checks the geometry the bench reads
+            # (phase 18 runs the bench on the card); on 2 threads, as its
+            # small operations gain nothing from more and the children
+            # beside it share the host's cores
+            "bench": _spawn("rlgpuschedule_tpu_torch.bench",
+                            ["--sweep", sweep, "--device", "cpu"],
+                            env={"OMP_NUM_THREADS": "2"}),
+            "clean": _spawn("rlgpuschedule_tpu_torch.train", [
+                *train, "--obs-dir", d["clean"], "--trace-spans",
+                "--log-csv", os.path.join(tmp, "m.csv"),
+                "--tb-dir", os.path.join(tmp, "tb")]),
+            "slow": _spawn("rlgpuschedule_tpu_torch.train", [
+                *train, "--obs-dir", d["slow"],
+                "--alarm-slow-iter", str(OBS_SLOW_S)]),
+            "matrix": _spawn("rlgpuschedule_tpu_torch.evaluate", [
+                "--config", BENCH_CONFIG, "--matrix", "--obs-dir",
+                d["matrix"], "--alarms"]),
+        })
+        # (3) an Alarms scope in this process: the warm control and a
+        # forced read under the guard, then a bucket never captured
+        exp = Experiment.build(CONFIGS[BENCH_CONFIG], device=dev)
+        obs = exp.carry.obs.cpu().numpy()
+        mask = exp.carry.mask.cpu().numpy()
+        engine = InferenceEngine(exp.net, max_bucket=4, device=dev)
+        engine.warmup(obs[0], mask[0], buckets=(1, 2))
+        bus = EventBus(d["alarms"], rank=0, name="alarms")
+        caught = None
+        with Alarms(bus, Registry(), device=dev) as al:
+            with al.dispatch(0):
+                engine.decide(obs[:1], mask[:1])          # the warmup
+            with al.dispatch(1):
+                engine.decide(obs[:2], mask[:2])          # warm control
+            x = torch.ones(3, device=dev)
+            try:
+                with al.dispatch(2):
+                    float(x.sum().item())
+            except AlarmError as e:
+                caught = str(e)
+        with Alarms(bus, Registry(), transfer_guard=False, device=dev) as al:
+            with al.dispatch(0):
+                engine.decide(obs[:1], mask[:1])
+            with al.dispatch(1):
+                engine.decide(obs[:3], mask[:3])          # bucket 4: new
+        bus.close()
+        kinds = [e["kind"] for e in _events(d["alarms"])]
+        if caught is None or kinds.count("transfer") != 1 \
+                or kinds.count("recompile") != 1:
+            raise SystemExit(f"alarm scope on the card: AlarmError "
+                             f"{caught is not None}, events {kinds}")
+        # (6) --debug-nans: a clean iteration passes (a cut rollout: every
+        # operation reads back), a NaN weight raises
+        del engine
+        cut = CONFIGS[BENCH_CONFIG]
+        cut = dataclasses.replace(cut, ppo=dataclasses.replace(
+            cut.ppo, n_steps=OBS_NAN_STEPS))
+        exp = Experiment.build(cut, device=dev)
+        with profiling.debug_checks():
+            exp.run(1)
+        with torch.no_grad():
+            next(exp.net.parameters()).view(-1)[0] = float("nan")
+        nan_error = None
+        try:
+            with profiling.debug_checks():
+                exp.run(1)
+        except FloatingPointError as e:
+            nan_error = str(e)
+        if nan_error is None:
+            raise SystemExit("--debug-nans: a NaN weight did not raise")
+        del exp
+
+        t0 = time.perf_counter()
+        done = _reap_all(procs)
+        reap_wait = time.perf_counter() - t0
+        bench = done["bench"][0][-1]
+        geom = bench["geometry"]
+        if (geom["n_epochs"], geom["n_minibatches"]) != (
+                best["n_epochs"], best["n_minibatches"]):
+            raise SystemExit(f"bench --sweep ran {geom}, the sweep's best "
+                             f"is {best}")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rcs = {k: report_cli.main([d[k], "--strict-alarms"])
+                   for k in ("clean", "slow", "matrix")}
+        if rcs != {"clean": 0, "slow": 1, "matrix": 0}:
+            raise SystemExit(f"obs.report --strict-alarms exit codes {rcs} "
+                             f"(want clean 0, slow 1, matrix 0)")
+        ev = {k: _events(d[k]) for k in ("clean", "slow", "matrix")}
+        count = {k: {kind: sum(e["kind"] == kind for e in es)
+                     for kind in ("iteration", "compile", "recompile",
+                                  "transfer", "slow_iteration",
+                                  "profile_captured", "span_begin")}
+                 for k, es in ev.items()}
+        prom = open(os.path.join(d["clean"], "metrics.prom")).read()
+        with open(os.path.join(tmp, "m.csv")) as f:
+            csv_rows = len(f.read().splitlines()) - 1
+        tb_bytes = sum(os.path.getsize(os.path.join(tmp, "tb", f))
+                       for f in os.listdir(os.path.join(tmp, "tb")))
+        profiles = sorted(os.listdir(os.path.join(d["slow"], "profile")))
+        kernel_events = 0
+        if len(profiles) == 1:
+            with open(os.path.join(d["slow"], "profile", profiles[0]),
+                      "rb") as f:
+                kernel_events = f.read().count(KERNEL_EVENT)
+        walls = [e["wall_s"] for e in ev["slow"]
+                 if e["kind"] == "iteration"]
+        c, sl = count["clean"], count["slow"]
+        if c["iteration"] != OBS_ITERS or c["recompile"] or c["transfer"] \
+                or not c["span_begin"] \
+                or f"rlsched_iterations_total {OBS_ITERS}" not in prom \
+                or csv_rows != OBS_ITERS or not tb_bytes:
+            raise SystemExit(f"train --obs-dir --alarms: {c}, csv rows "
+                             f"{csv_rows}, tensorboard bytes {tb_bytes}")
+        if not sl["slow_iteration"] or sl["profile_captured"] != 1 \
+                or len(profiles) != 1 or not kernel_events \
+                or min(walls) <= OBS_SLOW_S:
+            raise SystemExit(f"--alarm-slow-iter: {sl}, profiles "
+                             f"{profiles}, kernel events {kernel_events}")
+        if count["matrix"]["recompile"] or count["matrix"]["transfer"]:
+            raise SystemExit(f"evaluate --matrix --alarms: "
+                             f"{count['matrix']}")
+        _line("obs_alarms", card=name, power_limit=limit, counts=count,
+              report_exit_codes=rcs, csv_rows=csv_rows,
+              tensorboard_bytes=tb_bytes, profile_kernel_events=kernel_events,
+              slow_iteration_walls_s=walls, alarm_scope_events=kinds,
+              alarm_error=caught[:160], debug_nans_error=nan_error[:160],
+              child_walls_s={k: v[2] for k, v in done.items()},
+              reap_wait_s=reap_wait)
+        _line("obs_sweep", card=name, power_limit=limit,
+              geometry=SWEEP_GEOMETRY, best=best, geometries=len(times),
+              sweep_wall_s=sweep_wall, bench_geometry=geom,
+              # the bench ran on the host beside the CLIs: a check only
+              bench_device=bench["metric"])
+
+        # (5) the stage breakdown at 512 x 128, alone on the card
+        # (3 calls a window, the tool's default: with one, the loop and
+        # the blocked step would time the same thing)
+        _, art, wall = _run_main(BREAKDOWN, [
+            "--n-envs", BREAKDOWN_GEOMETRY[0], "--n-steps",
+            BREAKDOWN_GEOMETRY[1], "--repeats", "3", "--trace-dir",
+            d["trace"]])
+        sec = art["seconds_per_iteration"]
+        span = art["device_span_ms_per_iteration"]
+        busy = art["device_busy_ms_per_iteration"]
+        traces = os.listdir(d["trace"])
+        if [str(art["n_envs"]), str(art["n_steps"])] != \
+                list(BREAKDOWN_GEOMETRY) or len(traces) != 1 \
+                or art["iters_per_repeat"] < 3 \
+                or any(v is None for v in span.values()) \
+                or not all(v and v > 0 for v in busy.values()) \
+                or (name in BF16_PEAK and art["mfu_update"] is None):
+            raise SystemExit(f"profile_breakdown: {art}, traces {traces}")
+        _line("obs_breakdown", card=name, power_limit=limit,
+              n_envs=art["n_envs"], n_steps=art["n_steps"],
+              geometry=art["geometry"],
+              iters_per_repeat=art["iters_per_repeat"],
+              seconds_per_iteration=sec, device_span_ms_per_iteration=span,
+              device_busy_ms_per_iteration=busy,
+              device_busy_share=art["device_busy_share"],
+              sum_of_parts_s=sec["rollout"] + sec["advantage"]
+              + sec["update"], fused_loop_s=sec["fused_loop"],
+              parts_over_fused_loop=art["parts_over_fused_loop"],
+              env_steps_per_sec=art["env_steps_per_sec"],
+              mfu_total=art["mfu_total"], mfu_update=art["mfu_update"],
+              trace_mb=os.path.getsize(os.path.join(d["trace"], traces[0]))
+              / 2 ** 20, wall_s=wall)
+    finally:
+        _kill(procs)
+        shutil.rmtree(tmp, ignore_errors=True)
+    _line("obs_phase", card=name, power_limit=limit, smi=smi,
+          wall_s=time.perf_counter() - t_phase)
 
 
 def decide_latency(torch, tree: str) -> dict:
@@ -4182,6 +4510,7 @@ def main() -> int:
     timed(chaos_phase)
     timed(frontend_phase)
     timed(flywheel_phase)
+    timed(telemetry_phase)
     _line("done", total_s=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

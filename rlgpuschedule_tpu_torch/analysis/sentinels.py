@@ -17,7 +17,10 @@ captured on the card (an eager build on the CPU), so
   ``Stream.synchronize``) raises, while ``non_blocking`` copies, graph
   replays and waits on a ``torch.cuda.Event`` stay legal. The mode is
   process-wide, so the guard is refcounted across threads: the first
-  thread in sets it, the last one out restores it.
+  thread in sets it, the last one out restores it. JAX's guard forbids
+  only *implicit* transfers, so an explicit ``jax.device_get`` passes
+  it; torch's mode cannot tell an intended read from an accident, so a
+  deliberate read inside the guard goes through :func:`intended_sync`.
 """
 from __future__ import annotations
 
@@ -104,7 +107,7 @@ def assert_no_recompiles(what: str = "region"):
 
 
 # the refcounted sync guard: threads inside it, and the mode it replaced
-_guard_lock = threading.Lock()
+_guard_lock = threading.RLock()
 _guard_depth = 0
 _guard_prev = 0
 
@@ -140,3 +143,28 @@ def no_implicit_transfers(device: "torch.device | str" = "cuda"):
             _guard_depth -= 1
             if _guard_depth == 0:
                 torch.cuda.set_sync_debug_mode(_guard_prev)
+
+
+@contextlib.contextmanager
+def intended_sync():
+    """Let the enclosed deliberate host read through the sync guard (the
+    port's counterpart of an explicit ``jax.device_get`` inside
+    ``jax.transfer_guard("disallow")``); every other sync still raises.
+
+    Outside the guard, or on a process with no card, it does nothing.
+    Inside it, the scope restores the mode the guard replaced and puts
+    ``"error"`` back on exit. The refcount is left as it is: every
+    thread that holds the guard still holds it. Because the mode is
+    process-wide, the scope lifts it for every thread, so it also holds
+    the guard's lock throughout: no thread can enter or leave the guard
+    meanwhile (they wait), and a sync that another thread makes inside
+    this window is not caught. Keep the scope to the one read."""
+    with _guard_lock:
+        if _guard_depth == 0:
+            yield
+            return
+        torch.cuda.set_sync_debug_mode(_guard_prev)
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode("error")

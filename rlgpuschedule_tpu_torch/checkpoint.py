@@ -106,9 +106,15 @@ class Checkpointer:
     >>> ckpt = Checkpointer(dir, max_to_keep=3)
     >>> ckpt.save(step, {"policy": net.state_dict()}, meta={"lr": 3e-4})
     >>> state, meta = ckpt.restore(map_location="cuda")
+
+    ``bus`` (an :class:`.obs.EventBus`) gets the JAX store's events:
+    ``ckpt_save`` per written step, ``ckpt_restore`` per restore (with
+    the step it fell back from), and ``ckpt_crc_reject`` or
+    ``ckpt_reject`` per step the integrity fallback skipped.
     """
 
-    def __init__(self, directory: str, max_to_keep: int | None = 3):
+    def __init__(self, directory: str, max_to_keep: int | None = 3,
+                 bus=None):
         if max_to_keep is not None and max_to_keep < 1:
             raise ValueError(f"max_to_keep must be >= 1 or None, got "
                              f"{max_to_keep}")
@@ -116,6 +122,11 @@ class Checkpointer:
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep
         self.last_restored_step: int | None = None
+        self._bus = bus
+
+    def _emit(self, kind: str, **fields) -> None:
+        if self._bus is not None:
+            self._bus.emit(kind, **fields)
 
     def _step_dir(self, step: int) -> str:
         return os.path.join(self.directory, str(step))
@@ -166,6 +177,7 @@ class Checkpointer:
             for s in older[:max(len(older) + 1 - self.max_to_keep, 0)]:
                 shutil.rmtree(self._step_dir(s))
         self.wait()
+        self._emit("ckpt_save", step=step, force=force, saved=True)
         return True
 
     def restore(self, step: int | None = None,
@@ -198,6 +210,11 @@ class Checkpointer:
                 meta = self._load_meta(s)
             except Exception as e:   # a torn file fails in many ways
                 errors.append((s, e))
+                self._emit("ckpt_crc_reject"
+                           if isinstance(e, CheckpointChecksumError)
+                           else "ckpt_reject",
+                           step=s, error=type(e).__name__,
+                           detail=str(e)[:200])
                 if step is not None:
                     raise
                 if i + 1 < len(candidates):
@@ -207,6 +224,9 @@ class Checkpointer:
                           file=sys.stderr, flush=True)
                 continue
             self.last_restored_step = s
+            self._emit("ckpt_restore", step=s,
+                       fallback_from=(candidates[0] if i else None),
+                       rejected=len(errors))
             return state, meta
         raise CheckpointRestoreError(
             f"all {len(candidates)} retained checkpoint steps under "

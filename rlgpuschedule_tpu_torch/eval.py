@@ -12,7 +12,9 @@ here it is a Python loop over decision steps whose
 body stays on the device: no value comes back to the host inside the
 loop, except one "all done?" check every 64 steps that ends the loop
 early (a finished cluster is frozen, so the steps it skips would change
-nothing).
+nothing). That check is an intended read
+(``analysis.sentinels.intended_sync``): it passes the sync guard of the
+matrix cells' alarms, where any other sync raises.
 
 The policy side plays greedily (argmax over the masked logits) or as
 the masked-uniform random control, optionally gated to
@@ -46,6 +48,7 @@ no-job-lost conservation contract (:func:`_chaos_conservation`).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, NamedTuple
@@ -56,6 +59,7 @@ from torch import nn
 
 from .algos import action_dist
 from .algos.update import tree_map
+from .analysis.sentinels import intended_sync
 from .decision import (gate_stalled, greedy_actions, preempt_slice,
                        stall_threshold)
 from .device import resolve_device
@@ -289,8 +293,11 @@ def replay(net: "nn.Module | None", env_params: EnvParams,
             obs = core.select(done, obs, new_ts.obs)
             mask = core.select(done, mask, new_ts.action_mask)
             done = done | new_ts.done
-            if (i + 1) % _DONE_CHECK_EVERY == 0 and bool(done.all()):
-                break
+            if (i + 1) % _DONE_CHECK_EVERY == 0:
+                with intended_sync():
+                    finished = bool(done.all())
+                if finished:
+                    break
         stats = ops.jct_stats(state, traces)
         makespan = ops.makespan(state)
         util = busy_time / (torch.clamp_min(makespan, 1e-6) * capacity)
@@ -1011,19 +1018,16 @@ def matrix_report(exp, regimes: tuple[str, ...] = MATRIX_REGIMES,
     only; every row replays the same cluster draws. Every cell must
     conserve jobs and GPUs against the drawn capacity, or this raises.
     ``bus`` gets a ``domain_cell`` event per cell, ``registry`` the
-    ``matrix_<regime>_<scheduler>_*`` gauges. ``alarms`` (the recompile
-    and transfer alarm scope) waits for the observability slice
-    (``ROADMAP.md`` queue 1, item 24)."""
+    ``matrix_<regime>_<scheduler>_*`` gauges. ``alarms`` (an entered
+    :class:`.obs.Alarms` scope) wraps each cell's replay in a dispatch:
+    after the first cell, a program build or a host sync inside a
+    replay is an alarm (the replay's 64-step done check is an intended
+    read), and the first cell of each further row has amnesty, as in
+    JAX."""
     from .domains import (domain_schedule, domain_stats, resolve_domain,
                           sample_env_domains, stack_domain_schedules,
                           validate_domain_schedule)
     from .experiment import make_domain_windows
-    if alarms is not None:
-        raise NotImplementedError(
-            "matrix_report(alarms=), the recompile and transfer alarm "
-            "scope over the matrix cells, is not in the PyTorch port yet: "
-            "it waits for the observability slice (ROADMAP.md queue 1, "
-            "item 24)")
     if isinstance(exp.env_params, HierParams):
         raise ValueError("the generalization matrix supports flat configs "
                          "(domain schedules carry per-node capacity "
@@ -1065,11 +1069,20 @@ def matrix_report(exp, regimes: tuple[str, ...] = MATRIX_REGIMES,
             "mean_load": float(np.mean([s["load"] for s in stats])),
         }
         report["cells"][rname] = {}
-    for pname, (net, ep) in policies.items():
-        for rname in regimes:
+    dispatch = 0
+    for pi, (pname, (net, ep)) in enumerate(policies.items()):
+        for ci, rname in enumerate(regimes):
             _, _, batched, traces = columns[rname]
-            res, states = replay(net, ep, traces, max_steps,
-                                 return_states=True, faults=batched)
+            if alarms is not None and ci == 0 and pi > 0:
+                alarms.expect_recompile(
+                    f"matrix row {pname!r}: first cell of a row with "
+                    f"its own observation space")
+            ctx = (alarms.dispatch(dispatch) if alarms is not None
+                   else contextlib.nullcontext())
+            with ctx:
+                res, states = replay(net, ep, traces, max_steps,
+                                     return_states=True, faults=batched)
+            dispatch += 1
             cons = _chaos_conservation(states, traces, ep, faults=batched)
             if not cons["conserved"]:
                 raise AssertionError(

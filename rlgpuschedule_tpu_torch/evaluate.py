@@ -32,8 +32,12 @@ fault regime x scheduler matrix (:func:`..eval.chaos_report`),
 ``--matrix`` the train regime x eval regime generalization matrix
 (:func:`..eval.matrix_report`, ``--matrix-ckpt REGIME=DIR`` adds rows),
 and ``--full-trace --stitch-faults/--stitch-domain`` runs the whole
-stitched table under one seeded global-time schedule. Every other flag
-of the JAX CLI exits naming the slice it waits for.
+stitched table under one seeded global-time schedule. ``--obs-dir``
+writes the chaos or matrix table's cell events and gauges there
+(``metrics.prom``), ``--trace-spans`` the chaos table's spans, and
+``--alarms`` runs the matrix cells under the recompile and transfer
+alarms (:class:`..obs.Alarms`). Every other flag of the JAX CLI exits
+naming the slice it waits for.
 
 Examples::
 
@@ -53,11 +57,12 @@ Examples::
         --faults storm --ckpt-dir out/storm --chaos
     python -m rlgpuschedule_tpu_torch.evaluate --config ppo-mlp-synth64 \\
         --domains mixed --ckpt-dir out/mixed --matrix \\
-        --matrix-ckpt clean=out/run
+        --matrix-ckpt clean=out/run --obs-dir out/obs --alarms
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -82,6 +87,7 @@ from .eval import (CHAOS_REGIMES, MATRIX_REGIMES, chaos_report,
 from .experiment import (Experiment, PopulationExperiment,
                          build_env_params, load_source_trace,
                          make_env_windows, trace_sim)
+from .obs import PROM_SNAPSHOT, Alarms, EventBus, Registry, Tracer
 from .sim.core import validate_trace
 from .sim.faults import FAULT_REGIMES, fault_horizon, sample_fault_schedule
 from .sim.schedulers import BASELINES
@@ -92,8 +98,6 @@ PERCENTILES = (50, 90, 99)
 _Q1 = "ROADMAP.md queue 1"
 # the JAX CLI's flags that this port does not take, and what they wait for
 UNPORTED_FLAGS: dict[str, str] = {
-    **dict.fromkeys(("--obs-dir", "--trace-spans", "--alarms"),
-                    f"the observability slice ({_Q1}, item 24)"),
     # a no-op switch here: the guard is on unless --no-stall-guard
     "--stall-guard": "a caller that needs it (ROADMAP.md, \"Deliberately "
                      "unported\"); the guard is on by default",
@@ -149,6 +153,13 @@ def check_chaos_flags(args, cfg) -> "dict | None":
     elif args.chaos_regimes is not None:
         sys.exit("--chaos-regimes configures the --chaos matrix; pass "
                  "--chaos with it (refusing the silent no-op)")
+    if args.obs_dir and not (args.chaos or args.matrix):
+        sys.exit("--obs-dir serves the --chaos and --matrix flows; pass "
+                 "one of them with it (refusing the silent no-op)")
+    if args.trace_spans and not (args.chaos and args.obs_dir):
+        sys.exit("--trace-spans records spans on the chaos event bus; "
+                 "pass --chaos and --obs-dir with it (refusing the "
+                 "silent no-op)")
     matrix = None
     if args.matrix:
         if excl:
@@ -182,11 +193,13 @@ def check_chaos_flags(args, cfg) -> "dict | None":
         matrix = {"regimes": regimes or MATRIX_REGIMES,
                   "baselines": baselines, "ckpts": ckpts}
     elif (args.matrix_regimes is not None or args.matrix_ckpt
-          or args.matrix_seed != 0):
-        # JAX's words (its --alarms is refused here as unported)
+          or args.matrix_seed != 0 or args.alarms):
         sys.exit("--matrix-regimes/--matrix-ckpt/--matrix-seed/--alarms "
                  "configure the --matrix table; pass --matrix with them "
                  "(refusing the silent no-op)")
+    if args.alarms and not args.obs_dir:
+        sys.exit("--alarms raises its events on the --obs-dir bus; pass "
+                 "--obs-dir with it")
     if (args.stitch_faults or args.stitch_domain) and not args.full_trace:
         sys.exit("--stitch-faults/--stitch-domain degrade the "
                  "--full-trace stitched replay; pass --full-trace with "
@@ -344,6 +357,25 @@ def build_parser() -> argparse.ArgumentParser:
                    help="with --matrix: add a row restored from DIR, trained "
                         "under --domains REGIME ('clean' for none); "
                         "repeatable")
+    p.add_argument("--alarms", action="store_true",
+                   help="with --matrix --obs-dir: production alarm scope "
+                        "over the matrix cells — a post-warmup program "
+                        "build or a host sync inside a cell's replay "
+                        "becomes an alarm event (obs.report "
+                        "--strict-alarms gates on them)")
+    p.add_argument("--obs-dir", default=None,
+                   help="with --chaos/--matrix: emit per-cell events "
+                        "(env_fault / domain_cell, JSONL event bus) and "
+                        "chaos_*/matrix_* gauges (metrics.prom) under "
+                        "this directory so obs.report can tell the "
+                        "story")
+    p.add_argument("--trace-spans", action="store_true",
+                   help="with --chaos --obs-dir: flight recorder — "
+                        "record each regime row as nested "
+                        "chaos_regime/policy_replay/baseline spans on "
+                        "the event bus (export via obs.report "
+                        "--trace-out). NOT --trace, which would be the "
+                        "workload trace source")
     p.add_argument("--stitch-faults", default=None, metavar="REGIME",
                    help="with --full-trace: run the whole stitched table "
                         "under one seeded global-time fault schedule of "
@@ -476,10 +508,25 @@ def main(argv: "list[str] | None" = None) -> dict:
     except (NotImplementedError, ValueError) as e:
         sys.exit(str(e))
     if args.chaos:
-        report = chaos_report(
-            exp, regimes=_names(args.chaos_regimes) or CHAOS_REGIMES,
-            baselines=_names(args.chaos_baselines),
-            max_steps=args.max_steps, seed=args.chaos_seed)
+        bus = registry = tracer = None
+        if args.obs_dir:
+            bus = EventBus(os.path.abspath(args.obs_dir), rank=0,
+                           name="chaos")
+            registry = Registry()
+            if args.trace_spans:
+                tracer = Tracer(bus, enabled=True)
+        try:
+            report = chaos_report(
+                exp, regimes=_names(args.chaos_regimes) or CHAOS_REGIMES,
+                baselines=_names(args.chaos_baselines),
+                max_steps=args.max_steps, seed=args.chaos_seed, bus=bus,
+                registry=registry, tracer=tracer)
+        finally:
+            if bus is not None:
+                bus.close()
+        if registry is not None:
+            registry.write(os.path.join(os.path.abspath(args.obs_dir),
+                                        PROM_SNAPSHOT))
         print(format_chaos(report), file=sys.stderr)
         report["repro"] = dict(
             repro, chaos_seed=args.chaos_seed,
@@ -503,10 +550,28 @@ def main(argv: "list[str] | None" = None) -> dict:
                 policies[label] = (rexp.net, rexp.env_params)
         except (NotImplementedError, ValueError) as e:
             sys.exit(str(e))
-        report = matrix_report(
-            exp, regimes=matrix["regimes"], baselines=matrix["baselines"],
-            policies=policies, max_steps=args.max_steps,
-            seed=args.matrix_seed)
+        bus = registry = alarms = None
+        if args.obs_dir:
+            bus = EventBus(os.path.abspath(args.obs_dir), rank=0,
+                           name="matrix")
+            registry = Registry()
+            if args.alarms:
+                alarms = Alarms(bus, registry, warmup_iters=1,
+                                transfer_guard=True, device=dev)
+        try:
+            with (alarms if alarms is not None
+                  else contextlib.nullcontext()):
+                report = matrix_report(
+                    exp, regimes=matrix["regimes"],
+                    baselines=matrix["baselines"], policies=policies,
+                    max_steps=args.max_steps, seed=args.matrix_seed,
+                    bus=bus, registry=registry, alarms=alarms)
+        finally:
+            if bus is not None:
+                bus.close()
+        if registry is not None:
+            registry.write(os.path.join(os.path.abspath(args.obs_dir),
+                                        PROM_SNAPSHOT))
         print(format_matrix(report), file=sys.stderr)
         report["repro"] = dict(
             repro, matrix_seed=args.matrix_seed,

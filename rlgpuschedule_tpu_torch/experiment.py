@@ -48,6 +48,7 @@ so ``run_fused(k)`` is ``k`` iterations of ``run`` bit for bit.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Callable
@@ -624,7 +625,7 @@ class Experiment:
             eval_every: int = 0,
             eval_fn: "Callable[[int], dict] | None" = None,
             eval_logger: Callable[[int, dict], None] | None = None,
-            fused_chunk: int = 1) -> dict:
+            fused_chunk: int = 1, telemetry=None) -> dict:
         """Run ``iterations`` (default ``cfg.iterations``) more training
         iterations; returns the summary (wall time, env steps per second,
         ``window_cursor``, logged history). Iteration ``g`` counts over
@@ -651,7 +652,17 @@ class Experiment:
         active cadence, the iteration count and the iteration the call
         starts from must be multiples of the chunk, so the hooks fire
         where the unchunked loop fires them (JAX's rule). Logged metrics
-        are the boundary iteration's."""
+        are the boundary iteration's.
+
+        ``telemetry`` (:class:`..obs.RunTelemetry`) traces the loop: a
+        span per iteration (per chunk) with its phases (``step`` around
+        the train step or :meth:`run_fused`, ``sync``, ``eval``,
+        ``ckpt``, ``resample``), an ``iteration`` event at every logged
+        iteration carrying the metrics this loop already read (telemetry
+        adds no host read), and, with its alarms armed, the step under
+        the recompile and transfer alarms."""
+        from .obs.trace import tracer_of
+        from .utils.profiling import SectionTimer
         iterations = iterations or self.cfg.iterations
         every = self.cfg.resample_every
         stride = max(fused_chunk, 1)
@@ -660,41 +671,68 @@ class Experiment:
             ckpt_every=ckpt_every if ckpt is not None else 0,
             eval_every=eval_every if eval_fn is not None else 0)
         history, eval_history = [], []
+        # with no telemetry, a throwaway timer keeps the section sites
+        # branch-free (two perf_counter reads per section)
+        sections = (telemetry.sections if telemetry is not None
+                    else SectionTimer())
+        tracer = tracer_of(telemetry)
+        if telemetry is not None:
+            telemetry.run_start(
+                loop="experiment", config=self.cfg.name,
+                algo=self.cfg.algo, iterations=iterations,
+                n_envs=self.cfg.n_envs,
+                steps_per_iteration=self.steps_per_iteration,
+                fused_chunk=fused_chunk)
         self._sync()
         t0 = time.perf_counter()
         done = 0
         while done < iterations:
             g = self.iteration
+            # the hooks see the chunk's last iteration (g when unchunked)
+            b = g + stride - 1
+            if telemetry is not None:
+                telemetry.begin_iteration(b)
             if every and g and g % every == 0:
-                self.advance_windows()
-            if stride > 1:
-                metrics = self.run_fused(stride)
-            else:
-                self.train_state, self.carry, metrics = self.train_step(
-                    self.train_state, self.carry, self.traces,
-                    self.generator, self.faults)
-                self.iteration = g + 1
+                with sections("resample"), tracer.span("resample"):
+                    self.advance_windows()
+            guard = (telemetry.dispatch(b) if telemetry is not None
+                     else contextlib.nullcontext())
+            with sections("step"), tracer.span("step"), guard:
+                if stride > 1:
+                    metrics = self.run_fused(stride)
+                else:
+                    self.train_state, self.carry, metrics = \
+                        self.train_step(self.train_state, self.carry,
+                                        self.traces, self.generator,
+                                        self.faults)
+                    self.iteration = g + 1
             done += stride
-            b = self.iteration - 1
             last = done >= iterations
             # unchunked, log at phase 0 (b % L); chunked, at the
             # boundaries' phase ((b + 1) % L), as JAX does
             phase = b + 1 if stride > 1 else b
+            m = None
             if log_every and (phase % log_every == 0 or last):
-                m = dict(zip(type(metrics)._fields,
-                             torch.stack(metrics).tolist()))
+                with sections("sync"), tracer.span("sync"):
+                    m = dict(zip(type(metrics)._fields,
+                                 torch.stack(metrics).tolist()))
                 history.append({"iteration": b, **m})
                 if logger is not None:
                     logger(b, m)
             if eval_fn is not None and eval_every and \
                     ((b + 1) % eval_every == 0 or last):
-                em = dict(eval_fn(b))
+                with sections("eval"), tracer.span("eval"):
+                    em = dict(eval_fn(b))
                 eval_history.append({"iteration": b, **em})
                 if eval_logger is not None:
                     eval_logger(b, em)
             if ckpt is not None and ckpt_every and \
                     ((b + 1) % ckpt_every == 0 or last):
-                self.save_checkpoint(ckpt)
+                with sections("ckpt"), tracer.span("ckpt"):
+                    self.save_checkpoint(ckpt)
+            if telemetry is not None:
+                telemetry.end_iteration(b, m,
+                                        stride * self.steps_per_iteration)
         self._sync()
         wall = time.perf_counter() - t0
         env_steps = iterations * self.steps_per_iteration
@@ -705,6 +743,12 @@ class Experiment:
                "history": history}
         if eval_history:
             out["eval_history"] = eval_history
+        if telemetry is not None:
+            telemetry.run_end(
+                iterations=iterations, wall_s=round(wall, 6),
+                env_steps=env_steps,
+                env_steps_per_sec=round(out["env_steps_per_sec"], 3),
+                rollbacks=0)
         return out
 
 
@@ -964,43 +1008,68 @@ class PopulationExperiment:
         cadence and at the last iteration. Returns the summary: wall
         time, env steps per second, each member's final fitness, the
         count of PBT rounds (``pbt_events``) and the logged history.
-        ``watchdog`` and ``injector`` wait for the resilience slice,
-        ``telemetry`` for the observability slice."""
+
+        ``telemetry`` (:class:`..obs.RunTelemetry`) traces the loop as
+        :meth:`Experiment.run` does, the members' steps being the
+        ``step`` phase (under the alarms, when armed), and emits a
+        ``pbt_exploit`` event per exploit round; each ``iteration`` event
+        carries the logged row's per-member and ``{metric}_mean``
+        columns. ``watchdog`` and ``injector`` wait for the resilience
+        slice."""
         from .algos.ppo import PPOMetrics
+        from .obs.trace import tracer_of
         from .parallel.population import stack_members
+        from .utils.profiling import SectionTimer
         if watchdog is not None or injector is not None:
             raise NotImplementedError(
                 "the population's divergence watchdog and fault injector "
                 "are not in the PyTorch port yet: they wait for the "
                 "resilience slice (ROADMAP.md queue 1, item 21)")
-        if telemetry is not None:
-            raise NotImplementedError(
-                "run telemetry is not in the PyTorch port yet: it waits "
-                "for the observability slice (ROADMAP.md queue 1, item 24)")
         iterations = iterations or self.cfg.iterations
         history, eval_history = [], []
+        sections = (telemetry.sections if telemetry is not None
+                    else SectionTimer())
+        tracer = tracer_of(telemetry)
+        if telemetry is not None:
+            telemetry.run_start(
+                loop="population", config=self.cfg.name,
+                n_pop=self.n_pop, iterations=iterations,
+                n_envs=self.cfg.n_envs,
+                steps_per_iteration=self.steps_per_iteration)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
         for k in range(iterations):
             g = self.iteration
-            per_member = []
-            for p in range(self.n_pop):
-                self.members[p], self.carries[p], m = self.member_step(
-                    self.members[p], self.carries[p], self.traces,
-                    self.generators[p], self.member_hp[p],
-                    self.faults[p] if self.faults else None)
-                per_member.append(m)
-            metrics = stack_members(per_member)
+            if telemetry is not None:
+                telemetry.begin_iteration(g)
+            guard = (telemetry.dispatch(g) if telemetry is not None
+                     else contextlib.nullcontext())
+            with sections("step"), tracer.span("step"), guard:
+                per_member = []
+                for p in range(self.n_pop):
+                    self.members[p], self.carries[p], m = self.member_step(
+                        self.members[p], self.carries[p], self.traces,
+                        self.generators[p], self.member_hp[p],
+                        self.faults[p] if self.faults else None)
+                    per_member.append(m)
+                metrics = stack_members(per_member)
             self.controller.record(metrics.mean_reward)
             out = self.controller.maybe_update(g, self.members, self.hparams)
             if out is not None:
-                self.members, self.hparams, _ = out
+                self.members, self.hparams, decision = out
                 self._refresh_hparams()
+                if telemetry is not None:
+                    telemetry.emit(
+                        "pbt_exploit", iteration=g,
+                        exploited=int(decision.exploited.sum()),
+                        src=[int(s) for s in decision.src])
             self.iteration = g + 1
             last = k == iterations - 1
+            row = None
             if log_every and (g % log_every == 0 or last):
-                vals = torch.stack(list(metrics)).tolist()   # one transfer
+                with sections("sync"), tracer.span("sync"):
+                    vals = torch.stack(list(metrics)).tolist()  # one read
                 row = {}
                 for name, v in zip(PPOMetrics._fields, vals):
                     row.update({f"{name}_{p}": x for p, x in enumerate(v)})
@@ -1010,13 +1079,17 @@ class PopulationExperiment:
                     logger(g, row)
             if eval_fn is not None and eval_every and \
                     ((g + 1) % eval_every == 0 or last):
-                em = dict(eval_fn(g))
+                with sections("eval"), tracer.span("eval"):
+                    em = dict(eval_fn(g))
                 eval_history.append({"iteration": g, **em})
                 if eval_logger is not None:
                     eval_logger(g, em)
             if ckpt is not None and ckpt_every and \
                     ((g + 1) % ckpt_every == 0 or last):
-                self.save_checkpoint(ckpt)
+                with sections("ckpt"), tracer.span("ckpt"):
+                    self.save_checkpoint(ckpt)
+            if telemetry is not None:
+                telemetry.end_iteration(g, row, self.steps_per_iteration)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         wall = time.perf_counter() - t0
@@ -1030,4 +1103,10 @@ class PopulationExperiment:
                "history": history}
         if eval_history:
             out["eval_history"] = eval_history
+        if telemetry is not None:
+            telemetry.run_end(
+                iterations=iterations, wall_s=round(wall, 6),
+                env_steps=env_steps,
+                env_steps_per_sec=round(out["env_steps_per_sec"], 3),
+                pbt_events=len(self.controller.history), rollbacks=0)
         return out

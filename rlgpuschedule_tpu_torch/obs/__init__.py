@@ -1,6 +1,7 @@
 """Telemetry (L6 aux) of the port: the event bus, the metrics registry
 and its scrape endpoint, span tracing, the SLO burn-rate engine, the
-clock-skew merge and the post-mortem report.
+clock-skew merge, the run-loop telemetry and alarms, and the
+post-mortem report.
 
 Pure-Python copies of the JAX package's ``obs/`` modules of the same
 names, so a serving run of either package exposes the same metrics
@@ -19,12 +20,19 @@ and writes the same events, and either package's report reads both:
 - :mod:`.skew` -- per-rank clock offsets learned from the bus's
   ``(wall, mono)`` stamps, and a merged timeline rewritten onto one
   corrected axis;
+- :mod:`.telemetry` -- :class:`RunTelemetry`, what ``Experiment.run``
+  and ``PopulationExperiment.run`` hold (iteration spans with a
+  step/sync/eval/ckpt/resample phase breakdown, no host read of its
+  own), and :class:`Alarms`, the recompile, transfer and slow-iteration
+  alarms (``CompileCounter`` and the sync guard of
+  :mod:`..analysis.sentinels` in production; the slow-iteration capture
+  is a torch profiler trace);
 - :mod:`.report` -- ``python -m rlgpuschedule_tpu_torch.obs.report
   <dir> [--request ID]``: the run post-mortem, or one request's
   timeline.
 
-The run-loop telemetry (``Alarms``, ``RunTelemetry``) waits for the
-observability slice (``ROADMAP.md`` queue 1, item 24).
+The asynchronous engine's ``OverlapMeter`` and ``AsyncGauges`` come
+with that engine (``ROADMAP.md`` queue 1, item 20).
 """
 from .events import (SCHEMA_VERSION, EventBus, event_streams, merge_dir,
                      merge_events, read_events)
@@ -33,6 +41,7 @@ from .metrics import (Counter, Gauge, Histogram, MetricsHTTPServer,
 from .skew import (RankSkew, correct_events, learn_offsets,
                    merge_dir_corrected)
 from .slo import DEFAULT_WINDOWS, SLOEngine, SLOSpec, histogram_sli
+from .telemetry import PROM_SNAPSHOT, AlarmError, Alarms, RunTelemetry
 from .trace import (NULL_TRACER, Tracer, TracerLane, async_overlap_summary,
                     build_span_tree, to_chrome_trace, tracer_of)
 
@@ -41,6 +50,7 @@ __all__ = [
     "merge_events", "read_events",
     "Counter", "Gauge", "Histogram", "MetricsHTTPServer", "Registry",
     "serve_http",
+    "AlarmError", "Alarms", "PROM_SNAPSHOT", "RunTelemetry",
     "NULL_TRACER", "Tracer", "TracerLane", "async_overlap_summary",
     "build_span_tree", "to_chrome_trace", "tracer_of",
     "RankSkew", "correct_events", "learn_offsets", "merge_dir_corrected",

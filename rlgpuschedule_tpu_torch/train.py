@@ -35,6 +35,17 @@ under seeded per-env fault schedules and ``--domains REGIME`` across
 seeded per-env cluster and arrival draws (flat configs see per-node
 health and geometry; a population member draws its own schedules).
 
+``--log-csv`` also writes the logged rows as a CSV (appended to on
+``--resume``; probe rows to ``<log-csv>.eval.csv``) and ``--tb-dir`` as a
+TensorBoard event file (:mod:`.utils.logging`); ``--obs-dir`` writes the
+run's event stream and ``metrics.prom`` (:class:`.obs.RunTelemetry`),
+with ``--trace-spans`` its phase spans and with ``--alarms`` the
+recompile and transfer alarms (``--alarm-slow-iter S``: a slower
+iteration is an alarm and the next one is profiled under
+``<obs-dir>/profile``); ``--profile-dir`` traces the run with the torch
+profiler and ``--debug-nans`` raises at the first operation that makes
+a NaN (:mod:`.utils.profiling`; not with ``--alarms``).
+
 ``--continual LOGDIR`` trains on served traffic instead of simulator
 rollouts: the crc-verified flight log under LOGDIR (``serve
 --flight-log``) is admitted shard by shard through the importance-ratio
@@ -60,10 +71,14 @@ Examples::
         --pbt --n-pop 4 --pbt-ready 10 --ckpt-dir out/pbt
     python -m rlgpuschedule_tpu_torch.train --config ppo-mlp-synth64 \\
         --continual out/flog --ckpt-dir out/run --resume --iterations 2
+    python -m rlgpuschedule_tpu_torch.train --config ppo-mlp-synth64 \\
+        --iterations 20 --obs-dir out/obs --alarms --trace-spans \\
+        --log-csv out/m.csv --tb-dir out/tb
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -77,6 +92,7 @@ from .cli import (add_config_flags, check_source_jobs, config_overrides,
                   numeric_rows, refuse_unported)
 from .configs import (CONFIGS, ExperimentConfig, ModeCombinationError,
                       validate_mode_combination)
+from .device import resolve_device
 from .domains import DOMAIN_REGIMES
 from .env.env import stack_traces
 from .experiment import (Experiment, PopulationExperiment, algo_config,
@@ -95,11 +111,17 @@ UNPORTED_FLAGS: dict[str, str] = {
     **dict.fromkeys(("--mesh", "--max-rollbacks", "--fault"),
                     f"the data-parallel and resilience slice ({_Q1}, "
                     f"item 21)"),
-    **dict.fromkeys(
-        ("--log-csv", "--tb-dir", "--profile-dir", "--obs-dir", "--alarms",
-         "--alarm-slow-iter", "--trace-spans", "--debug-nans"),
-        f"the observability slice ({_Q1}, item 24)"),
 }
+
+
+# the port's one refusal of a pair the JAX CLI takes: the NaN check of
+# --debug-nans reads each operation's output on the host, a sync that
+# the --alarms guard forbids inside the train step on the card (JAX's
+# check is not an implicit transfer, so its guard lets it through)
+DEBUG_NANS_WITH_ALARMS = (
+    "--debug-nans reads every operation's output back to the host, a "
+    "sync that the --alarms transfer guard forbids inside the train step "
+    "on the card; run the NaN check and the alarms in separate runs")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -202,6 +224,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "held-out probe's avg JCT improves (at full "
                         "completion), save a checkpoint under "
                         "<ckpt-dir>/best")
+    p.add_argument("--log-csv", default=None)
+    p.add_argument("--tb-dir", default=None,
+                   help="also write scalar curves as a TensorBoard event "
+                        "file under this directory")
     p.add_argument("--ckpt-dir", default=None)
     p.add_argument("--ckpt-every", type=int, default=50)
     p.add_argument("--ckpt-keep", type=int, default=None,
@@ -225,6 +251,42 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--continual-rho-max", type=float, default=8.0,
                    help="ingest trust region: refuse shards whose max "
                         "importance ratio exceeds this")
+    p.add_argument("--profile-dir", default=None,
+                   help="capture a torch profiler trace of the run")
+    # observability (obs/): structured event bus + metrics snapshot +
+    # production alarms, the run's post-mortem surface
+    p.add_argument("--obs-dir", default=None,
+                   help="unified telemetry: append structured events "
+                        "(JSONL event bus, schema-versioned, rank/pid/"
+                        "monotonic-stamped) and a Prometheus-text "
+                        "metrics snapshot (metrics.prom) under this "
+                        "directory; post-mortem via "
+                        "python -m rlgpuschedule_tpu_torch.obs.report <dir>")
+    p.add_argument("--alarms", action="store_true",
+                   help="production alarms (requires --obs-dir): a "
+                        "post-warmup dispatch that builds a program emits "
+                        "a recompile event (the silent throughput killer "
+                        "the test-only CompileCounter gate catches only "
+                        "in CI), and a host<->device sync in the dispatch "
+                        "emits a transfer event and fails fast")
+    p.add_argument("--alarm-slow-iter", type=float, default=None,
+                   metavar="SECONDS",
+                   help="with --alarms: an iteration slower than this "
+                        "emits a slow_iteration event and auto-captures "
+                        "a one-shot torch profiler trace of the NEXT "
+                        "iteration under <obs-dir>/profile")
+    p.add_argument("--trace-spans", action="store_true",
+                   help="flight recorder (requires --obs-dir): record "
+                        "nested phase spans (iteration/step/sync/...) on "
+                        "the event bus; export with obs.report "
+                        "--trace-out trace.json (Perfetto). NOT --trace, "
+                        "which picks the workload trace source")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="raise at the first operation that produces a NaN "
+                        "(utils.profiling.debug_checks, the jax_debug_nans "
+                        "counterpart; fails fast with a traceback naming "
+                        "the operation). Every operation then syncs with "
+                        "the card, so not with --alarms")
     p.add_argument("--report", action="store_true",
                    help="print the JCT-vs-baselines table after training "
                         "(stderr) and add it to the summary line")
@@ -332,14 +394,14 @@ class FittestMemberView:
         return getattr(self._pop, name)
 
 
-def _keep_best(exp: Experiment, ckpt: Checkpointer, probe):
+def _keep_best(exp: Experiment, ckpt: Checkpointer, probe, bus=None):
     """Wrap ``probe`` so that each probe whose avg JCT beats the best so
     far, at full completion, saves the experiment under
-    ``<ckpt-dir>/best`` (one step kept). A resumed run recovers the bar
-    from the saved meta, so its first probe cannot rotate out a better
-    policy of the earlier run."""
+    ``<ckpt-dir>/best`` (one step kept, its events on ``bus``). A
+    resumed run recovers the bar from the saved meta, so its first
+    probe cannot rotate out a better policy of the earlier run."""
     best_ckpt = Checkpointer(os.path.join(ckpt.directory, "best"),
-                             max_to_keep=1)
+                             max_to_keep=1, bus=bus)
     best = {"jct": float("inf")}
     if best_ckpt.latest_step() is not None:
         best["jct"] = float(best_ckpt.read_meta().get("eval_avg_jct",
@@ -365,9 +427,10 @@ def _keep_best(exp: Experiment, ckpt: Checkpointer, probe):
     return keep_best_probe
 
 
-def _continual(args, exp: Experiment, ckpt) -> dict:
+def _continual(args, exp: Experiment, ckpt, telemetry=None) -> dict:
     """``--continual LOGDIR``: the flywheel's retraining in place of the
-    simulator loop; one JSON summary line."""
+    simulator loop (its gauges in the telemetry's registry, when there
+    is one); one JSON summary line."""
     from .flywheel import FlightLogError, run_continual
     from .obs import Registry
     try:
@@ -375,8 +438,9 @@ def _continual(args, exp: Experiment, ckpt) -> dict:
             exp, os.path.abspath(args.continual),
             iterations=args.iterations if args.iterations is not None
             else 1, trust=args.continual_trust,
-            rho_max_cap=args.continual_rho_max, registry=Registry(),
-            ckpt=ckpt)
+            rho_max_cap=args.continual_rho_max,
+            registry=(telemetry.registry if telemetry is not None
+                      else Registry()), ckpt=ckpt)
     except FlightLogError as e:
         sys.exit(f"continual ingest refused: {e}")
     dev = exp.device
@@ -439,6 +503,20 @@ def main(argv: "list[str] | None" = None) -> dict:
                      "[1/T, T])")
         if args.continual_rho_max <= 0:
             sys.exit("--continual-rho-max must be positive")
+    if args.alarms and not args.obs_dir:
+        sys.exit("--alarms requires --obs-dir (alarm events need an "
+                 "event stream to land in)")
+    if args.trace_spans and not args.obs_dir:
+        sys.exit("--trace-spans requires --obs-dir (span events need an "
+                 "event stream to land in)")
+    if args.alarm_slow_iter is not None:
+        if not args.alarms:
+            sys.exit("--alarm-slow-iter is an alarm trigger; pass "
+                     "--alarms (and --obs-dir) with it")
+        if args.alarm_slow_iter <= 0:
+            sys.exit("--alarm-slow-iter must be positive")
+    if args.debug_nans and args.alarms:
+        sys.exit(DEBUG_NANS_WITH_ALARMS)
     cfg = apply_overrides(CONFIGS[args.config], args)
     # the one mode-combination gate (modes that wait for a slice were
     # refused above, with their flags)
@@ -467,17 +545,36 @@ def main(argv: "list[str] | None" = None) -> dict:
                  "PPO pipeline; the A2C update has no importance-"
                  "corrected variant")
     check_source_jobs(args, cfg)
+    with contextlib.ExitStack() as stack:
+        return _train(args, cfg, stack)
+
+
+def _train(args, cfg: ExperimentConfig, stack: contextlib.ExitStack
+           ) -> dict:
+    """Build, (restore,) train and report; every context it opens (the
+    telemetry first, so the checkpointer's events still land as the
+    stack closes) goes on ``stack``."""
+    from .obs import RunTelemetry
+    from .utils import MetricsLogger, TensorBoardWriter, profiling
+    dev = resolve_device(args.device)
+    telemetry = bus = None
+    if args.obs_dir:
+        telemetry = stack.enter_context(RunTelemetry(
+            os.path.abspath(args.obs_dir), rank=0, alarms=args.alarms,
+            slow_iter_s=args.alarm_slow_iter, trace=args.trace_spans,
+            device=dev))
+        bus = telemetry.bus
     try:
         if args.pbt:
             exp = PopulationExperiment.build(
-                cfg, n_pop=args.n_pop, device=args.device,
+                cfg, n_pop=args.n_pop, device=dev,
                 pbt_cfg=PBTConfig(ready_iters=args.pbt_ready, seed=cfg.seed))
         else:
-            exp = Experiment.build(cfg, device=args.device)
+            exp = Experiment.build(cfg, device=dev)
         ckpt = None
         if args.ckpt_dir:
             ckpt = Checkpointer(os.path.abspath(args.ckpt_dir),
-                                max_to_keep=args.ckpt_keep or 3)
+                                max_to_keep=args.ckpt_keep or 3, bus=bus)
         if args.resume:
             meta = exp.restore_checkpoint(ckpt)
             # last_restored_step, not latest_step: the integrity fallback
@@ -488,18 +585,25 @@ def main(argv: "list[str] | None" = None) -> dict:
                   f"(iteration {meta['iteration']}, {where})",
                   file=sys.stderr)
         if args.continual is not None:
-            return _continual(args, exp, ckpt)
+            return _continual(args, exp, ckpt, telemetry)
         view = FittestMemberView(exp) if args.pbt else exp
         eval_kw = {}
         if args.eval_every:
             probe = make_eval_probe(cfg, view, args.eval_windows,
                                     args.eval_seed, args.eval_probe)
             if args.keep_best:
-                probe = _keep_best(exp, ckpt, probe)
-            eval_kw = dict(
-                eval_every=args.eval_every, eval_fn=probe,
-                eval_logger=lambda i, m: print(
-                    json.dumps({"iteration": i, **m}), flush=True))
+                probe = _keep_best(exp, ckpt, probe, bus)
+            # --resume appends to the eval CSV as to the train one
+            eval_csv = stack.enter_context(MetricsLogger(
+                args.log_csv + ".eval.csv" if args.log_csv else None,
+                append=args.resume))
+
+            def eval_logger(i: int, m: dict) -> None:
+                print(json.dumps({"iteration": i, **m}), flush=True)
+                eval_csv(i, m)
+
+            eval_kw = dict(eval_every=args.eval_every, eval_fn=probe,
+                           eval_logger=eval_logger)
         if not args.pbt:
             exp.validate_fused_chunk(
                 args.fused_chunk, args.iterations or cfg.iterations,
@@ -509,16 +613,31 @@ def main(argv: "list[str] | None" = None) -> dict:
     except (NotImplementedError, ValueError) as e:
         sys.exit(str(e))
 
+    # --resume APPENDS to the metrics CSV (its header re-read and held
+    # to this run's rows) instead of truncating the history
+    csv_logger = stack.enter_context(
+        MetricsLogger(args.log_csv, append=args.resume))
+    tb = (stack.enter_context(TensorBoardWriter(args.tb_dir))
+          if args.tb_dir else None)
+
     def logger(i: int, m: dict) -> None:
         print(json.dumps({"iteration": i, **m}), flush=True)
+        csv_logger(i, m)
+        if tb is not None:
+            tb(i, m)
 
+    if args.profile_dir:
+        stack.enter_context(profiling.trace(args.profile_dir, dev))
+    if args.debug_nans:
+        stack.enter_context(profiling.debug_checks())
+    run_kw = {} if telemetry is None else {"telemetry": telemetry}
     if args.pbt:
         out = exp.run(log_every=args.log_every, logger=logger, ckpt=ckpt,
-                      ckpt_every=args.ckpt_every, **eval_kw)
+                      ckpt_every=args.ckpt_every, **eval_kw, **run_kw)
     else:
         out = exp.run(log_every=args.log_every, logger=logger, ckpt=ckpt,
                       ckpt_every=args.ckpt_every,
-                      fused_chunk=args.fused_chunk, **eval_kw)
+                      fused_chunk=args.fused_chunk, **eval_kw, **run_kw)
     dev = exp.device
     summary = {k: v for k, v in out.items() if k != "history"}
     summary.update(

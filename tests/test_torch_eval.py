@@ -637,7 +637,7 @@ def test_chaos_report_matches_jax(chaos_pairs, regime, baselines):
     assert regime in text and "jobs lost across the matrix: 0" in text
 
 
-def test_matrix_report_matches_jax_with_a_blind_row(chaos_pairs):
+def test_matrix_report_matches_jax_with_a_blind_row(chaos_pairs, tmp_path):
     """The domain-sighted policy and a clean (channel-blind) one as two
     rows, SJF as the baseline row, over the four default eval regimes."""
     p = chaos_pairs(domains="mixed")
@@ -655,8 +655,21 @@ def test_matrix_report_matches_jax_with_a_blind_row(chaos_pairs):
     assert got["jobs_lost"] == want["jobs_lost"] == 0
     _cells_alike(got["cells"], want["cells"])
     assert "hetero" in teval.format_matrix(got)
-    with pytest.raises(NotImplementedError, match="item 24"):
-        teval.matrix_report(p.texp, alarms=object())
+    # under the alarms (the CPU's guard does nothing, the builds are
+    # counted): the same cells, no alarm, the second row's first cell
+    # with amnesty
+    from rlgpuschedule_tpu_torch.obs import Alarms, EventBus, read_events
+    bus = EventBus(str(tmp_path), rank=0)
+    with Alarms(bus, device="cpu") as al:
+        again = teval.matrix_report(p.texp, regimes=("hetero",),
+                                    baselines=("sjf",), policies=tpol,
+                                    seed=2, alarms=al)
+    bus.close()
+    assert again["cells"] == {r: got["cells"][r] for r in again["cells"]}
+    assert set(again["cells"]) == {"none", "hetero"}
+    assert not {e["kind"] for e in read_events(bus.path)} & {
+        "recompile", "transfer"}
+    assert al._dispatches == 4 and al._amnesty is None
 
 
 def test_stitched_table_under_a_global_schedule_matches_jax(chaos_pairs):

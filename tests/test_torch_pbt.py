@@ -458,7 +458,11 @@ def test_population_resume_is_bit_for_bit(tmp_path):
     assert resumed.iteration == full.iteration == 5
 
 
-def test_population_build_refusals():
+def test_population_build_refusals(tmp_path):
+    """What the population still refuses, and the telemetry it now
+    takes (one telemetered iteration: run_start, its iteration event
+    with the flattened columns, run_end)."""
+    from rlgpuschedule_tpu_torch.obs import RunTelemetry, read_events
     with pytest.raises(ValueError, match="trains PPO members"):
         PopulationExperiment.build(CONFIGS["a2c-pai-fair"], device="cpu")
     with pytest.raises(NotImplementedError, match="item 21"):
@@ -466,8 +470,13 @@ def test_population_build_refusals():
     pop = _build()
     with pytest.raises(NotImplementedError, match="item 21"):
         pop.run(1, watchdog=object())
-    with pytest.raises(NotImplementedError, match="item 24"):
-        pop.run(1, telemetry=object())
+    with RunTelemetry(str(tmp_path), alarms=True, device="cpu") as tel:
+        pop.run(1, log_every=1, telemetry=tel)
+    events = read_events(tel.bus.path)
+    assert [e["kind"] for e in events] == ["run_start", "iteration",
+                                           "run_end"]
+    assert events[0]["loop"] == "population"
+    assert {"total_loss_0", "total_loss_mean"} <= set(events[1]["metrics"])
 
 
 # ---- the CLIs --------------------------------------------------------------

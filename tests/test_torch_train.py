@@ -472,9 +472,14 @@ def test_train_cli_refuses_a2c_with_the_slice_named():
     ["--max-rollbacks", "2"]])
 def test_train_cli_refuses_unported_flags_with_the_slice_named(argv):
     # --continual is ported: a log directory that does not exist is
-    # refused as JAX refuses an empty log
-    match = ("continual ingest refused: no verified shards"
-             if argv[0] == "--continual" else r"waits for .*item \d+")
+    # refused as JAX refuses an empty log; --debug-nans is ported: with
+    # --alarms (whose sync guard its per-op host read would trip on the
+    # card) it is refused with the port's reason
+    match = {"--continual": "continual ingest refused: no verified shards",
+             "--debug-nans": "--debug-nans reads every operation's output"
+             }.get(argv[0], r"waits for .*item \d+")
+    if argv[0] == "--debug-nans":
+        argv = argv + ["--alarms", "--obs-dir", "unused"]
     with pytest.raises(SystemExit, match=match):
         ttrain.main(argv + ["--device", "cpu"])
 
@@ -650,12 +655,25 @@ def test_evaluate_cli_refuses_what_jax_refuses(argv, match):
         tevaluate.main(TINY + argv)
 
 
-@pytest.mark.parametrize("flag", sorted(tevaluate.UNPORTED_FLAGS))
+# the observability flags are ported: alone, each is refused in the JAX
+# CLI's words for the flow it needs
+_EVALUATE_OBS_REFUSALS = {
+    "--alarms": (["--alarms"], "configure the --matrix table"),
+    "--obs-dir": (["--obs-dir", "x"],
+                  "--obs-dir serves the --chaos and --matrix flows"),
+    "--trace-spans": (["--trace-spans"],
+                      "--trace-spans records spans on the chaos event bus"),
+}
+
+
+@pytest.mark.parametrize("flag", sorted({*tevaluate.UNPORTED_FLAGS,
+                                         *_EVALUATE_OBS_REFUSALS}))
 def test_evaluate_cli_refuses_unported_flags_with_the_slice_named(flag):
-    with pytest.raises(SystemExit,
-                       match=r"waits for .*ROADMAP.md(, \"Deliberately "
-                             r"unported\"| queue 1, (item \d+|next [23]))"):
-        tevaluate.main([flag, "x", "--device", "cpu"])
+    argv, match = _EVALUATE_OBS_REFUSALS.get(flag, (
+        [flag, "x"], r"waits for .*ROADMAP.md(, \"Deliberately "
+                     r"unported\"| queue 1, (item \d+|next [23]))"))
+    with pytest.raises(SystemExit, match=match):
+        tevaluate.main(argv + ["--device", "cpu"])
 
 
 def test_every_jax_evaluate_flag_is_taken_or_refused():
