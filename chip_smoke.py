@@ -82,15 +82,15 @@ Phases, each fatal on failure:
    with the time per window of each backend.
 10. The entry points, each of which must return:
     ``python -m rlgpuschedule_tpu_torch.evaluate --config
-    ppo-cnn-philly512 --eval-windows 8 --max-steps 4096 --percentiles``
+    ppo-cnn-philly512 --eval-windows 4 --max-steps 4096 --percentiles``
     and ``python -m rlgpuschedule_tpu_torch.train --config
-    ppo-mlp-synth64 --iterations 6 --eval-every 3 --report``; their JSON
+    ppo-mlp-synth64 --iterations 4 --eval-every 2 --report``; their JSON
     lines (the probe rows and the report) are echoed.
 11. The preemptive and pack|spread action spaces, for
     ``ppo-mlp-preempt`` (8x8 GPUs, queue 8, 4 preempt slots, the MLP)
     and ``gnn-gang-place`` (16x8 GPUs in racks of 4, queue 8, pack|spread,
     the GNN over the 24-node topology graph), each at its published
-    width: ``fleet_replay`` of 512 seeded clusters at horizon 1024
+    width: ``fleet_replay`` of 512 seeded clusters at horizon 512
     (bf16, seeded weights) with decisions/s, device ops per decision
     step and the unprofiled idle share (phase 2's profile over 4 and 12
     steps); card against CPU at f32 on 4 clusters under phase 3's rule,
@@ -130,7 +130,7 @@ Phases, each fatal on failure:
     weights; swapped back, step 2's actions bit for bit; (6)
     ``ppo-mlp-preempt``'s engine with ``env_params``: the graph with the
     stall vector equals eager ``gate_stalled`` + ``policy_decision``;
-    (7) an 8 s soak at 2,000 requests/s through the dispatcher thread,
+    (7) a 4 s soak at 2,000 requests/s through the dispatcher thread,
     50 ms deadlines: every request served or shed (the registry's
     counts agree), some served in the second half (a server locked out
     by its admission estimate serves none there), at most 1 % shed (a
@@ -168,7 +168,9 @@ Phases, each fatal on failure:
     by full-trace avg JCT over Tiresias on a 128-job seed-2000
     validation stream (the reference's default is 1,024 jobs); the
     chosen step's ``full_trace_report`` over a 128-job seed-123 stream
-    (``drain_completions=8``), every row finite; and that stitched
+    (``drain_completions=8``), every row finite, over at least 2
+    windows (one window stitches nothing: no carry, cutoff or drain);
+    and that stitched
     replay at f32 on the card and on the CPU: the same number of windows
     and the avg JCT within rtol 1e-6, unless a decision where the CPU's
     top-two margin is below 1e-4 differs, and then the phase names the
@@ -202,7 +204,7 @@ Phases, each fatal on failure:
     forward against the rollout's per-step ``[E]`` ones, which cuBLAS
     may compute with other kernels), held to 1e-5 (f32) and 5e-2 (bf16),
     and the targets against the GAE path.
-18. ``run_fused(4)`` against 4 iterations of ``run`` from fresh builds of
+18. ``run_fused(2)`` against 2 iterations of ``run`` from fresh builds of
     config 1 at the bench geometry (512 envs x 128 steps, 2 x 8), bit
     for bit under torch's default cuDNN switches (else within 10x of a
     second plain run's difference); then ``python -m
@@ -273,14 +275,15 @@ Phases, each fatal on failure:
     12 steps (device ops per step, idle share); then ``eval.replay``
     under a ``mixed`` ``DomainSchedule`` over 512 windows from
     ``make_domain_windows``.
-    For each schedule the first 4 clusters replay on the card with the
+    For each schedule the first 2 clusters replay on the card with the
     policy and on the CPU with the card's actions fed back: the final
     states, the per-job JCTs and every ``EvalResult`` field must be
     bit-identical, but ``avg_jct`` (an f32 sum whose order differs
     between the devices) within rtol 1e-6. Config 1
     (``ppo-mlp-synth64``, its preset width) trains clean, with
     ``--faults storm`` and with ``--domains mixed`` through the train
-    CLI's ``main`` (2 iterations each, env-steps/s printed side by side); ``evaluate --chaos`` over none, sporadic,
+    CLI's ``main`` (1 iteration each, env-steps/s printed side by side);
+    ``evaluate --chaos`` over none, sporadic,
     storm and straggler and ``evaluate --matrix`` over none, baseline,
     hetero and overload run on the trained checkpoints (every cell's
     conservation check holds, 0 jobs lost), and each table's policy rows
@@ -294,7 +297,7 @@ Phases, each fatal on failure:
     sync guard on in every dispatch) and ``start_frontend(port=0)``.
     Every row of a 320-row pool is first served in process
     (``submit``, inline pump); then 8 HTTP keep-alive clients and 8
-    framed clients, one process each, send 500 requests each over
+    framed clients, one process each, send 250 requests each over
     real sockets, each with its own request id: every reply echoes its
     id, and every action equals the in-process one for its row, but at
     a top-two margin below 1e-4 (the flips counted and printed);
@@ -325,7 +328,7 @@ Phases, each fatal on failure:
     actions equal the plain graph's at every size, and its log-prob and
     value against ``policy_decision_full`` on the CPU copy of the policy
     hold phase 17's bf16 band (``|mean ratio - 1|`` and the value's
-    largest relative difference within 5e-2). (2) Two 4 s soaks at
+    largest relative difference within 5e-2). (2) Two 2 s soaks at
     2,000 requests/s (50 ms deadlines) through the capture engine, one
     without a flight log and one with the durable log (512-row shards,
     fsync), its writer on the dispatcher thread under the sync guard:
@@ -365,11 +368,38 @@ Phases, each fatal on failure:
     iteration and raises ``FloatingPointError`` on a NaN weight.
     ``obs.report --strict-alarms`` (its ``main``) exits 0 on (1) and (4)
     and 1 on (2). (5) ``profile_breakdown`` (its ``main``) at 512 x 128,
-    ``--repeats 3`` of 3 calls, alone: every stage's wall, its event-pair
+    ``--repeats 1`` of 3 calls, alone: every stage's wall, its event-pair
     span and its busy milliseconds on the card (the profiler's kernel
     intervals), the sum of the parts against the fused loop,
     ``mfu_update`` priced on the card's bf16 peak, and a ``--trace-dir``
-    capture.
+    capture. Phase 25's (a) and (d), which check bits and not time, run
+    in this process while the children of (1), (2), (4) and the bench
+    run.
+25. The async actor-learner (each check fatal): (a) config 2 at its
+    preset width (8 envs x 128 steps, the 2.68 M-parameter CNN, cuDNN
+    deterministic on both arms) with window streaming every 2
+    iterations: ``Experiment.run(3)`` against ``run_async(3,
+    staleness_bound=0)`` across the resample barrier, every parameter,
+    optimizer, carry and generator element and the host counters equal
+    (the count of differing elements printed); (b) config 1 at 512 envs
+    x 128 steps, bound 1, 4 iterations under ``RunTelemetry(alarms=True,
+    trace=True)``: 0 ``transfer`` and 0 ``recompile`` events,
+    ``staleness_max``, ``overlap_s``, busy and idle seconds of each
+    loop and the span timeline's ``async_overlap_measured``; then one
+    profiled window of 2 iterations: each card stream's busy ms (the
+    profiler's kernel intervals) and the ms the streams overlap; (c)
+    ``train --async --staleness-bound 4 --queue-capacity 4 --correction
+    vtrace`` (its ``main``; 16 steps, 4 epochs x 16 minibatches, so the
+    update is the longer loop) for 8 iterations with a checkpoint every
+    4: ``staleness_max > 1``, finite losses, ``rho_mean``/``rho_max``,
+    the last checkpoint's ``async_iteration`` and ``staleness_bound``;
+    (d) a population of 2 config-1 members (32-step rollouts, exploit
+    every 2): the sync population against ``run_async`` at bound 0 for
+    4 iterations, every element equal, 2 PBT rounds; (e) ``bench --async
+    --staleness-bound 1 --repeats 1`` (its ``main``; one call of 5
+    iterations an arm, as (b) measures the engine already): its line,
+    sync and async env-steps/s of this process (not phase 18's),
+    ``speedup`` and ``projected_overlap_speedup``.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it is the card's name and power limit. Without a CUDA device, or
@@ -404,7 +434,7 @@ EVAL_COMPARE = 4          # windows compared card against CPU (phase 9)
 GATE = 4
 PERCENTILES = (50, 90, 99)
 NEW_PRESETS = ("ppo-mlp-preempt", "gnn-gang-place")
-NEW_HORIZON = 1024        # phase 11's fleet replay
+NEW_HORIZON = 512         # phase 11's fleet replay
 FEED_CLUSTERS, FEED_STEPS = 64, 128
 # the cycling policy spends up to stall_threshold + 1 = 17 steps on each
 # event: 32-job windows (half the preset's) finish in about 2,000 steps
@@ -412,7 +442,7 @@ CYCLE_CLUSTERS, CYCLE_JOBS, CYCLE_STEPS, UNGUARDED_STEPS = 16, 32, 4096, 128
 NEW_EVAL_WINDOWS = 16
 SERVE_SIZES = (5, 7, 8, 100, 129, 200, 256)   # phase 13's bench
 SERVE_ROUNDS = 48
-SOAK_S, SOAK_RATE, SOAK_DEADLINE_S = 8.0, 2000.0, 0.05
+SOAK_S, SOAK_RATE, SOAK_DEADLINE_S = 4.0, 2000.0, 0.05
 SOAK_MAX_SHED = 0.01      # of phase 13's soak requests (fatal above)
 HOST_ROUNDS = 300
 CKPT_DRAIN, CKPT_RESAMPLE, CKPT_ITERS = 0.5, 2, 4   # phase 14
@@ -428,7 +458,7 @@ FAIR_REPLAY_STEPS = 32    # phase 16's rollout replayed on the CPU
 # phase 17: the on-policy V-trace ratio band on the card, per trunk
 # dtype (the recompute is one [T*E] batch, the rollout's [E] per step)
 RHO_BAND = {"float32": 1e-5, "bfloat16": 5e-2}
-FUSED_ITERS = 4           # phase 18: run_fused(4) against run(4)
+FUSED_ITERS = 2           # phase 18: run_fused(2) against run(2)
 HIER_CONFIG = "hier-pbt-member"
 HIER_REPLAY_STEPS = 32    # phase 19's rollout replayed on the CPU
 HIER_TIMED = 3            # phase 19: timed iterations after a warm-up
@@ -447,13 +477,13 @@ CHAOS_FAULTS = ("engine-raise@20:engine=1,engine-hang@60:engine=1,"
                 "engine-slow@100:engine=1")
 HIER_SERVE_SIZES = (5, 17, 32)
 HIER_SERVE_SEEDS = 8      # phase 20 (5): seeds tried for weights that route
-CHAOS_COMPARE = 4         # phase 21: clusters replayed card against CPU
-CHAOS_TRAIN_ITERS = 2     # phase 21: config-1 train CLI runs
+CHAOS_COMPARE = 2         # phase 21: clusters replayed card against CPU
+CHAOS_TRAIN_ITERS = 1     # phase 21: config-1 train CLI runs
 FRONTEND_CLIENTS = 8      # phase 22: clients of each dialect
-FRONTEND_REQUESTS = 500   # phase 22: requests each client sends
+FRONTEND_REQUESTS = 250   # phase 22: requests each client sends
 FRONTEND_DRAIN_BOUND_S = 10.0   # phase 22: the drain's bound
-FRONTEND_WIRE_REQUESTS = 500    # phase 22: serve --wire-requests
-FLY_SOAK_S, FLY_RATE, FLY_DEADLINE_S = 4.0, 2000.0, 0.05   # phase 23
+FRONTEND_WIRE_REQUESTS = 250    # phase 22: serve --wire-requests
+FLY_SOAK_S, FLY_RATE, FLY_DEADLINE_S = 2.0, 2000.0, 0.05   # phase 23
 FLY_CAPACITY = 512        # phase 23: flight-log rows per shard
 OBS_ITERS = 3             # phase 24: train CLI iterations per run
 OBS_SLOW_S = 0.001        # phase 24: --alarm-slow-iter, below any iteration
@@ -463,6 +493,20 @@ SWEEP_GEOMETRY = ("64", "128")   # phase 24: the sweep's envs x steps
 SHORT_PROFILE = (4, 12)   # phases 11 and 21: the replay lengths profiled
 KERNEL_EVENT = b'"cat": "kernel"'  # a card kernel in a torch Chrome trace
 BREAKDOWN = "rlgpuschedule_tpu_torch.profile_breakdown"
+ASYNC_ITERS = 3           # phase 25 (a): run(3) against run_async(3)
+ASYNC_RESAMPLE = 2        # its window streaming: one resample barrier
+ASYNC_TEL_ITERS = 4       # phase 25 (b): bound 1 under the alarms
+ASYNC_PROFILE_ITERS = 2   # its profiled window
+ASYNC_DEEP_ITERS = 8      # phase 25 (c): bound 4 through the train CLI
+# (c)'s geometry: a short rollout and a long update, so the learner is
+# the slower loop and the queue runs deep
+ASYNC_DEEP_GEOMETRY = ("--n-steps", "16", "--n-epochs", "4",
+                       "--n-minibatches", "16")
+ASYNC_POP = 2             # phase 25 (d): config-1 members
+ASYNC_POP_STEPS = 32      # their rollout
+ASYNC_POP_ITERS = 4
+ASYNC_POP_READY = 2
+ASYNC_BENCH_REPEATS = 1   # phase 25 (e): bench --async calls an arm
 FLY_ITERS = 2             # phase 23: continual learn steps
 # phase 23: the soak arms in run order, each twice more after its first
 # place (A B B A A B), so neither arm always runs first
@@ -1036,7 +1080,8 @@ def eval_phase(torch, dev, trained):
     tr = jct_report(trained, windows=windows, max_steps=EVAL_STEPS,
                     include_random=False, baselines=("tiresias",),
                     backend="native")
-    _line("eval_trained", weights="after phase 5 (6 PPO iterations)",
+    _line("eval_trained",
+          weights=f"after phase 5 ({TRAIN_TIMED + 3} PPO iterations)",
           policy=tr["policy"], policy_completion=tr["policy_completion"],
           vs_tiresias=tr["vs_tiresias"], policy_steps=tr["policy_steps"],
           wall_s=tr["wall_s"])
@@ -1277,7 +1322,7 @@ def entry_point_phase(torch, dev):
     """The evaluate and train CLIs on the card (phase 10)."""
     lines, _, wall = _run_main(
         "rlgpuschedule_tpu_torch.evaluate",
-        ["--config", CONFIG, "--eval-windows", "8", "--max-steps",
+        ["--config", CONFIG, "--eval-windows", "4", "--max-steps",
          str(EVAL_STEPS), "--percentiles"])
     (line,) = lines
     _line("evaluate_cli", wall_s=wall, report=line)
@@ -1287,7 +1332,7 @@ def entry_point_phase(torch, dev):
         raise SystemExit(f"evaluate CLI: {line}")
     lines, _, wall = _run_main(
         "rlgpuschedule_tpu_torch.train",
-        ["--config", BENCH_CONFIG, "--iterations", "6", "--eval-every", "3",
+        ["--config", BENCH_CONFIG, "--iterations", "4", "--eval-every", "2",
          "--report"])
     probes = [r for r in lines if "eval_vs_tiresias" in r]
     summary = lines[-1]
@@ -1295,7 +1340,7 @@ def entry_point_phase(torch, dev):
           jct_report=summary.get("jct_report"),
           env_steps_per_s=summary.get("env_steps_per_sec"),
           device=summary.get("device"))
-    if [r["iteration"] for r in probes] != [2, 5]:
+    if [r["iteration"] for r in probes] != [1, 3]:
         raise SystemExit(f"train CLI: probe rows {probes}")
     rep = summary.get("jct_report") or {}
     if not (summary.get("device", "").startswith("cuda")
@@ -2206,6 +2251,10 @@ def select_phase(torch, dev):
           first_divergence=split, wall_s=wall)
     if not _finite(*(rep[k] for k in ROWS), rep["vs_tiresias"]):
         raise SystemExit(f"the full-trace table is not finite: {rep}")
+    if rep["policy_windows"] < 2 or rg["windows"] < 2:
+        raise SystemExit(f"full trace: {rep['policy_windows']} window(s) "
+                         f"stitch nothing (the carry, the cutoff and the "
+                         f"drain run only between windows)")
     if split is not None:
         if split["cpu_margin"] >= MARGIN:
             raise SystemExit(f"full trace: card and CPU decide differently "
@@ -4188,8 +4237,10 @@ def _events(obs_dir: str) -> list[dict]:
     return merge_dir(obs_dir)
 
 
-def telemetry_phase(torch, dev):
-    """Phase 24: the run-loop observability of config 1 on the card."""
+def telemetry_phase(torch, dev, beside=None):
+    """Phase 24: the run-loop observability of config 1 on the card.
+    ``beside(torch, dev)``, work that checks bits and not time, runs in
+    this process while the children run (it would only wait otherwise)."""
     import io
     import shutil
     import tempfile
@@ -4298,6 +4349,8 @@ def telemetry_phase(torch, dev):
         if nan_error is None:
             raise SystemExit("--debug-nans: a NaN weight did not raise")
         del exp
+        if beside is not None:
+            beside(torch, dev)
 
         t0 = time.perf_counter()
         done = _reap_all(procs)
@@ -4366,7 +4419,7 @@ def telemetry_phase(torch, dev):
         # the blocked step would time the same thing)
         _, art, wall = _run_main(BREAKDOWN, [
             "--n-envs", BREAKDOWN_GEOMETRY[0], "--n-steps",
-            BREAKDOWN_GEOMETRY[1], "--repeats", "3", "--trace-dir",
+            BREAKDOWN_GEOMETRY[1], "--repeats", "1", "--trace-dir",
             d["trace"]])
         sec = art["seconds_per_iteration"]
         span = art["device_span_ms_per_iteration"]
@@ -4397,6 +4450,253 @@ def telemetry_phase(torch, dev):
         _kill(procs)
         shutil.rmtree(tmp, ignore_errors=True)
     _line("obs_phase", card=name, power_limit=limit, smi=smi,
+          wall_s=time.perf_counter() - t_phase)
+
+
+
+def _async_snapshot(exp) -> dict:
+    """Clones of what an experiment or a population carries after a run:
+    every policy's parameters and optimizer state, every carry, both
+    generators of each member, and the host state (window cursor,
+    iteration, hyperparameters, PBT decisions)."""
+    pop = hasattr(exp, "members")
+    nets = ([(m.net, m.opt) for m in exp.members] if pop
+            else [(exp.net, exp.train_state.opt)])
+    carries = exp.carries if pop else [exp.carry]
+    gens = exp.generators if pop else [exp.generator]
+    host = {"iteration": exp.iteration}
+    if pop:
+        host.update(hparams=[x.tolist() for x in exp.hparams],
+                    decisions=[(d.src.tolist(), d.exploited.tolist())
+                               for d in exp.controller.history])
+    else:
+        host["window_cursor"] = exp.window_cursor
+    return {
+        "tensors": [t.detach().clone() for t in _tensors(
+            [(n.state_dict(), o.state_dict()["state"]) for n, o in nets]
+            + [(c.env_state, c.obs, c.mask) for c in carries])],
+        "generators": [g.get_state().clone() for g in
+                       [c.generator for c in carries] + list(gens)],
+        "host": host}
+
+
+def _async_differing(torch, a: dict, b: dict) -> dict:
+    """Differing elements of two :func:`_async_snapshot`s (all 0: bit
+    for bit), and the largest absolute difference among them."""
+    xs, ys = a["tensors"], b["tensors"]
+    if len(xs) != len(ys):
+        return {"tensors": math.inf, "max_abs": math.inf,
+                "generators": len(a["generators"]), "host": 1}
+    n, worst = 0, 0.0
+    for x, y in zip(xs, ys):
+        ne = x != y
+        n += int(ne.sum())
+        if ne.any() and x.is_floating_point():
+            worst = max(worst, float((x.double() - y.double()).abs().max()))
+    return {"tensors": n, "max_abs": worst,
+            "generators": sum(not torch.equal(u, v) for u, v in
+                              zip(a["generators"], b["generators"])),
+            "host": int(a["host"] != b["host"])}
+
+
+def async_identity_phase(torch, dev):
+    """Phase 25 (a) and (d), which check bits, not time: the async engine
+    at bound 0 against the sync loops. Phase 24 runs them in this process
+    while its children run (it would only wait for them otherwise)."""
+    from rlgpuschedule_tpu_torch.configs import CONFIGS
+    from rlgpuschedule_tpu_torch.experiment import (Experiment,
+                                                    PopulationExperiment)
+    from rlgpuschedule_tpu_torch.parallel import PBTConfig
+
+    t_phase = time.perf_counter()
+    # deterministic cuDNN on both arms: bit identity is about the engine,
+    # not the convolution algorithms' run-to-run freedom
+    old = _flags(torch, tf32=True, deterministic=True)
+    try:
+        # (a) config 2 at its preset width: sync against bound 0 across
+        # one resample barrier
+        cfg = dataclasses.replace(CONFIGS[CONFIG],
+                                  resample_every=ASYNC_RESAMPLE)
+        ref = Experiment.build(cfg, device=dev)
+        ref.run(ASYNC_ITERS)
+        exp = Experiment.build(cfg, device=dev)
+        out = exp.run_async(ASYNC_ITERS, staleness_bound=0)
+        diff = _async_differing(torch, _async_snapshot(ref),
+                                _async_snapshot(exp))
+        band = None
+        if any(v for k, v in diff.items()):
+            c = Experiment.build(cfg, device=dev)
+            c.run(ASYNC_ITERS)
+            band = _async_differing(torch, _async_snapshot(ref),
+                                    _async_snapshot(c))
+        _line("async_bound0", config=cfg.name, n_envs=cfg.n_envs,
+              n_steps=cfg.ppo.n_steps,
+              iterations=ASYNC_ITERS, resample_every=ASYNC_RESAMPLE,
+              window_cursor=exp.window_cursor, differing=diff,
+              sync_run_to_run=band,
+              staleness_max=out["async"]["staleness_max"])
+        if any(v for v in diff.values()) or exp.window_cursor != cfg.n_envs:
+            raise SystemExit(f"run_async at bound 0 differs from run: "
+                             f"{diff} (sync run to run: {band})")
+        del ref, exp
+
+        # (d) a population of 2 config-1 members: sync against bound 0
+        pcfg = CONFIGS[BENCH_CONFIG]
+        pcfg = dataclasses.replace(pcfg, ppo=dataclasses.replace(
+            pcfg.ppo, n_steps=ASYNC_POP_STEPS))
+
+        def pop():
+            return PopulationExperiment.build(
+                pcfg, n_pop=ASYNC_POP, device=dev,
+                pbt_cfg=PBTConfig(ready_iters=ASYNC_POP_READY,
+                                  seed=pcfg.seed))
+
+        a = pop()
+        a.run(ASYNC_POP_ITERS)
+        b = pop()
+        pout = b.run_async(ASYNC_POP_ITERS, staleness_bound=0)
+        pdiff = _async_differing(torch, _async_snapshot(a),
+                                 _async_snapshot(b))
+        _line("async_population", n_pop=ASYNC_POP, n_steps=ASYNC_POP_STEPS,
+              iterations=ASYNC_POP_ITERS, ready_iters=ASYNC_POP_READY,
+              pbt_events=pout["pbt_events"], differing=pdiff,
+              staleness_max_per_member=pout["async"][
+                  "staleness_max_per_member"])
+        if any(pdiff.values()) or pout["pbt_events"] != \
+                ASYNC_POP_ITERS // ASYNC_POP_READY:
+            raise SystemExit(f"async population at bound 0: {pdiff}, "
+                             f"{pout['pbt_events']} PBT rounds")
+        del a, b
+    finally:
+        _restore_flags(torch, old)
+    _line("async_identity_phase", wall_s=time.perf_counter() - t_phase)
+
+
+def async_phase(torch, dev):
+    """Phase 25 (b), (c) and (e): the async actor-learner engine on the
+    card ((a) and (d) run in phase 24: :func:`async_identity_phase`)."""
+    import shutil
+    import tempfile
+
+    from rlgpuschedule_tpu_torch.async_engine import AsyncRunner
+    from rlgpuschedule_tpu_torch.bench import card_info
+    from rlgpuschedule_tpu_torch.checkpoint import Checkpointer
+    from rlgpuschedule_tpu_torch.configs import CONFIGS
+    from rlgpuschedule_tpu_torch.experiment import Experiment
+    from rlgpuschedule_tpu_torch.obs import (RunTelemetry,
+                                             async_overlap_summary)
+    from rlgpuschedule_tpu_torch.utils import profiling
+
+    smi = _nvidia_smi()
+    name, limit = card_info()
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_async_")
+    try:
+        # (b) config 1 at 512 x 128, bound 1, traced and alarmed
+        bcfg = CONFIGS[BENCH_CONFIG]
+        bcfg = dataclasses.replace(
+            bcfg, n_envs=BENCH_GEOMETRY["n_envs"],
+            ppo=dataclasses.replace(
+                bcfg.ppo, **{k: v for k, v in BENCH_GEOMETRY.items()
+                             if k != "n_envs"}))
+        exp = Experiment.build(bcfg, device=dev)
+        runner = AsyncRunner(exp, staleness_bound=1)
+        obs_dir = os.path.join(tmp, "obs")
+        with RunTelemetry(obs_dir, alarms=True, trace=True,
+                          device=dev) as tel:
+            out = runner.run(ASYNC_TEL_ITERS, log_every=1, telemetry=tel)
+        ev = _events(obs_dir)
+        kinds = [e["kind"] for e in ev]
+        overlap = async_overlap_summary(ev)
+        info = out["async"]
+        # one profiled window: each card stream's busy ms and their overlap
+        iv = profiling.device_intervals(
+            lambda: runner.run(ASYNC_PROFILE_ITERS), 1, dev)
+        streams: dict = {}
+        for lo, hi, stream in iv:
+            streams.setdefault(stream, []).append((lo, hi))
+        busy = {str(k): profiling.covered_ns(v) / 1e6
+                for k, v in streams.items()}
+        union = profiling.covered_ns((lo, hi) for lo, hi, _ in iv) / 1e6
+        both = sum(busy.values()) - union
+        _line("async_bound1", card=name, power_limit=limit,
+              config=bcfg.name, n_envs=bcfg.n_envs,
+              n_steps=bcfg.ppo.n_steps, iterations=ASYNC_TEL_ITERS,
+              staleness_max=info["staleness_max"],
+              staleness_mean=info["staleness_mean"],
+              overlap_s=info["overlap_s"],
+              actor_busy_s=info["actor_busy_s"],
+              learner_busy_s=info["learner_busy_s"],
+              actor_idle_s=info["actor_idle_s"],
+              learner_idle_s=info["learner_idle_s"],
+              async_overlap_measured=(overlap or {}).get(
+                  "async_overlap_measured"),
+              transfer_alarms=kinds.count("transfer"),
+              recompile_alarms=kinds.count("recompile"),
+              env_steps_per_sec=out["env_steps_per_sec"],
+              profiled_iterations=ASYNC_PROFILE_ITERS,
+              stream_busy_ms=busy, busy_ms=union, stream_overlap_ms=both,
+              stream_overlap_share=both / union if union else None)
+        if kinds.count("transfer") or kinds.count("recompile") \
+                or info["staleness_max"] > 1 or overlap is None \
+                or len(busy) < 2:
+            raise SystemExit(f"async bound 1: events {sorted(set(kinds))}"
+                             f", {info}, overlap {overlap}, streams {busy}")
+        del exp, runner
+
+        # (c) bound 4 with V-trace through the train CLI's main: the
+        # update made the longer phase, so the queue runs deep
+        ck = os.path.join(tmp, "ckpt")
+        lines, summary, wall = _run_main("rlgpuschedule_tpu_torch.train", [
+            "--config", BENCH_CONFIG, "--async", "--staleness-bound", "4",
+            "--queue-capacity", "4", "--correction", "vtrace",
+            "--iterations", str(ASYNC_DEEP_ITERS), "--log-every", "1",
+            "--ckpt-dir", ck, "--ckpt-every", str(ASYNC_DEEP_ITERS // 2),
+            *ASYNC_DEEP_GEOMETRY])
+        rows = lines[:-1]
+        with Checkpointer(ck) as c:
+            meta = c.read_meta()
+        info = summary["async"]
+        losses = [r["total_loss"] for r in rows]
+        _line("async_deep", card=name, power_limit=limit,
+              geometry=ASYNC_DEEP_GEOMETRY, iterations=ASYNC_DEEP_ITERS,
+              staleness_max=info["staleness_max"],
+              staleness_mean=info["staleness_mean"],
+              rho_mean=info["importance_ratio_mean"],
+              rho_max=info["importance_ratio_max"], losses=losses,
+              ckpt_meta={k: meta.get(k) for k in
+                         ("iteration", "async_iteration",
+                          "staleness_bound")}, wall_s=wall)
+        if info["staleness_max"] <= 1 or not _finite(*losses) \
+                or len(rows) != ASYNC_DEEP_ITERS \
+                or meta.get("staleness_bound") != 4 \
+                or meta.get("async_iteration") != ASYNC_DEEP_ITERS - 1:
+            raise SystemExit(f"async bound 4: {info}, losses {losses}, "
+                             f"checkpoint meta {meta}")
+
+        # (e) bench --async --staleness-bound 1 through its main: a ratio
+        # inside one process (its rates are not phase 18's)
+        lines, line, wall = _run_main(
+            "rlgpuschedule_tpu_torch.bench",
+            ["--async", "--staleness-bound", "1", "--repeats",
+             str(ASYNC_BENCH_REPEATS)])
+        print(json.dumps(line), flush=True)
+        _line("async_bench", card=name, power_limit=limit,
+              sync_env_steps_per_sec=line[
+                  "sync_env_steps_per_sec_per_chip"],
+              async_env_steps_per_sec=line[
+                  "async_env_steps_per_sec_per_chip"],
+              speedup=line["speedup"],
+              projected_overlap_speedup=line["projected_overlap_speedup"],
+              async_overlap_measured=line["async_overlap_measured"],
+              staleness_max=line["staleness_max"], wall_s=wall,
+              note="rates inside this process: not phase 18's")
+        if not (line["metric"] == "async_actor_learner_speedup[cuda]"
+                and _finite(line["speedup"]) and line["power_limit"]):
+            raise SystemExit(f"bench --async: {line}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _line("async_phase", card=name, power_limit=limit, smi=smi,
           wall_s=time.perf_counter() - t_phase)
 
 
@@ -4510,7 +4810,8 @@ def main() -> int:
     timed(chaos_phase)
     timed(frontend_phase)
     timed(flywheel_phase)
-    timed(telemetry_phase)
+    timed(telemetry_phase, async_identity_phase)
+    timed(async_phase)
     _line("done", total_s=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -110,6 +110,7 @@ def assert_no_recompiles(what: str = "region"):
 _guard_lock = threading.RLock()
 _guard_depth = 0
 _guard_prev = 0
+_lifted = False       # an intended_sync scope has lifted the mode
 
 
 @contextlib.contextmanager
@@ -158,13 +159,18 @@ def intended_sync():
     process-wide, the scope lifts it for every thread, so it also holds
     the guard's lock throughout: no thread can enter or leave the guard
     meanwhile (they wait), and a sync that another thread makes inside
-    this window is not caught. Keep the scope to the one read."""
+    this window is not caught. Keep the scope to the one read. A scope
+    nested in another (a probe whose replay reads its done flag) leaves
+    the mode to the outer one."""
+    global _lifted
     with _guard_lock:
-        if _guard_depth == 0:
+        if _guard_depth == 0 or _lifted:
             yield
             return
+        _lifted = True
         torch.cuda.set_sync_debug_mode(_guard_prev)
         try:
             yield
         finally:
+            _lifted = False
             torch.cuda.set_sync_debug_mode("error")

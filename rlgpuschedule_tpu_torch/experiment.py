@@ -7,7 +7,7 @@ Counterparts of ``build_env_params``, ``load_source_trace``,
 ``make_domain_windows`` and the single-run
 ``Experiment`` of PPO or A2C (``build``, ``run`` with its eval,
 checkpoint and window-streaming cadences and its ``fused_chunk``,
-``run_fused``, ``advance_windows``, ``save_checkpoint``,
+``run_fused``, ``run_async``, ``advance_windows``, ``save_checkpoint``,
 ``restore_checkpoint``, ``steps_per_iteration``) in the JAX package's
 ``experiment.py``, and its ``PopulationExperiment`` (config 5's PBT
 population, :class:`PopulationExperiment`). A config with ``n_pods >
@@ -751,6 +751,34 @@ class Experiment:
                 rollbacks=0)
         return out
 
+    def run_async(self, iterations: int | None = None, *,
+                  groups=None, staleness_bound: int = 1,
+                  queue_capacity: int = 2, log_every: int = 0,
+                  logger: Callable[[int, dict], None] | None = None,
+                  ckpt: Checkpointer | None = None, ckpt_every: int = 0,
+                  eval_every: int = 0,
+                  eval_fn: "Callable[[int], dict] | None" = None,
+                  eval_logger: Callable[[int, dict], None] | None = None,
+                  telemetry=None) -> dict:
+        """The async actor-learner loop (:class:`..async_engine
+        .AsyncRunner`): the rollout on the actor's stream (or device)
+        overlaps the update on the learner's, through a bounded
+        trajectory queue under ``staleness_bound``; ``staleness_bound=0``
+        is :meth:`run` bit for bit. The hook surface and the cadences are
+        :meth:`run`'s; checkpoints and window resamples run at
+        drained-queue barriers. ``groups`` is a
+        :class:`..parallel.groups.DeviceGroups` (default: both roles
+        shared on this experiment's device). ``fused_chunk`` is the sync
+        loop's only."""
+        from .async_engine import AsyncRunner
+        runner = AsyncRunner(self, groups=groups,
+                             staleness_bound=staleness_bound,
+                             queue_capacity=queue_capacity)
+        return runner.run(iterations, log_every=log_every, logger=logger,
+                          ckpt=ckpt, ckpt_every=ckpt_every,
+                          eval_every=eval_every, eval_fn=eval_fn,
+                          eval_logger=eval_logger, telemetry=telemetry)
+
 
 def member_seeds(seed: int, member: int) -> tuple[int, int, int]:
     """Population member ``member``'s seeds: its policy's
@@ -875,6 +903,10 @@ class PopulationExperiment:
     @property
     def steps_per_iteration(self) -> int:
         return self.cfg.ppo.n_steps * self.cfg.n_envs * self.n_pop
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     @property
     def step(self) -> int:
@@ -1036,8 +1068,7 @@ class PopulationExperiment:
                 n_pop=self.n_pop, iterations=iterations,
                 n_envs=self.cfg.n_envs,
                 steps_per_iteration=self.steps_per_iteration)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self._sync()
         t0 = time.perf_counter()
         for k in range(iterations):
             g = self.iteration
@@ -1090,8 +1121,7 @@ class PopulationExperiment:
                     self.save_checkpoint(ckpt)
             if telemetry is not None:
                 telemetry.end_iteration(g, row, self.steps_per_iteration)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self._sync()
         wall = time.perf_counter() - t0
         env_steps = iterations * self.steps_per_iteration
         out = {"wall_s": wall, "iterations": iterations,
@@ -1110,3 +1140,34 @@ class PopulationExperiment:
                 env_steps_per_sec=round(out["env_steps_per_sec"], 3),
                 pbt_events=len(self.controller.history), rollbacks=0)
         return out
+
+    def run_async(self, iterations: int | None = None, *,
+                  groups=None, staleness_bound: int = 1,
+                  queue_capacity: int = 2, log_every: int = 0,
+                  logger: Callable[[int, dict], None] | None = None,
+                  ckpt: Checkpointer | None = None, ckpt_every: int = 0,
+                  eval_every: int = 0,
+                  eval_fn: "Callable[[int], dict] | None" = None,
+                  eval_logger: Callable[[int, dict], None] | None = None,
+                  watchdog=None, injector=None, telemetry=None) -> dict:
+        """The async actor-learner loop over the whole population
+        (:class:`..async_engine.AsyncPopulationRunner`): the actor rolls
+        each member in turn, the learner updates each in turn, PBT
+        exploit/explore fires at drained-queue barriers, and
+        ``staleness_bound=0`` is :meth:`run` bit for bit. Deep bounds
+        want ``cfg.ppo.correction="vtrace"`` so stale batches do not skew
+        the members' fitness ranking. ``watchdog`` and ``injector`` wait
+        for the resilience slice, as :meth:`run`'s do."""
+        from .async_engine import AsyncPopulationRunner
+        if watchdog is not None or injector is not None:
+            raise NotImplementedError(
+                "the population's divergence watchdog and fault injector "
+                "are not in the PyTorch port yet: they wait for the "
+                "resilience slice (ROADMAP.md queue 1, item 21)")
+        runner = AsyncPopulationRunner(self, groups=groups,
+                                       staleness_bound=staleness_bound,
+                                       queue_capacity=queue_capacity)
+        return runner.run(iterations, log_every=log_every, logger=logger,
+                          ckpt=ckpt, ckpt_every=ckpt_every,
+                          eval_every=eval_every, eval_fn=eval_fn,
+                          eval_logger=eval_logger, telemetry=telemetry)

@@ -26,13 +26,11 @@ and writes the same events, and either package's report reads both:
   own), and :class:`Alarms`, the recompile, transfer and slow-iteration
   alarms (``CompileCounter`` and the sync guard of
   :mod:`..analysis.sentinels` in production; the slow-iteration capture
-  is a torch profiler trace);
+  is a torch profiler trace), and the async engine's
+  :class:`OverlapMeter` and :class:`AsyncGauges`;
 - :mod:`.report` -- ``python -m rlgpuschedule_tpu_torch.obs.report
   <dir> [--request ID]``: the run post-mortem, or one request's
   timeline.
-
-The asynchronous engine's ``OverlapMeter`` and ``AsyncGauges`` come
-with that engine (``ROADMAP.md`` queue 1, item 20).
 """
 from .events import (SCHEMA_VERSION, EventBus, event_streams, merge_dir,
                      merge_events, read_events)
@@ -41,7 +39,8 @@ from .metrics import (Counter, Gauge, Histogram, MetricsHTTPServer,
 from .skew import (RankSkew, correct_events, learn_offsets,
                    merge_dir_corrected)
 from .slo import DEFAULT_WINDOWS, SLOEngine, SLOSpec, histogram_sli
-from .telemetry import PROM_SNAPSHOT, AlarmError, Alarms, RunTelemetry
+from .telemetry import (PROM_SNAPSHOT, AlarmError, Alarms, AsyncGauges,
+                        OverlapMeter, RunTelemetry)
 from .trace import (NULL_TRACER, Tracer, TracerLane, async_overlap_summary,
                     build_span_tree, to_chrome_trace, tracer_of)
 
@@ -50,7 +49,8 @@ __all__ = [
     "merge_events", "read_events",
     "Counter", "Gauge", "Histogram", "MetricsHTTPServer", "Registry",
     "serve_http",
-    "AlarmError", "Alarms", "PROM_SNAPSHOT", "RunTelemetry",
+    "AlarmError", "Alarms", "AsyncGauges", "OverlapMeter", "PROM_SNAPSHOT",
+    "RunTelemetry",
     "NULL_TRACER", "Tracer", "TracerLane", "async_overlap_summary",
     "build_span_tree", "to_chrome_trace", "tracer_of",
     "RankSkew", "correct_events", "learn_offsets", "merge_dir_corrected",

@@ -1,9 +1,10 @@
 """Run-loop telemetry of the port: iteration spans and production alarms.
 
 Counterpart of the JAX package's ``obs/telemetry.py`` (``AlarmError``,
-``Alarms``, ``RunTelemetry``, ``PROM_SNAPSHOT``), with its metric
-names, event kinds and fields, so either package's ``obs.report``
-reads the other's runs.
+``Alarms``, ``RunTelemetry``, ``PROM_SNAPSHOT``, and the async engine's
+``OverlapMeter`` and ``AsyncGauges``, plain Python copied as they are),
+with its metric names, event kinds and fields, so either package's
+``obs.report`` reads the other's runs.
 
 :class:`RunTelemetry` is what the train loops hold -- one object owning
 the event bus (:mod:`.events`), the counters/gauges registry
@@ -42,12 +43,14 @@ from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
-from typing import Any, Iterator, Mapping
+from typing import Any, Callable, Iterator, Mapping
 
 import torch
 
-from ..analysis.sentinels import CompileCounter, no_implicit_transfers
+from ..analysis.sentinels import (CompileCounter, intended_sync,
+                                  no_implicit_transfers)
 from ..utils.profiling import SectionTimer, TraceSession
 from .events import EventBus
 from .metrics import Registry
@@ -91,6 +94,8 @@ class Alarms:
         self.device = torch.device(device)
         self._counter: CompileCounter | None = None
         self._dispatches = 0
+        self._watches = 0
+        self._lock = threading.Lock()
         self._amnesty: str | None = None
         self._profile_pending = False
         self._profile: TraceSession | None = None
@@ -131,22 +136,10 @@ class Alarms:
         amnesty, self._amnesty = self._amnesty, None
         self._dispatches += 1
         t0 = self._counter.total
-        guard = (no_implicit_transfers(self.device)
-                 if self.transfer_guard and not warm and amnesty is None
-                 else contextlib.nullcontext())
-        try:
-            with guard:
-                yield
-        except Exception as e:
-            msg = str(e)
-            if SYNC_ERROR in msg.lower():
-                self._transfers.inc()
-                self.bus.emit("transfer", iteration=iteration,
-                              error=msg[:500])
-                raise AlarmError(
-                    f"implicit host<->device transfer in the iteration-"
-                    f"{iteration} dispatch (transfer alarm): {msg}") from e
-            raise
+        with self._transfer_scope(
+                iteration, self.transfer_guard and not warm
+                and amnesty is None):
+            yield
         compiles = self._counter.total - t0
         if compiles <= 0:
             return
@@ -157,6 +150,40 @@ class Alarms:
             self._recompiles.inc()
             self.bus.emit("recompile", iteration=iteration,
                           events=compiles)
+
+    @contextlib.contextmanager
+    def watch(self, iteration: int) -> Iterator[None]:
+        """The sync guard over a peer thread's work beside the dispatches
+        (the async engine's actor rollout): past its own first
+        ``warmup_iters`` scopes, a host sync inside is a transfer alarm,
+        as in :meth:`dispatch`. It counts no dispatch and attributes no
+        build (the process-wide counter still sees them)."""
+        with self._lock:
+            warm = self._watches < self.warmup_iters
+            self._watches += 1
+        with self._transfer_scope(iteration,
+                                  self.transfer_guard and not warm):
+            yield
+
+    @contextlib.contextmanager
+    def _transfer_scope(self, iteration: int, guarded: bool
+                        ) -> Iterator[None]:
+        guard = (no_implicit_transfers(self.device) if guarded
+                 else contextlib.nullcontext())
+        try:
+            with guard:
+                yield
+        except Exception as e:
+            msg = str(e)
+            if SYNC_ERROR in msg.lower():
+                with self._lock:
+                    self._transfers.inc()
+                self.bus.emit("transfer", iteration=iteration,
+                              error=msg[:500])
+                raise AlarmError(
+                    f"implicit host<->device transfer in the iteration-"
+                    f"{iteration} dispatch (transfer alarm): {msg}") from e
+            raise
 
     def observe_wall(self, iteration: int, wall_s: float) -> None:
         """Slow-iteration trigger: emit the alarm and arm a one-shot
@@ -179,7 +206,10 @@ class Alarms:
     def stop_profile(self, iteration: int | None = None) -> None:
         if self._profile is None:
             return
-        self._profile.stop()
+        # the capture's stop waits for the card: a deliberate sync (a
+        # peer thread may hold the guard, as the async actor does)
+        with intended_sync():
+            self._profile.stop()
         self._profile = None
         self._profile_done = True   # one capture per run
         self.bus.emit("profile_captured", iteration=iteration,
@@ -323,3 +353,107 @@ class RunTelemetry:
                 f"host wall seconds spent in the {phase} phase").inc(
                 max(secs, 0.0))
         return delta
+
+
+class OverlapMeter:
+    """Online wall-clock overlap between two busy lanes (the async
+    engine's actor and learner threads).
+
+    Each lane opens/closes spans via :meth:`span`; the meter credits the
+    intersection of concurrently-open spans to ``overlap_s``, each
+    overlapping interval exactly once: when a span ENDS, it claims the
+    intersection with the other lane's open span and advances that
+    lane's credit frontier past the claimed interval, so the other
+    lane's own end event cannot re-claim it. Thread-safe (one lock;
+    span bookkeeping is O(1)) and clock-injectable for tests.
+
+    This is the CI smoke stage's "nonzero overlap" evidence: even on a
+    single core, the two threads' spans interleave around device waits,
+    so a genuinely overlapped engine shows ``overlap_s > 0`` while a
+    serialized one shows ~0.
+    """
+
+    def __init__(self, clock: Callable[[], float] = time.monotonic):
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._open: dict[str, float] = {}      # lane -> actual span start
+        self._frontier: dict[str, float] = {}  # lane -> uncredited start
+        self.busy_s: dict[str, float] = {}
+        self.overlap_s = 0.0
+
+    @contextlib.contextmanager
+    def span(self, lane: str) -> Iterator[None]:
+        t0 = self._clock()
+        with self._lock:
+            self._open[lane] = t0
+            self._frontier[lane] = t0
+        try:
+            yield
+        finally:
+            t1 = self._clock()
+            with self._lock:
+                start = self._open.pop(lane, t1)
+                self.busy_s[lane] = (self.busy_s.get(lane, 0.0)
+                                     + (t1 - start))
+                mine = self._frontier.pop(lane, start)
+                for other in self._open:
+                    lo = max(mine, self._frontier[other])
+                    if t1 > lo:
+                        self.overlap_s += t1 - lo
+                        self._frontier[other] = t1
+
+    def snapshot(self) -> dict[str, float]:
+        with self._lock:
+            out = {f"busy_{k}_s": round(v, 6)
+                   for k, v in self.busy_s.items()}
+            out["overlap_s"] = round(self.overlap_s, 6)
+            return out
+
+
+class AsyncGauges:
+    """The async engine's metric surface on a :class:`.metrics.Registry`:
+    ``queue_depth``, ``param_staleness``,
+    ``actor_idle_s``, ``learner_idle_s``, plus the overlap headline.
+    Only the learner (caller) thread writes these — the actor thread
+    hands its numbers over through the engine's lock-protected state, so
+    the Registry never sees concurrent writers."""
+
+    def __init__(self, registry: Registry):
+        self.queue_depth = registry.gauge(
+            "rlsched_async_queue_depth",
+            "trajectory batches waiting in the actor->learner queue")
+        self.param_staleness = registry.gauge(
+            "rlsched_async_param_staleness",
+            "policy-versions behind of the last consumed batch")
+        self.actor_idle = registry.gauge(
+            "rlsched_async_actor_idle_s",
+            "cumulative seconds the actor spent blocked (staleness gate "
+            "+ full-queue backpressure)")
+        self.learner_idle = registry.gauge(
+            "rlsched_async_learner_idle_s",
+            "cumulative seconds the learner spent waiting on an empty "
+            "queue")
+        self.overlap = registry.gauge(
+            "rlsched_async_overlap_s",
+            "cumulative wall seconds actor and learner were busy "
+            "simultaneously")
+        self.rho_mean = registry.gauge(
+            "rlsched_async_importance_ratio_mean",
+            "mean unclipped importance ratio of the last logged update "
+            "(1.0 = on-policy; the V-trace off-policyness monitor)")
+        self.rho_max = registry.gauge(
+            "rlsched_async_importance_ratio_max",
+            "max unclipped importance ratio seen at any logged update "
+            "this run")
+
+    def publish(self, *, queue_depth: int, staleness: int,
+                actor_idle_s: float, learner_idle_s: float,
+                overlap_s: float, importance_ratio_mean: float = 1.0,
+                importance_ratio_max: float = 1.0) -> None:
+        self.queue_depth.set(queue_depth)
+        self.param_staleness.set(staleness)
+        self.actor_idle.set(round(actor_idle_s, 6))
+        self.learner_idle.set(round(learner_idle_s, 6))
+        self.overlap.set(round(overlap_s, 6))
+        self.rho_mean.set(round(importance_ratio_mean, 6))
+        self.rho_max.set(round(importance_ratio_max, 6))

@@ -50,8 +50,10 @@ one), at 1 and at ``--n-epochs`` epochs, and prints a ranked artifact
 ``--trace-dir`` adds a torch profiler trace of one fused step
 (``utils.profiling.trace``; JAX's traces the timed window of
 ``--iters-per-repeat`` steps, but one config-1 step at 512 x 128 is
-already about 100 MB of trace). ``--async`` (the actor-learner phase
-table) waits for the asynchronous engine.
+already about 100 MB of trace). ``--async`` prints JAX's actor-learner
+phase table instead (:func:`_profile_async`: the sync loop against the
+async engine at ``--staleness-bound``, with the engine's phase seconds
+and counters; ``--async-out`` also writes it to a file).
 
 Examples::
 
@@ -60,6 +62,8 @@ Examples::
         --sweep-minibatch --sweep-out sweep.json
     python -m rlgpuschedule_tpu_torch.profile_breakdown --device cpu \\
         --n-envs 2 --n-steps 8 --repeats 1
+    python -m rlgpuschedule_tpu_torch.profile_breakdown --async \\
+        --staleness-bound 1 --async-out async.json
 """
 from __future__ import annotations
 
@@ -76,19 +80,12 @@ from .algos.ppo import (PPOConfig, compute_advantages, make_train_state,
                         normalize_advantages, run_ppo_epochs)
 from .algos.rollout import rollout
 from .algos.update import resolve_geometry
-from .bench import card_info
-from .cli import refuse_unported
+from .bench import card_info, time_async_against_sync
 from .configs import CONFIGS
 from .device import resolve_device
 from .experiment import Experiment
 from .ops.gae import compute_gae
 from .utils import profiling
-
-_Q1 = "ROADMAP.md queue 1"
-# the JAX CLI's flags that this one does not take, and what they wait for
-UNPORTED_FLAGS: dict[str, str] = dict.fromkeys(
-    ("--async", "--staleness-bound", "--async-out"),
-    f"the async actor-learner slice ({_Q1}, item 20)")
 
 # the published dense bf16 tensor-core peak (FLOP/s) of each card, keyed
 # on torch.cuda.get_device_name(): the H100 SXM5's, from NVIDIA's
@@ -188,6 +185,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--trace-dir", default=None,
                     help="also capture a torch profiler trace of one "
                          "fused step here")
+    ap.add_argument("--async", dest="async_run", action="store_true",
+                    help="profile the overlapped actor-learner engine "
+                         "against the sync loop (phase table) instead of "
+                         "the stage breakdown")
+    ap.add_argument("--staleness-bound", type=int, default=1,
+                    help="with --async: the engine's staleness bound")
+    ap.add_argument("--async-out", default=None,
+                    help="with --async: also write the phase-table "
+                         "artifact to this path")
     return ap
 
 
@@ -248,12 +254,77 @@ def _sweep_minibatch(ppo: PPOConfig, time_update, B: int, n_params: int,
     }
 
 
+def _profile_async(args, cfg, context: dict) -> dict:
+    """The sync-against-async phase table on one workload (JAX's
+    ``_profile_async``): the per-iteration sync loop and the async
+    engine, each the median of ``--repeats`` calls of
+    ``--iters-per-repeat`` iterations
+    (:func:`..bench.time_async_against_sync`, shared with ``bench
+    --async``), then the engine's own accounting:
+    per-phase host seconds of the last timed call (``actor``,
+    ``learner``, ``queue_wait``, ``sync``) and the cumulative
+    overlap/staleness counters of ``async_info()``.
+    ``projected_overlap_speedup`` is the phase-time ceiling ``(actor +
+    learner) / max(actor, learner)``; the measured ``speedup`` is what
+    this host and card deliver (the two loops share one GIL)."""
+    import os
+
+    from .async_engine import AsyncRunner
+
+    dev = context["device"]
+    n = args.iters_per_repeat
+    runner = AsyncRunner(Experiment.build(cfg, device=dev),
+                         staleness_bound=args.staleness_bound)
+    t_sync, t_async, last = time_async_against_sync(
+        Experiment.build(cfg, device=dev), runner, n, args.repeats)
+    t_sync, t_async = t_sync / n, t_async / n
+    phases = last["phase_seconds"]                 # last timed run only
+    info = last["async"]                           # cumulative counters
+    busy_a = phases.get("actor", 0.0)
+    busy_l = phases.get("learner", 0.0)
+    parts = busy_a + busy_l
+    return {
+        "profile": "async-phase-table",
+        "platform": context["platform"],
+        "device_kind": context["device_kind"],
+        "power_limit": context["power_limit"],
+        "cores": os.cpu_count(),
+        "n_envs": cfg.n_envs, "n_steps": cfg.ppo.n_steps,
+        "iters_per_repeat": n, "repeats": args.repeats,
+        "staleness_bound": args.staleness_bound,
+        "groups": runner.groups.describe(),
+        "seconds_per_iteration": {
+            "sync_loop": round(t_sync, 5),
+            "async_loop": round(t_async, 5)},
+        "speedup": round(t_sync / t_async, 3),
+        "async_phase_seconds_per_iteration": {
+            k: round(v / n, 5) for k, v in sorted(phases.items())},
+        "async_phase_share_of_busy": {
+            "actor": round(busy_a / parts, 3) if parts else None,
+            "learner": round(busy_l / parts, 3) if parts else None},
+        "projected_overlap_speedup": round(
+            parts / max(busy_a, busy_l), 3) if parts else None,
+        "queue_wait_s_cumulative": {
+            "actor_idle": info["actor_idle_s"],
+            "learner_idle": info["learner_idle_s"]},
+        "staleness": {"max": info["staleness_max"],
+                      "mean": info["staleness_mean"]},
+        "overlap_s_cumulative": info["overlap_s"],
+        "note": "phase seconds are the last timed run's SectionTimer; "
+                "queue_wait/overlap/staleness counters are cumulative "
+                "over warmup + all repeats",
+    }
+
+
 def main(argv: "list[str] | None" = None) -> dict:
     ap = build_parser()
-    args, extra = ap.parse_known_args(argv)
-    refuse_unported(extra, ap, UNPORTED_FLAGS)
+    args = ap.parse_args(argv)
     if args.sweep_out and not args.sweep_minibatch:
         ap.error("--sweep-out only applies with --sweep-minibatch")
+    if args.async_out and not args.async_run:
+        ap.error("--async-out only applies with --async")
+    if args.async_run and (args.sweep_minibatch or args.trace_dir):
+        ap.error("--async is exclusive with --sweep-minibatch/--trace-dir")
     if args.repeats < 1 or args.iters_per_repeat < 1:
         ap.error("--repeats and --iters-per-repeat must be >= 1")
     dev = resolve_device(args.device)
@@ -272,14 +343,21 @@ def main(argv: "list[str] | None" = None) -> dict:
     B = n_steps * n_envs
     _, n_mb, mb = resolve_geometry(ppo.n_epochs, ppo.n_minibatches,
                                    ppo.minibatch_size, B)
-    exp = Experiment.build(cfg, device=dev)
-    env_params, traces, faults = exp.env_params, exp.traces, exp.faults
-    n_params = sum(p.numel() for p in exp.net.parameters())
     name, limit = card_info() if cuda else ("cpu", None)
-    peak = BF16_PEAK.get(name) if cuda else None
     context = {"platform": "gpu" if cuda else "cpu",
                "device_kind": name if cuda else None,
                "power_limit": limit, "n_envs": n_envs, "n_steps": n_steps}
+    if args.async_run:
+        out = _profile_async(args, cfg, {**context, "device": dev})
+        print(json.dumps(out), flush=True)
+        if args.async_out:
+            with open(args.async_out, "w") as f:
+                json.dump(out, f, indent=1)
+        return out
+    exp = Experiment.build(cfg, device=dev)
+    env_params, traces, faults = exp.env_params, exp.traces, exp.faults
+    n_params = sum(p.numel() for p in exp.net.parameters())
+    peak = BF16_PEAK.get(name) if cuda else None
     clock = _Clock(dev, args.repeats)
     n = args.iters_per_repeat
 

@@ -28,7 +28,7 @@ on backlog-drain windows; ``--resample-every`` re-cuts the windows from
 the source trace every N iterations. ``--bf16-update``,
 ``--reward-norm`` and ``--bf16-advantages`` set the algorithm's
 precision and advantage options, ``--correction`` PPO's (``vtrace``
-needs ``--async``, which waits for its slice); ``--fused-chunk N`` runs
+needs ``--async``); ``--fused-chunk N`` runs
 N iterations between hook boundaries with no host sync
 (:meth:`..experiment.Experiment.run_fused`). ``--faults REGIME`` trains
 under seeded per-env fault schedules and ``--domains REGIME`` across
@@ -45,6 +45,15 @@ iteration is an alarm and the next one is profiled under
 ``<obs-dir>/profile``); ``--profile-dir`` traces the run with the torch
 profiler and ``--debug-nans`` raises at the first operation that makes
 a NaN (:mod:`.utils.profiling`; not with ``--alarms``).
+
+``--async`` trains with the async actor-learner engine
+(:meth:`..experiment.Experiment.run_async`, or the population's with
+``--pbt``): the rollout on one CUDA stream overlaps the update on
+another, through a queue of ``--queue-capacity`` batches, each at most
+``--staleness-bound`` policy versions behind (0: the sync loop bit for
+bit). Both roles share the ``--device`` card unless
+``--actor-devices``/``--learner-devices`` carve the groups
+(:mod:`.parallel.groups`: one card each, unverified).
 
 ``--continual LOGDIR`` trains on served traffic instead of simulator
 rollouts: the crc-verified flight log under LOGDIR (``serve
@@ -74,6 +83,9 @@ Examples::
     python -m rlgpuschedule_tpu_torch.train --config ppo-mlp-synth64 \\
         --iterations 20 --obs-dir out/obs --alarms --trace-spans \\
         --log-csv out/m.csv --tb-dir out/tb
+    python -m rlgpuschedule_tpu_torch.train --config ppo-mlp-synth64 \\
+        --async --staleness-bound 4 --queue-capacity 4 \\
+        --correction vtrace --iterations 20
 """
 from __future__ import annotations
 
@@ -97,21 +109,16 @@ from .domains import DOMAIN_REGIMES
 from .env.env import stack_traces
 from .experiment import (Experiment, PopulationExperiment, algo_config,
                          load_source_trace, make_env_windows, trace_sim)
-from .parallel import PBTConfig
+from .parallel import PBTConfig, split_devices
+from .parallel.groups import home_device
 from .sim.core import validate_trace
 from .sim.faults import FAULT_REGIMES
 
 _Q1 = "ROADMAP.md queue 1"
 # the JAX CLI's flags that this port does not take, and what they wait for
-UNPORTED_FLAGS: dict[str, str] = {
-    **dict.fromkeys(
-        ("--async", "--actor-devices", "--learner-devices",
-         "--staleness-bound", "--queue-capacity"),
-        f"the async actor-learner slice ({_Q1}, item 20)"),
-    **dict.fromkeys(("--mesh", "--max-rollbacks", "--fault"),
-                    f"the data-parallel and resilience slice ({_Q1}, "
-                    f"item 21)"),
-}
+UNPORTED_FLAGS: dict[str, str] = dict.fromkeys(
+    ("--mesh", "--max-rollbacks", "--fault"),
+    f"the data-parallel and resilience slice ({_Q1}, item 21)")
 
 
 # the port's one refusal of a pair the JAX CLI takes: the NaN check of
@@ -190,6 +197,36 @@ def build_parser() -> argparse.ArgumentParser:
                         "between the advantage scan and the minibatch "
                         "epochs (halves the target buffer; NOT "
                         "bit-identical — loss math upcasts to fp32)")
+    # async actor-learner split (async_engine; opt-in)
+    p.add_argument("--async", dest="async_run", action="store_true",
+                   help="overlapped actor-learner engine: rollout "
+                        "collection on one CUDA stream (or device) "
+                        "overlaps the minibatch update on another, coupled "
+                        "by a bounded trajectory queue (Sebulba split). "
+                        "--staleness-bound 0 reproduces the sync loop "
+                        "bit-identically; with --pbt the population")
+    p.add_argument("--actor-devices", default=None, metavar="N|I,J,..",
+                   help="with --async: actor group as a device COUNT "
+                        "(taken from the front of the visible list) or "
+                        "explicit comma-separated device indices. "
+                        "Default (neither group flag): both roles share "
+                        "the --device card; with one flag alone the "
+                        "other group takes the remaining devices")
+    p.add_argument("--learner-devices", default=None, metavar="N|I,J,..",
+                   help="with --async: learner group (count from the "
+                        "back, or explicit indices; must be disjoint "
+                        "from the actor group unless identical)")
+    p.add_argument("--staleness-bound", type=int, default=1,
+                   help="with --async: max update-steps the policy that "
+                        "collected a batch may lag the learner at "
+                        "consume time (0 = lock-step, bit-identical to "
+                        "the sync path; default 1). Bounds >= 4 run the "
+                        "queue deep enough to hide slow actors but bias "
+                        "the clip-only surrogate: pair them with "
+                        "--correction vtrace")
+    p.add_argument("--queue-capacity", type=int, default=2,
+                   help="with --async: trajectory-queue slots; a full "
+                        "queue blocks the actor (backpressure, no drops)")
     p.add_argument("--fused-chunk", type=int, default=1,
                    help="run N train steps with no host sync between hook "
                         "boundaries (every active log/eval/ckpt/resample "
@@ -489,6 +526,23 @@ def main(argv: "list[str] | None" = None) -> dict:
     if args.domains is not None and args.domains not in DOMAIN_REGIMES:
         sys.exit(f"unknown --domains regime {args.domains!r}; known: "
                  f"{sorted(DOMAIN_REGIMES)}")
+    if not args.async_run:
+        for flag, val, default in (("--actor-devices",
+                                    args.actor_devices, None),
+                                   ("--learner-devices",
+                                    args.learner_devices, None),
+                                   ("--staleness-bound",
+                                    args.staleness_bound, 1),
+                                   ("--queue-capacity",
+                                    args.queue_capacity, 2)):
+            if val != default:
+                sys.exit(f"{flag} configures the async engine; pass "
+                         f"--async with it (refusing the silent no-op)")
+    else:
+        if args.staleness_bound < 0:
+            sys.exit("--staleness-bound must be >= 0")
+        if args.queue_capacity < 1:
+            sys.exit("--queue-capacity must be >= 1")
     if args.continual is None:
         for flag, val, default in (
                 ("--continual-trust", args.continual_trust, 2.0),
@@ -526,13 +580,14 @@ def main(argv: "list[str] | None" = None) -> dict:
         sys.exit("--pbt-ready must be >= 1")
     try:
         validate_mode_combination({
+            "async": args.async_run,
             "pbt": args.pbt,
             "faults": cfg.faults is not None,
             "domains": cfg.domains is not None,
             "fused_chunk": args.fused_chunk > 1,
             "hier": cfg.n_pods > 1,
             "vtrace": cfg.algo == "ppo" and cfg.ppo.correction == "vtrace",
-            "sync": True,
+            "sync": not args.async_run,
             # not the "vtrace" flag: continual forces the correction
             # against the measured serving lag, which the vtrace x sync
             # refusal (ratios == 1 on-policy) does not cover
@@ -565,6 +620,19 @@ def _train(args, cfg: ExperimentConfig, stack: contextlib.ExitStack
             device=dev))
         bus = telemetry.bus
     try:
+        groups = None
+        if args.async_run:
+            # both roles share the experiment's device unless the flags
+            # carve the groups: the split of two cards is unverified, so
+            # it runs only when asked for (JAX splits whatever is visible)
+            explicit = (args.actor_devices is not None
+                        or args.learner_devices is not None)
+            groups = split_devices(
+                actor=args.actor_devices, learner=args.learner_devices,
+                devices=dev if explicit else [home_device(dev)])
+            groups.check_runnable()
+            # the train state lives on the learner's device
+            dev = groups.learner_device
         if args.pbt:
             exp = PopulationExperiment.build(
                 cfg, n_pop=args.n_pop, device=dev,
@@ -631,7 +699,16 @@ def _train(args, cfg: ExperimentConfig, stack: contextlib.ExitStack
     if args.debug_nans:
         stack.enter_context(profiling.debug_checks())
     run_kw = {} if telemetry is None else {"telemetry": telemetry}
-    if args.pbt:
+    if args.async_run:
+        print(f"async actor-learner: {groups.describe()} "
+              f"staleness_bound={args.staleness_bound} "
+              f"queue_capacity={args.queue_capacity}", file=sys.stderr)
+        out = exp.run_async(
+            groups=groups, staleness_bound=args.staleness_bound,
+            queue_capacity=args.queue_capacity, log_every=args.log_every,
+            logger=logger, ckpt=ckpt, ckpt_every=args.ckpt_every,
+            **eval_kw, **run_kw)
+    elif args.pbt:
         out = exp.run(log_every=args.log_every, logger=logger, ckpt=ckpt,
                       ckpt_every=args.ckpt_every, **eval_kw, **run_kw)
     else:

@@ -10,8 +10,9 @@ Counterpart of the JAX package's ``utils/profiling.py``:
   torch without CUPTI support raises instead of recording a CPU-only
   trace that would read as a card trace. :class:`TraceSession` is the
   same session started and stopped by hand (the slow-iteration capture
-  of :class:`..obs.telemetry.Alarms`); :func:`device_busy_ms` reads a
-  session's kernel intervals back as the card's busy time;
+  of :class:`..obs.telemetry.Alarms`); :func:`device_intervals` reads a
+  session's kernel intervals back per card stream, and
+  :func:`device_busy_ms` as the card's busy time;
 - :func:`debug_checks` -- the ``jax_debug_nans`` switch: the enclosed
   code raises ``FloatingPointError`` at the first operation whose
   floating output holds a NaN, naming the operation. Forward operations
@@ -103,26 +104,37 @@ def trace(log_dir: str, device: "torch.device | str" = "cuda"
         session.stop()
 
 
-def device_busy_ms(fn, n: int, device: "torch.device | str") -> float:
-    """Milliseconds per call that a CUDA ``device`` spent running work
-    over ``n`` calls of ``fn``: the union of the kernel, copy and memset
-    intervals the torch profiler records (CUDA activity only), so the
-    gaps where the card waited on the host do not count, unlike an
-    event pair's span. Raises where CUPTI is missing."""
+def device_intervals(fn, n: int, device: "torch.device | str"
+                     ) -> "list[tuple[int, int, int]]":
+    """``(start_ns, end_ns, stream)`` of every kernel, copy and memset a
+    CUDA ``device`` ran over ``n`` calls of ``fn`` (the torch profiler's
+    CUDA activity; ``stream`` is the profiler's id of the card queue it
+    ran on), whichever thread launched it. Raises where CUPTI is
+    missing."""
     from torch.autograd import DeviceType
     from torch.profiler import profile
     device = torch.device(device)
     if device.type != "cuda":
-        raise ValueError(f"device_busy_ms times a CUDA device, not "
+        raise ValueError(f"the card's intervals need a CUDA device, not "
                          f"{device}")
     torch.cuda.synchronize(device)
     with profile(activities=[_cuda_activity()]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize(device)
-    return covered_ns((e.start_ns(), e.end_ns())
-                      for e in prof.profiler.kineto_results.events()
-                      if e.device_type() == DeviceType.CUDA) / 1e6 / n
+    return [(e.start_ns(), e.end_ns(), e.device_resource_id())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
+
+
+def device_busy_ms(fn, n: int, device: "torch.device | str") -> float:
+    """Milliseconds per call that a CUDA ``device`` spent running work
+    over ``n`` calls of ``fn``: the union of the kernel, copy and memset
+    intervals the torch profiler records (:func:`device_intervals`), so
+    the gaps where the card waited on the host do not count, unlike an
+    event pair's span. Raises where CUPTI is missing."""
+    return covered_ns((lo, hi) for lo, hi, _ in
+                      device_intervals(fn, n, device)) / 1e6 / n
 
 
 def covered_ns(spans) -> int:

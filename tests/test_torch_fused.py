@@ -377,18 +377,22 @@ def test_train_refusals_are_jaxs_word_for_word(argv):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--async"], 20), (["--mesh", "auto"], 21), (["--pbt", "--async"], 20),
-    (["--continual", "x", "--fused-chunk", "2"], "fused_chunk"),
-    (["--correction", "vtrace", "--async"], 20)])
+    (["--async", "--queue-capacity", "0"], "--queue-capacity"),
+    (["--mesh", "auto"], 21),
+    (["--pbt", "--async", "--fused-chunk", "2"], "--fused-chunk"),
+    (["--continual", "x", "--fused-chunk", "2"], "--continual LOGDIR"),
+    (["--correction", "vtrace", "--async", "--staleness-bound", "-1"],
+     "--staleness-bound")])
 def test_train_modes_still_refused_name_their_item(argv, item):
     text = _exit_text(ttrain.main, argv + ["--device", "cpu"])
     if isinstance(item, int):
         assert f"item {item})" in text
     else:
-        # --continual is ported; with --fused-chunk it is the mode
-        # table's refusal, JAX's word for word
+        # --continual and --async are ported: what they still refuse
+        # (the mode table's pairs, the async engine's checks) is JAX's
+        # refusal word for word
         assert text == _exit_text(jtrain.main, argv)
-        assert "--continual LOGDIR" in text and "--fused-chunk" in text
+        assert item in text
 
 
 def test_train_refuses_an_indivisible_fused_chunk():
@@ -428,8 +432,9 @@ def test_bench_prints_its_json_line_on_the_cpu():
 
 @pytest.mark.parametrize("argv,match", [
     (["--mesh", "auto"], r"waits for .*item 21\)"),
-    (["--async"], r"waits for .*item 20\)"),
-    (["--staleness-bound", "4"], r"waits for .*item 20\)"),
+    (["--async", "--mesh", "auto"], r"waits for .*item 21\)"),
+    (["--staleness-bound", "4", "--correction", "vtrace"],
+     "--correction vtrace × the synchronous"),
     (["--correction", "vtrace"], "--correction vtrace × the synchronous")])
 def test_bench_refuses_what_waits_for_a_slice(argv, match):
     with pytest.raises(SystemExit, match=match):

@@ -195,6 +195,11 @@ def test_the_checkpoint_slice_has_its_pieces():
         sys.path.remove(ROOT)
 
 
+def test_importing_the_async_path_leaves_jax_out():
+    _leaves_jax_out(("async_engine", "parallel.groups", "obs.telemetry",
+                     "train", "bench", "profile_breakdown"))
+
+
 def test_unported_messages_name_open_roadmap_items():
     """Every ``item N`` a refusal of the port names is an open item of
     ``ROADMAP.md`` (one with its own entry in queue 1, a numbered line

@@ -9,8 +9,9 @@
 - the ``--sweep-minibatch`` artifact has JAX's keys and geometry grid,
   is ranked fastest first with ``best`` on top, and both packages'
   ``bench --sweep`` read its best geometry;
-- ``--async`` and its two flags are refused naming item 20, and
-  ``--sweep-out`` without ``--sweep-minibatch`` exits as JAX's does.
+- what ``--async`` and its two flags still refuse, and ``--sweep-out``
+  without ``--sweep-minibatch``, exit as JAX's do (the phase table
+  itself: ``tests/test_torch_async_cli.py``).
 """
 import json
 
@@ -92,11 +93,21 @@ def test_sweep_artifact_is_ranked_and_read_by_both_benches(tmp_path,
         want["best"]["n_epochs"], want["best"]["n_minibatches"])
 
 
-@pytest.mark.parametrize("argv", [["--async"], ["--staleness-bound", "2"],
-                                  ["--async-out", "a.json"]])
-def test_async_is_refused_naming_item_20(argv):
-    with pytest.raises(SystemExit, match=r"item 20\)"):
-        tpb.main(argv + ["--device", "cpu"])
+@pytest.mark.parametrize("argv", [
+    ["--async", "--sweep-minibatch"],
+    ["--staleness-bound", "2", "--async", "--trace-dir", "t"],
+    ["--async-out", "a.json"]])
+def test_async_is_refused_naming_item_20(argv, capsys):
+    """``--async`` is ported: what the phase table still refuses (an
+    artifact without ``--async``, ``--async`` beside the sweep or the
+    trace) is JAX's argument error, word for word."""
+    texts = []
+    for main in (jpb.main, tpb.main):
+        with pytest.raises(SystemExit) as e:
+            main(argv)
+        assert e.value.code == 2
+        texts.append(capsys.readouterr().err.splitlines()[-1])
+    assert texts[0].split(": error: ")[1] == texts[1].split(": error: ")[1]
 
 
 def test_sweep_out_without_the_sweep_exits_as_jax_does():

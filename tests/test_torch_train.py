@@ -454,13 +454,14 @@ def test_train_cli_prints_finite_metrics_on_the_cpu():
 
 
 def test_train_cli_refuses_a2c_with_the_slice_named():
-    """Config 3 trains (``tests/test_torch_fused.py``); what it still
-    cannot take is refused: flight-log retraining with JAX's words (it
-    retrains through PPO's V-trace pipeline) and the async engine with
-    its slice named (item 20)."""
+    """Config 3 trains (``tests/test_torch_fused.py``), with the async
+    engine too; what it still cannot take is refused with JAX's words:
+    flight-log retraining and the V-trace correction (both go through
+    PPO's V-trace pipeline)."""
     for argv, match in ((["--continual", "logs"],
                          "retrains through the V-trace-corrected PPO"),
-                        (["--async"], r"waits for .*item 20\)")):
+                        (["--async", "--correction", "vtrace"],
+                         "--correction selects the PPO advantage")):
         with pytest.raises(SystemExit, match=match):
             ttrain.main(["--config", "a2c-pai-fair", *argv, "--device",
                          "cpu"])
@@ -474,12 +475,19 @@ def test_train_cli_refuses_unported_flags_with_the_slice_named(argv):
     # --continual is ported: a log directory that does not exist is
     # refused as JAX refuses an empty log; --debug-nans is ported: with
     # --alarms (whose sync guard its per-op host read would trip on the
-    # card) it is refused with the port's reason
+    # card) it is refused with the port's reason; --async and its flags
+    # are ported: a queue of no slot and a bound without the engine are
+    # refused with JAX's words
     match = {"--continual": "continual ingest refused: no verified shards",
-             "--debug-nans": "--debug-nans reads every operation's output"
+             "--debug-nans": "--debug-nans reads every operation's output",
+             "--async": "--queue-capacity must be >= 1",
+             "--staleness-bound": "--staleness-bound configures the async "
+                                  "engine; pass --async with it"
              }.get(argv[0], r"waits for .*item \d+")
     if argv[0] == "--debug-nans":
         argv = argv + ["--alarms", "--obs-dir", "unused"]
+    if argv[0] == "--async":
+        argv = argv + ["--queue-capacity", "0"]
     with pytest.raises(SystemExit, match=match):
         ttrain.main(argv + ["--device", "cpu"])
 
