@@ -18,7 +18,7 @@ Phases, each fatal on failure:
    in bf16 with seeded weights) against 512 simulated clusters through
    ``fleet_replay``; then a ``torch.profiler`` account of the decision
    step (launches per step, top device ops, device idle share).
-3. Card against CPU: the first 4 clusters replayed at f32 with TF32
+3. Card against CPU: the first 2 clusters replayed at f32 with TF32
    off on ``cuda`` and on ``cpu`` with the same weights. Greedy actions
    must agree step by step, except at a step where the CPU's top-two
    logit margin is below 1e-4; that cluster is no longer compared from
@@ -45,7 +45,7 @@ Phases, each fatal on failure:
    finite; parameters, grads and Adam moments f32, the trunk's output
    bf16.
 6. ``ppo-mlp-synth64`` at ``bench.py``'s chip geometry (512 envs x 128
-   steps, 2 epochs x 8 minibatches): one warm-up iteration, then three
+   steps, 2 epochs x 8 minibatches): one warm-up iteration, then two
    through ``Experiment.run``; prints env-steps/s.
 7. Card against CPU at f32 with TF32 off and deterministic cuDNN, on
    config 2's CNN with the same seeded weights on both: a 128-step
@@ -70,7 +70,7 @@ Phases, each fatal on failure:
    baselines (the card synchronized around each), and the policy
    replay's decision steps and decisions/s. Every value must be finite
    and the completion reported.
-9. Card against CPU, and native against Python, on 4 of those windows
+9. Card against CPU, and native against Python, on 2 of those windows
    at f32 with TF32 off: the greedy replay's actions identical under
    phase 3's margin rule, and for the windows compared to the end
    ``n_done``, ``steps`` and every per-job JCT identical (the policy
@@ -84,7 +84,7 @@ Phases, each fatal on failure:
     ``python -m rlgpuschedule_tpu_torch.evaluate --config
     ppo-cnn-philly512 --eval-windows 4 --max-steps 4096 --percentiles``
     and ``python -m rlgpuschedule_tpu_torch.train --config
-    ppo-mlp-synth64 --iterations 4 --eval-every 2 --report``; their JSON
+    ppo-mlp-synth64 --iterations 2 --eval-every 1 --report``; their JSON
     lines (the probe rows and the report) are echoed.
 11. The preemptive and pack|spread action spaces, for
     ``ppo-mlp-preempt`` (8x8 GPUs, queue 8, 4 preempt slots, the MLP)
@@ -93,7 +93,7 @@ Phases, each fatal on failure:
     width: ``fleet_replay`` of 512 seeded clusters at horizon 512
     (bf16, seeded weights) with decisions/s, device ops per decision
     step and the unprofiled idle share (phase 2's profile over 4 and 12
-    steps); card against CPU at f32 on 4 clusters under phase 3's rule,
+    steps); card against CPU at f32 on 2 clusters under phase 3's rule,
     at the preset's horizon; and a host-drawn
     (numpy, seeded) masked-uniform action sequence fed through
     ``env.step`` on both devices on integer-valued traces, the sim
@@ -104,7 +104,7 @@ Phases, each fatal on failure:
     spread placements and preemptions the feeds made and the stall
     gate's engagements, and fails if any of the three totals is zero.
 12. Training and evaluation of both presets on the card: one warm-up
-    and three timed PPO iterations at the published geometry (4 envs x
+    and two timed PPO iterations at the published geometry (4 envs x
     128 steps, 4 epochs x 4 minibatches; env-steps/s, the rollout / GAE
     / update split, finite losses); one learn step card against CPU at
     f32 (parameters within atol 1e-5, phase 7's rule); ``jct_report``
@@ -139,7 +139,7 @@ Phases, each fatal on failure:
     achieved printed (steps 3 and 7 also print
     the garbage collector's full collections and longest pause);
     (8) ``run_host_path``
-    (bucket 256, 300 rounds): the arena arm allocates nothing; (9)
+    (bucket 256, 150 rounds): the arena arm allocates nothing; (9)
     ``python -m rlgpuschedule_tpu_torch.serve --config ppo-cnn-philly512
     --bench --bucket 256`` exits 0 with 0 post-warmup recompiles.
 14. Checkpoints of config 2 at its published geometry (bf16, 8 envs x
@@ -160,10 +160,25 @@ Phases, each fatal on failure:
     equal the same replays in this process, row for row and cluster for
     cluster. Last, the checkpoint on the CPU: a CPU experiment must
     refuse to continue its CUDA generators, and its policy at f32 (TF32
-    off) replays 4 of the windows (2 streaming, 2 drained) on the card
-    and on the CPU within phase 9's margin rule.
+    off) replays 2 of the windows (1 streaming, 1 drained) on the card
+    and on the CPU within phase 9's margin rule. Then resilience, each
+    check fatal: (a) a fresh config-2 run (its width, its rollout cut
+    to 8 steps) of 3 iterations with a checkpoint after each, under a
+    ``DivergenceWatchdog``, takes ``nan-grad@2`` and rolls back exactly
+    once, ends with finite parameters, and its ``RollbackEvent``
+    (iteration, restored step, resume iteration, LR scale, reason)
+    equals the same run's on the CPU; the parameters restored, read
+    just after the restore, are the checkpoint's bits; (b) in the same
+    runs ``corrupt-ckpt@1`` truncated step 32, so the rollback falls
+    back to step 16 and says so; (c) a 2-member config-5 population (its
+    rollout cut to 32 steps) with ``nan-grad@0:rank=1`` and a PBT round
+    every iteration, 1 iteration: the exploit re-seeds member 1 from
+    member 0, and the watchdog rolls nothing back; (d) ``train
+    --iterations 2 --n-steps 32 --max-rollbacks 2 --fault nan-grad@1``
+    (its default config, config 1) exits 0 on the card with
+    ``rollbacks`` 1. The seconds the checks add are printed.
 15. ``ppo-mlp-synth64`` at its preset on the drain curriculum
-    (``drain_frac=1.0``): 6 iterations, a checkpoint every 2, 3 kept;
+    (``drain_frac=1.0``): 3 iterations, a checkpoint after each, 3 kept;
     ``python -m rlgpuschedule_tpu_torch.select_checkpoint`` ranks them
     by full-trace avg JCT over Tiresias on a 128-job seed-2000
     validation stream (the reference's default is 1,024 jobs); the
@@ -221,7 +236,7 @@ Phases, each fatal on failure:
     bit-identical, some routes taken), then one member learn step on its
     batch with the same permutations and hyperparameters (parameters
     within atol 1e-5, metrics within phase 7's rule). One hierarchical
-    ``Experiment``: a warm-up and 3 timed iterations (env-steps/s), a
+    ``Experiment``: a warm-up and 2 timed iterations (env-steps/s), a
     16-step rollout under ``torch.profiler`` (device ops per rollout
     step, idle share), finite losses. A ``PopulationExperiment``
     of 4 members exploiting every 2 iterations: 2 iterations, a
@@ -275,7 +290,7 @@ Phases, each fatal on failure:
     12 steps (device ops per step, idle share); then ``eval.replay``
     under a ``mixed`` ``DomainSchedule`` over 512 windows from
     ``make_domain_windows``.
-    For each schedule the first 2 clusters replay on the card with the
+    For each schedule the first cluster replays on the card with the
     policy and on the CPU with the card's actions fed back: the final
     states, the per-job JCTs and every ``EvalResult`` field must be
     bit-identical, but ``avg_jct`` (an f32 sum whose order differs
@@ -419,18 +434,20 @@ import time
 
 CONFIG = "ppo-cnn-philly512"
 N_CLUSTERS = 512          # the serve CLI's documented --fleet 512
-N_COMPARE = 4             # clusters card against CPU (phases 3, 11)
+N_COMPARE = 2             # clusters card against CPU (phases 3, 11)
 MARGIN = 1e-4
 BUCKETS = {16: (9, 12, 16), 256: (129, 200, 256)}
 LATENCY_REPS = 30
 TRAIN_TIMED = 3           # timed iterations after one warm-up
+NEW_TIMED = 2             # phase 12: timed iterations a preset
+BENCH_TIMED = 2           # phase 6: timed iterations after one warm-up
 BENCH_CONFIG = "ppo-mlp-synth64"
 BENCH_GEOMETRY = dict(n_envs=512, n_steps=128, n_epochs=2, n_minibatches=8)
 REPLAY_STEPS = 32
 PARAM_ATOL, METRIC_RTOL, METRIC_ATOL = 1e-5, 1e-4, 1e-6
 EVAL_WINDOWS = 64         # held-out windows of the phase-8 table
 EVAL_STEPS = 4096         # decision steps per window
-EVAL_COMPARE = 4          # windows compared card against CPU (phase 9)
+EVAL_COMPARE = 2          # windows compared card against CPU (phases 9, 14)
 GATE = 4
 PERCENTILES = (50, 90, 99)
 NEW_PRESETS = ("ppo-mlp-preempt", "gnn-gang-place")
@@ -444,11 +461,20 @@ SERVE_SIZES = (5, 7, 8, 100, 129, 200, 256)   # phase 13's bench
 SERVE_ROUNDS = 48
 SOAK_S, SOAK_RATE, SOAK_DEADLINE_S = 4.0, 2000.0, 0.05
 SOAK_MAX_SHED = 0.01      # of phase 13's soak requests (fatal above)
-HOST_ROUNDS = 300
+HOST_ROUNDS = 150
 CKPT_DRAIN, CKPT_RESAMPLE, CKPT_ITERS = 0.5, 2, 4   # phase 14
 CKPT_FLEET = 64           # serve --ckpt-dir --fleet 64
-CKPT_COMPARE_FROM = 2     # phase 14 replays windows 2-5: 2 of each kind
-SELECT_ITERS = 6          # phase 15: 3 checkpoints kept, one every 2
+CKPT_COMPARE_FROM = 3     # phase 14 replays windows 3-4: 1 of each kind
+# phase 14's resilience checks: config 2's faulted run on the card and
+# on the CPU (3 iterations, a checkpoint after each; the rollout cut to 8
+# steps, which changes neither the checkpoint's size nor the steps and
+# iterations the rollback event counts), and the config-5 population's
+# members, iterations and rollout length
+RESIL_SPECS = ("corrupt-ckpt@1", "nan-grad@2")
+RESIL_ITERS = 3
+RESIL_STEPS = 8
+RESIL_POP, RESIL_POP_ITERS, RESIL_POP_STEPS = 2, 1, 32
+SELECT_ITERS = 3          # phase 15: 3 checkpoints kept, one each
 SELECT_VAL_JOBS, SELECT_TEST_SEED, SELECT_TEST_JOBS = 128, 123, 128
 SELECT_STITCH_DRAIN = 8
 FAIR_CONFIG = "a2c-pai-fair"
@@ -461,7 +487,7 @@ RHO_BAND = {"float32": 1e-5, "bfloat16": 5e-2}
 FUSED_ITERS = 2           # phase 18: run_fused(2) against run(2)
 HIER_CONFIG = "hier-pbt-member"
 HIER_REPLAY_STEPS = 32    # phase 19's rollout replayed on the CPU
-HIER_TIMED = 3            # phase 19: timed iterations after a warm-up
+HIER_TIMED = 2            # phase 19: timed iterations after a warm-up
 HIER_PROFILE_STEPS = 16   # phase 19's profiled rollout
 HIER_POP = 4              # phase 19's population
 HIER_READY = 2            # its exploit/explore cadence
@@ -477,7 +503,7 @@ CHAOS_FAULTS = ("engine-raise@20:engine=1,engine-hang@60:engine=1,"
                 "engine-slow@100:engine=1")
 HIER_SERVE_SIZES = (5, 17, 32)
 HIER_SERVE_SEEDS = 8      # phase 20 (5): seeds tried for weights that route
-CHAOS_COMPARE = 2         # phase 21: clusters replayed card against CPU
+CHAOS_COMPARE = 1         # phase 21: clusters replayed card against CPU
 CHAOS_TRAIN_ITERS = 1     # phase 21: config-1 train CLI runs
 FRONTEND_CLIENTS = 8      # phase 22: clients of each dialect
 FRONTEND_REQUESTS = 250   # phase 22: requests each client sends
@@ -888,11 +914,11 @@ def bench_phase(torch, dev):
     cfg = _bench_config()
     exp = Experiment.build(cfg, device=dev)
     exp.run(1)
-    out = exp.run(TRAIN_TIMED, log_every=1)
+    out = exp.run(BENCH_TIMED, log_every=1)
     last = out["history"][-1]
     _line("bench", config=cfg.name, dtype="bfloat16", n_envs=cfg.n_envs,
           n_steps=cfg.ppo.n_steps, n_epochs=cfg.ppo.n_epochs,
-          n_minibatches=cfg.ppo.n_minibatches, iterations=TRAIN_TIMED,
+          n_minibatches=cfg.ppo.n_minibatches, iterations=BENCH_TIMED,
           wall_s=out["wall_s"], env_steps=out["env_steps"],
           env_steps_per_s=out["env_steps_per_sec"], last_iteration=last)
     if not _finite(out["env_steps_per_sec"], last["total_loss"],
@@ -1332,7 +1358,7 @@ def entry_point_phase(torch, dev):
         raise SystemExit(f"evaluate CLI: {line}")
     lines, _, wall = _run_main(
         "rlgpuschedule_tpu_torch.train",
-        ["--config", BENCH_CONFIG, "--iterations", "4", "--eval-every", "2",
+        ["--config", BENCH_CONFIG, "--iterations", "2", "--eval-every", "1",
          "--report"])
     probes = [r for r in lines if "eval_vs_tiresias" in r]
     summary = lines[-1]
@@ -1340,7 +1366,7 @@ def entry_point_phase(torch, dev):
           jct_report=summary.get("jct_report"),
           env_steps_per_s=summary.get("env_steps_per_sec"),
           device=summary.get("device"))
-    if [r["iteration"] for r in probes] != [1, 3]:
+    if [r["iteration"] for r in probes] != [0, 1]:
         raise SystemExit(f"train CLI: probe rows {probes}")
     rep = summary.get("jct_report") or {}
     if not (summary.get("device", "").startswith("cuda")
@@ -1527,7 +1553,7 @@ def preset_train_eval_phase(torch, dev):
         exp = Experiment.build(cfg, device=dev)
         exp.run(1)
         split, metrics = [], []
-        for _ in range(TRAIN_TIMED):
+        for _ in range(NEW_TIMED):
             t0 = _sync(torch)
             exp.carry, tr, last = rollout(exp.net, exp.env_params,
                                           exp.traces, exp.carry, ppo.n_steps)
@@ -1548,7 +1574,7 @@ def preset_train_eval_phase(torch, dev):
               n_minibatches=ppo.n_minibatches,
               params=sum(p.numel() for p in exp.net.parameters()),
               iteration_split_s=split,
-              env_steps_per_s=TRAIN_TIMED * exp.steps_per_iteration / wall,
+              env_steps_per_s=NEW_TIMED * exp.steps_per_iteration / wall,
               metrics=metrics)
         for m in metrics:
             if not _finite(m["total_loss"], m["entropy"], m["approx_kl"]):
@@ -1597,7 +1623,7 @@ def preset_train_eval_phase(torch, dev):
         print(format_report(report), file=sys.stderr, flush=True)
         rows = {k: report[k] for k in ROWS}
         _line("new_eval", config=name, windows=len(windows),
-              weights=f"after {TRAIN_TIMED + 1} PPO iterations (bf16)",
+              weights=f"after {NEW_TIMED + 1} PPO iterations (bf16)",
               rows=rows, policy_completion=report["policy_completion"],
               vs_tiresias=report["vs_tiresias"],
               stall_guard=report.get("stall_guard"),
@@ -2157,7 +2183,176 @@ def checkpoint_phase(torch, dev):
           steps=[int(x) for x in sides[1][0].steps],
           n_done=[int(x) for x in sides[1][0].n_done],
           cpu_train_restore_refused=refused)
+    t0 = time.perf_counter()
+    _resilience_checks(torch, dev, cfg, tmp)
+    _line("resilience_seconds", added_s=time.perf_counter() - t0,
+          card=_nvidia_smi())
     shutil.rmtree(tmp)
+
+
+def _faulted_run(torch, cfg, dev, directory, specs, iterations):
+    """A fresh ``Experiment`` of ``cfg`` on ``dev`` trained
+    ``iterations`` with a checkpoint after each, under a
+    ``DivergenceWatchdog`` and the faults ``specs``. Returns the
+    experiment, the summary, its stderr, each rollback's restored step
+    and parameters (host copies taken just after the restore) and each
+    rollback's milliseconds (the card synchronized around it)."""
+    import io
+
+    from rlgpuschedule_tpu_torch.checkpoint import Checkpointer
+    from rlgpuschedule_tpu_torch.experiment import Experiment
+    from rlgpuschedule_tpu_torch.resilience import (DivergenceWatchdog,
+                                                    FaultInjector,
+                                                    parse_fault)
+    exp = Experiment.build(cfg, device=dev)
+    restored, rollback_ms = [], []
+    restore = exp.restore_checkpoint
+
+    def restore_spy(ck, *a, **k):
+        meta = restore(ck, *a, **k)
+        restored.append((ck.last_restored_step, {
+            n: v.detach().cpu().clone()
+            for n, v in exp.net.state_dict().items()}))
+        return meta
+
+    exp.restore_checkpoint = restore_spy
+    wd = DivergenceWatchdog(max_rollbacks=2)
+    rollback = wd.rollback
+
+    def timed_rollback(*a, **k):
+        t0 = _sync(torch)
+        event = rollback(*a, **k)
+        rollback_ms.append((_sync(torch) - t0) * 1e3)
+        return event
+
+    wd.rollback = timed_rollback
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err), Checkpointer(directory) as ck:
+        out = exp.run(iterations, log_every=1, ckpt=ck, ckpt_every=1,
+                      watchdog=wd, injector=FaultInjector(
+                          [parse_fault(s) for s in specs]))
+    said = err.getvalue()
+    print(said.strip(), flush=True)
+    return exp, out, said, restored, rollback_ms
+
+
+def _resilience_checks(torch, dev, cfg, tmp):
+    """Phase 14's resilience checks, each fatal: (a) a ``nan-grad``
+    rollback of config 2 whose event the same run on the CPU gives, the
+    restored parameters the checkpoint's bits; (b) in the same run, a
+    ``corrupt-ckpt`` step that the rollback falls back past; (c) a
+    config-5 population whose poisoned member the exploit re-seeds,
+    with no rollback; (d) ``train --max-rollbacks 2 --fault nan-grad@1``
+    on the card."""
+    from rlgpuschedule_tpu_torch.checkpoint import STATE_FILE, Checkpointer
+    from rlgpuschedule_tpu_torch.configs import CONFIGS
+    from rlgpuschedule_tpu_torch.experiment import PopulationExperiment
+    from rlgpuschedule_tpu_torch.parallel import PBTConfig
+    from rlgpuschedule_tpu_torch.resilience import (DivergenceWatchdog,
+                                                    FaultInjector,
+                                                    parse_fault)
+
+    # (a), (b): corrupt-ckpt@1 truncates step 32 (iteration 1's);
+    # nan-grad@2 rolls back past it to step 16 and iterations 1-2 rerun,
+    # on the card and on the CPU
+    rcfg = dataclasses.replace(cfg, ppo=dataclasses.replace(
+        cfg.ppo, n_steps=RESIL_STEPS))
+    t0 = time.perf_counter()
+    exp, out, said, restored, rollback_ms = _faulted_run(
+        torch, rcfg, dev, os.path.join(tmp, "faulted"), RESIL_SPECS,
+        RESIL_ITERS)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, cpu_out, cpu_said, _, _ = _faulted_run(
+        torch, rcfg, "cpu", os.path.join(tmp, "faulted_cpu"),
+        RESIL_SPECS, RESIL_ITERS)
+    cpu_s = time.perf_counter() - t0
+    events = out.get("rollback_events")
+    (step, params), = restored or [(None, {})]
+    saved = torch.load(os.path.join(tmp, "faulted", str(step), STATE_FILE),
+                       map_location="cpu", weights_only=True)["policy"] \
+        if step is not None else {}
+    same_bits = bool(params) and params.keys() == saved.keys() and all(
+        torch.equal(v, saved[n]) for n, v in params.items())
+    finite = all(bool(torch.isfinite(p).all()) for p in exp.net.parameters())
+    _line("resilience_rollback", config=cfg.name, specs=list(RESIL_SPECS),
+          iterations=RESIL_ITERS, rollbacks=out.get("rollbacks"),
+          events=events, cpu_events=cpu_out.get("rollback_events"),
+          n_steps=RESIL_STEPS,
+          logged_iterations=[h["iteration"] for h in out["history"]],
+          restored_step=step, restored_bits_equal=same_bits,
+          final_params_finite=finite, rollback_ms=rollback_ms,
+          card_run_s=card_s, cpu_run_s=cpu_s, device=str(exp.device))
+    if out.get("rollbacks") != 1 or events != cpu_out.get(
+            "rollback_events") or not same_bits or not finite:
+        raise SystemExit(f"resilience (a): rollbacks {out.get('rollbacks')}"
+                         f", events {events} against the CPU's "
+                         f"{cpu_out.get('rollback_events')}, restored bits "
+                         f"equal {same_bits}, final parameters finite "
+                         f"{finite}")
+    for text, where in ((said, "card"), (cpu_said, "CPU")):
+        if "corrupted checkpoint step 32" not in text or \
+                "falling back to step 16" not in text or \
+                events[0]["restored_step"] != 16:
+            raise SystemExit(f"resilience (b), {where}: the rollback did "
+                             f"not fall back past the corrupted step: "
+                             f"{text!r}")
+
+    # (c) a 2-member config-5 population: member 1 poisoned at iteration
+    # 0, the round at 0 re-seeds it from member 0; the watchdog stays idle
+    pcfg = CONFIGS["hier-pbt-member"]
+    pcfg = dataclasses.replace(pcfg, ppo=dataclasses.replace(
+        pcfg.ppo, n_steps=RESIL_POP_STEPS))
+    pop = PopulationExperiment.build(
+        pcfg, n_pop=RESIL_POP, device=dev,
+        pbt_cfg=PBTConfig(ready_iters=1, seed=pcfg.seed))
+    seeded = {}
+    update = pop.controller.maybe_update
+
+    def update_spy(g, members, hparams):
+        res = update(g, members, hparams)
+        if g == 0 and res is not None:
+            seeded["src"] = res[2].src.tolist()
+            seeded["copied"] = all(torch.equal(a, b) for a, b in zip(
+                members[0].net.parameters(), members[1].net.parameters()))
+        return res
+
+    pop.controller.maybe_update = update_spy
+    with Checkpointer(os.path.join(tmp, "pop")) as ck:
+        pout = pop.run(RESIL_POP_ITERS, log_every=1, ckpt=ck, ckpt_every=1,
+                       watchdog=DivergenceWatchdog(max_rollbacks=1),
+                       injector=FaultInjector(
+                           [parse_fault("nan-grad@0:rank=1")]))
+    pfinite = all(bool(torch.isfinite(p).all()) for m in pop.members
+                  for p in m.net.parameters())
+    dead = pout["history"][0]["mean_reward_1"]
+    _line("resilience_population", config=pcfg.name, n_pop=RESIL_POP,
+          iterations=RESIL_POP_ITERS, rollbacks=pout["rollbacks"],
+          exploit=seeded, poisoned_fitness_finite=math.isfinite(dead),
+          final_fitness=pout["final_fitness"], params_finite=pfinite,
+          wall_s=pout["wall_s"])
+    if pout["rollbacks"] != 0 or seeded != {"src": [0, 0], "copied": True} \
+            or math.isfinite(dead) or not pfinite:
+        raise SystemExit(f"resilience (c): the population's dead member was "
+                         f"not re-seeded by the exploit alone: {pout}")
+    del pop, exp
+
+    # (d) the train CLI on the card, at its default config (config 1)
+    # with the rollout cut to 32 steps
+    lines, _, wall = _run_main(
+        "rlgpuschedule_tpu_torch.train",
+        ["--iterations", "2", "--n-steps", "32", "--log-every", "1",
+         "--ckpt-dir", os.path.join(tmp, "cli"), "--ckpt-every", "1",
+         "--max-rollbacks", "2", "--fault", "nan-grad@1"])
+    summary = lines[-1]
+    _line("resilience_cli", wall_s=wall, device=summary.get("device"),
+          rollbacks=summary.get("rollbacks"),
+          rollback_events=summary.get("rollback_events"),
+          logged_iterations=[x["iteration"] for x in lines[:-1]])
+    if summary.get("rollbacks") != 1 or \
+            not summary.get("device", "").startswith("cuda"):
+        raise SystemExit(f"resilience (d): train --max-rollbacks 2 --fault "
+                         f"nan-grad@1 gave {summary}")
 
 
 def select_phase(torch, dev):

@@ -54,8 +54,7 @@ from .experiment import Experiment
 METHOD = "run-fused"
 # the root bench's flags this one does not take, and what they wait for
 UNPORTED_FLAGS: dict[str, str] = {
-    "--mesh": "the data-parallel and resilience slice (ROADMAP.md queue "
-              "1, item 21)",
+    "--mesh": "the data-parallel slice (ROADMAP.md queue 1, item 21)",
 }
 
 

@@ -8,7 +8,9 @@ Counterparts of ``build_env_params``, ``load_source_trace``,
 ``Experiment`` of PPO or A2C (``build``, ``run`` with its eval,
 checkpoint and window-streaming cadences and its ``fused_chunk``,
 ``run_fused``, ``run_async``, ``advance_windows``, ``save_checkpoint``,
-``restore_checkpoint``, ``steps_per_iteration``) in the JAX package's
+``restore_checkpoint``, ``steps_per_iteration``, and the watchdog's
+``scale_lr`` and ``fold_key``, which ``run(watchdog=, injector=)``
+uses: :mod:`.resilience`) in the JAX package's
 ``experiment.py``, and its ``PopulationExperiment`` (config 5's PBT
 population, :class:`PopulationExperiment`). A config with ``n_pods >
 1`` builds the hierarchical env and policy (:mod:`.env.hier`,
@@ -50,6 +52,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import time
 from typing import Callable
 
@@ -413,6 +416,15 @@ def restore_policy(ckpt: Checkpointer, net: torch.nn.Module,
     return dict(meta, member=member)
 
 
+def fold_generator(gen: torch.Generator, n: int) -> None:
+    """Reseed ``gen`` from a hash of its state and ``n``: a stream other
+    than the one it was on, the same one for the same state and ``n``
+    (the counterpart of JAX's ``jax.random.fold_in(key, n)``)."""
+    h = hashlib.blake2b(gen.get_state().numpy().tobytes(), digest_size=8)
+    h.update(int(n).to_bytes(8, "little", signed=True))
+    gen.manual_seed(int.from_bytes(h.digest(), "little") >> 1)
+
+
 def algo_config(cfg: ExperimentConfig):
     """The config's ``PPOConfig`` or ``A2CConfig``."""
     return cfg.ppo if cfg.algo == "ppo" else cfg.a2c
@@ -565,6 +577,9 @@ class Experiment:
         self.net.load_state_dict(state["policy"])
         if train:
             self.train_state.opt.load_state_dict(state["optimizer"])
+            # the config's learning rate, as JAX's restored opt_state
+            # (which holds none) runs under the config's optimizer
+            self.scale_lr(1.0)
             if self.train_state.reward_stats is not None:
                 self.train_state = self.train_state._replace(
                     reward_stats=RewardNormState(**state["reward_stats"]))
@@ -577,6 +592,24 @@ class Experiment:
         if cursor != self.window_cursor:
             self._cut_windows(cursor)
         return meta
+
+    def scale_lr(self, scale: float) -> None:
+        """Set the learning rate of every optimizer param group (PPO's
+        Adam, A2C's RMSprop) to ``scale`` x the config's: the watchdog's
+        rollback decay. The optimizer's moments and step stay, as JAX's
+        restored ``opt_state`` carries over under its rebuilt ``tx``."""
+        lr = algo_config(self.cfg).lr * scale
+        for group in self.train_state.opt.param_groups:
+            group["lr"] = lr
+
+    def fold_key(self, n: int) -> None:
+        """Move both generators (the carry's sampling stream and the
+        update's permutation stream) to new streams, each a function of
+        its current state and ``n`` (the watchdog's retry: replaying the
+        restored streams would resample the trajectory that diverged).
+        The same restored state and ``n`` give the same streams."""
+        fold_generator(self.carry.generator, n)
+        fold_generator(self.generator, n)
 
     def validate_fused_chunk(self, fused_chunk: int, iterations: int, *,
                              log_every: int = 0, ckpt_every: int = 0,
@@ -625,7 +658,8 @@ class Experiment:
             eval_every: int = 0,
             eval_fn: "Callable[[int], dict] | None" = None,
             eval_logger: Callable[[int, dict], None] | None = None,
-            fused_chunk: int = 1, telemetry=None) -> dict:
+            fused_chunk: int = 1, watchdog=None, injector=None,
+            telemetry=None) -> dict:
         """Run ``iterations`` (default ``cfg.iterations``) more training
         iterations; returns the summary (wall time, env steps per second,
         ``window_cursor``, logged history). Iteration ``g`` counts over
@@ -654,16 +688,37 @@ class Experiment:
         where the unchunked loop fires them (JAX's rule). Logged metrics
         are the boundary iteration's.
 
+        ``watchdog`` (:class:`..resilience.DivergenceWatchdog`, needs
+        ``ckpt``) checks every iteration's metrics, read in the same one
+        transfer as a logged row, and on divergence rolls back to the
+        last good checkpoint (saved first if the store is empty):
+        :attr:`iteration` returns to the restored one and the call runs
+        on until it reaches its start plus ``iterations``, the retried
+        iterations logged again. With ``fused_chunk > 1`` only the
+        boundaries' metrics are checked; resume points are checkpoint
+        boundaries, which the chunk divides. ``injector``
+        (:class:`..resilience.FaultInjector`) fires ``nan-grad`` after
+        the matching iteration's step and ``corrupt-ckpt`` after its
+        save. A :class:`..resilience.DivergenceError` reaches the caller
+        once the rollback budget is spent. The summary then gains
+        ``rollbacks`` and ``rollback_events``.
+
         ``telemetry`` (:class:`..obs.RunTelemetry`) traces the loop: a
         span per iteration (per chunk) with its phases (``step`` around
         the train step or :meth:`run_fused`, ``sync``, ``eval``,
         ``ckpt``, ``resample``), an ``iteration`` event at every logged
         iteration carrying the metrics this loop already read (telemetry
         adds no host read), and, with its alarms armed, the step under
-        the recompile and transfer alarms."""
+        the recompile and transfer alarms; a rolled-back iteration is
+        settled by ``iteration_aborted`` and its retry's step granted
+        amnesty."""
         from .obs.trace import tracer_of
         from .utils.profiling import SectionTimer
         iterations = iterations or self.cfg.iterations
+        if watchdog is not None and ckpt is None:
+            raise ValueError(
+                "watchdog rollback needs a checkpoint store; pass ckpt= "
+                "(and a ckpt_every cadence so rollbacks stay short)")
         every = self.cfg.resample_every
         stride = max(fused_chunk, 1)
         self.validate_fused_chunk(
@@ -683,10 +738,14 @@ class Experiment:
                 n_envs=self.cfg.n_envs,
                 steps_per_iteration=self.steps_per_iteration,
                 fused_chunk=fused_chunk)
+        if watchdog is not None and ckpt.latest_step() is None:
+            # a rollback target before the first periodic save: the
+            # state before this call's first iteration
+            self.save_checkpoint(ckpt)
         self._sync()
         t0 = time.perf_counter()
-        done = 0
-        while done < iterations:
+        end = self.iteration + iterations
+        while self.iteration < end:
             g = self.iteration
             # the hooks see the chunk's last iteration (g when unchunked)
             b = g + stride - 1
@@ -706,16 +765,27 @@ class Experiment:
                                         self.traces, self.generator,
                                         self.faults)
                     self.iteration = g + 1
-            done += stride
-            last = done >= iterations
+            if injector is not None:
+                metrics = injector.poison_nan(self, b, metrics)
+            last = self.iteration >= end
             # unchunked, log at phase 0 (b % L); chunked, at the
             # boundaries' phase ((b + 1) % L), as JAX does
             phase = b + 1 if stride > 1 else b
+            want_log = bool(log_every) and (phase % log_every == 0 or last)
             m = None
-            if log_every and (phase % log_every == 0 or last):
+            if watchdog is not None or want_log:
+                # the watchdog and the logger share one host read
                 with sections("sync"), tracer.span("sync"):
                     m = dict(zip(type(metrics)._fields,
                                  torch.stack(metrics).tolist()))
+            if watchdog is not None:
+                reason = watchdog.check(m)
+                if reason is not None:
+                    watchdog.rollback(self, ckpt, b, reason)
+                    if telemetry is not None:
+                        telemetry.iteration_aborted(b, f"rollback: {reason}")
+                    continue
+            if want_log:
                 history.append({"iteration": b, **m})
                 if logger is not None:
                     logger(b, m)
@@ -730,8 +800,10 @@ class Experiment:
                     ((b + 1) % ckpt_every == 0 or last):
                 with sections("ckpt"), tracer.span("ckpt"):
                     self.save_checkpoint(ckpt)
+                if injector is not None:
+                    injector.corrupt_after_save(ckpt, b)
             if telemetry is not None:
-                telemetry.end_iteration(b, m,
+                telemetry.end_iteration(b, m if want_log else None,
                                         stride * self.steps_per_iteration)
         self._sync()
         wall = time.perf_counter() - t0
@@ -741,6 +813,9 @@ class Experiment:
                "env_steps_per_sec": env_steps / wall,
                "window_cursor": self.window_cursor,
                "history": history}
+        if watchdog is not None:
+            out["rollbacks"] = watchdog.n_rollbacks
+            out["rollback_events"] = [e.as_dict() for e in watchdog.events]
         if eval_history:
             out["eval_history"] = eval_history
         if telemetry is not None:
@@ -748,7 +823,8 @@ class Experiment:
                 iterations=iterations, wall_s=round(wall, 6),
                 env_steps=env_steps,
                 env_steps_per_sec=round(out["env_steps_per_sec"], 3),
-                rollbacks=0)
+                rollbacks=(watchdog.n_rollbacks
+                           if watchdog is not None else 0))
         return out
 
     def run_async(self, iterations: int | None = None, *,
@@ -768,8 +844,9 @@ class Experiment:
         :meth:`run`'s; checkpoints and window resamples run at
         drained-queue barriers. ``groups`` is a
         :class:`..parallel.groups.DeviceGroups` (default: both roles
-        shared on this experiment's device). ``fused_chunk`` is the sync
-        loop's only."""
+        shared on this experiment's device). ``fused_chunk``, the
+        watchdog and the fault injector are the sync loop's only, as in
+        JAX."""
         from .async_engine import AsyncRunner
         runner = AsyncRunner(self, groups=groups,
                              staleness_bound=staleness_bound,
@@ -1017,6 +1094,22 @@ class PopulationExperiment:
             self.iteration = int(meta["iteration"]) + 1
         return meta
 
+    def scale_lr(self, scale: float) -> None:
+        """The watchdog's rollback decay for the population: each
+        member's learning rate lives in the host f32 hyperparameters (set
+        on its optimizer before each step), so the decay multiplies
+        them."""
+        self.hparams = self.hparams._replace(
+            lr=np.asarray(self.hparams.lr * scale, np.float32))
+        self._refresh_hparams()
+
+    def fold_key(self, n: int) -> None:
+        """Move every member's two generators to new streams
+        (:meth:`Experiment.fold_key`'s contract)."""
+        for carry, gen in zip(self.carries, self.generators):
+            fold_generator(carry.generator, n)
+            fold_generator(gen, n)
+
     def run(self, iterations: int | None = None, log_every: int = 0,
             logger: Callable[[int, dict], None] | None = None,
             ckpt: Checkpointer | None = None, ckpt_every: int = 0,
@@ -1041,23 +1134,30 @@ class PopulationExperiment:
         time, env steps per second, each member's final fitness, the
         count of PBT rounds (``pbt_events``) and the logged history.
 
+        ``watchdog`` (needs ``ckpt``) handles only the catastrophic case,
+        every member's fitness non-finite (read in one transfer an
+        iteration), by rolling the whole population back to the last
+        good checkpoint, as :meth:`Experiment.run` does; a single
+        diverged member is PBT's job (the exploit treats non-finite
+        fitness as dead and re-seeds it from the best member).
+        ``injector`` fires ``nan-grad`` (spec ``rank`` = the member
+        poisoned) after the step and ``corrupt-ckpt`` after the save.
+
         ``telemetry`` (:class:`..obs.RunTelemetry`) traces the loop as
         :meth:`Experiment.run` does, the members' steps being the
         ``step`` phase (under the alarms, when armed), and emits a
         ``pbt_exploit`` event per exploit round; each ``iteration`` event
         carries the logged row's per-member and ``{metric}_mean``
-        columns. ``watchdog`` and ``injector`` wait for the resilience
-        slice."""
+        columns."""
         from .algos.ppo import PPOMetrics
         from .obs.trace import tracer_of
         from .parallel.population import stack_members
         from .utils.profiling import SectionTimer
-        if watchdog is not None or injector is not None:
-            raise NotImplementedError(
-                "the population's divergence watchdog and fault injector "
-                "are not in the PyTorch port yet: they wait for the "
-                "resilience slice (ROADMAP.md queue 1, item 21)")
         iterations = iterations or self.cfg.iterations
+        if watchdog is not None and ckpt is None:
+            raise ValueError(
+                "watchdog rollback needs a checkpoint store; pass ckpt= "
+                "(and a ckpt_every cadence so rollbacks stay short)")
         history, eval_history = [], []
         sections = (telemetry.sections if telemetry is not None
                     else SectionTimer())
@@ -1068,9 +1168,12 @@ class PopulationExperiment:
                 n_pop=self.n_pop, iterations=iterations,
                 n_envs=self.cfg.n_envs,
                 steps_per_iteration=self.steps_per_iteration)
+        if watchdog is not None and ckpt.latest_step() is None:
+            self.save_checkpoint(ckpt)
         self._sync()
         t0 = time.perf_counter()
-        for k in range(iterations):
+        end = self.iteration + iterations
+        while self.iteration < end:
             g = self.iteration
             if telemetry is not None:
                 telemetry.begin_iteration(g)
@@ -1085,6 +1188,15 @@ class PopulationExperiment:
                         self.faults[p] if self.faults else None)
                     per_member.append(m)
                 metrics = stack_members(per_member)
+            if injector is not None:
+                metrics = injector.poison_nan_member(self, g, metrics)
+            if watchdog is not None:
+                reason = watchdog.check_population(metrics.mean_reward)
+                if reason is not None:
+                    watchdog.rollback(self, ckpt, g, reason)
+                    if telemetry is not None:
+                        telemetry.iteration_aborted(g, f"rollback: {reason}")
+                    continue
             self.controller.record(metrics.mean_reward)
             out = self.controller.maybe_update(g, self.members, self.hparams)
             if out is not None:
@@ -1096,7 +1208,7 @@ class PopulationExperiment:
                         exploited=int(decision.exploited.sum()),
                         src=[int(s) for s in decision.src])
             self.iteration = g + 1
-            last = k == iterations - 1
+            last = self.iteration >= end
             row = None
             if log_every and (g % log_every == 0 or last):
                 with sections("sync"), tracer.span("sync"):
@@ -1119,6 +1231,8 @@ class PopulationExperiment:
                     ((g + 1) % ckpt_every == 0 or last):
                 with sections("ckpt"), tracer.span("ckpt"):
                     self.save_checkpoint(ckpt)
+                if injector is not None:
+                    injector.corrupt_after_save(ckpt, g)
             if telemetry is not None:
                 telemetry.end_iteration(g, row, self.steps_per_iteration)
         self._sync()
@@ -1131,6 +1245,9 @@ class PopulationExperiment:
                                  self.controller.mean_fitness],
                "pbt_events": len(self.controller.history),
                "history": history}
+        if watchdog is not None:
+            out["rollbacks"] = watchdog.n_rollbacks
+            out["rollback_events"] = [e.as_dict() for e in watchdog.events]
         if eval_history:
             out["eval_history"] = eval_history
         if telemetry is not None:
@@ -1138,7 +1255,9 @@ class PopulationExperiment:
                 iterations=iterations, wall_s=round(wall, 6),
                 env_steps=env_steps,
                 env_steps_per_sec=round(out["env_steps_per_sec"], 3),
-                pbt_events=len(self.controller.history), rollbacks=0)
+                pbt_events=len(self.controller.history),
+                rollbacks=(watchdog.n_rollbacks
+                           if watchdog is not None else 0))
         return out
 
     def run_async(self, iterations: int | None = None, *,
@@ -1149,21 +1268,16 @@ class PopulationExperiment:
                   eval_every: int = 0,
                   eval_fn: "Callable[[int], dict] | None" = None,
                   eval_logger: Callable[[int, dict], None] | None = None,
-                  watchdog=None, injector=None, telemetry=None) -> dict:
+                  telemetry=None) -> dict:
         """The async actor-learner loop over the whole population
         (:class:`..async_engine.AsyncPopulationRunner`): the actor rolls
         each member in turn, the learner updates each in turn, PBT
         exploit/explore fires at drained-queue barriers, and
         ``staleness_bound=0`` is :meth:`run` bit for bit. Deep bounds
         want ``cfg.ppo.correction="vtrace"`` so stale batches do not skew
-        the members' fitness ranking. ``watchdog`` and ``injector`` wait
-        for the resilience slice, as :meth:`run`'s do."""
+        the members' fitness ranking. The watchdog and the fault
+        injector are the sync loop's only, as in JAX."""
         from .async_engine import AsyncPopulationRunner
-        if watchdog is not None or injector is not None:
-            raise NotImplementedError(
-                "the population's divergence watchdog and fault injector "
-                "are not in the PyTorch port yet: they wait for the "
-                "resilience slice (ROADMAP.md queue 1, item 21)")
         runner = AsyncPopulationRunner(self, groups=groups,
                                        staleness_bound=staleness_bound,
                                        queue_capacity=queue_capacity)

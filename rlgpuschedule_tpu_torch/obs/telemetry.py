@@ -336,6 +336,22 @@ class RunTelemetry:
                       metrics={k: v for k, v in metrics.items()})
         self.registry.write(self.prom_path)
 
+    def iteration_aborted(self, iteration: int, reason: str) -> None:
+        """A rollback retry abandoned this iteration: settle its span
+        without an event (the watchdog emits its own ``rollback``), stop
+        a slow-iteration capture and grant the retry's step amnesty (its
+        optimizer state is the restored one; a step that builds nothing
+        emits nothing)."""
+        self._t_iter = None
+        self._close_iter_span()
+        if self.alarms is not None:
+            self.alarms.stop_profile(iteration)
+            self.alarms.expect_recompile(reason)
+
+    def expect_recompile(self, reason: str) -> None:
+        if self.alarms is not None:
+            self.alarms.expect_recompile(reason)
+
     # -- internals ---------------------------------------------------------
     def _rounded_sections(self) -> dict[str, float]:
         return {k: round(v, 6) for k, v in self.sections.report().items()}

@@ -25,7 +25,12 @@ more, its iterations numbered on from the checkpoint's; ``--keep-best``
 also saves the policy whenever the held-out probe improves, under
 ``<ckpt-dir>/best``. ``--drain-frac`` trains that fraction of the envs
 on backlog-drain windows; ``--resample-every`` re-cuts the windows from
-the source trace every N iterations. ``--bf16-update``,
+the source trace every N iterations. ``--max-rollbacks N`` attaches
+the divergence watchdog (a non-finite or exploding iteration rolls back
+to the last good checkpoint with a decayed learning rate, at most N
+times) and ``--fault KIND@K`` injects a deterministic fault
+(``nan-grad``, ``corrupt-ckpt``; :mod:`.resilience`), both with
+``--ckpt-dir``. ``--bf16-update``,
 ``--reward-norm`` and ``--bf16-advantages`` set the algorithm's
 precision and advantage options, ``--correction`` PPO's (``vtrace``
 needs ``--async``); ``--fused-chunk N`` runs
@@ -86,6 +91,9 @@ Examples::
     python -m rlgpuschedule_tpu_torch.train --config ppo-mlp-synth64 \\
         --async --staleness-bound 4 --queue-capacity 4 \\
         --correction vtrace --iterations 20
+    python -m rlgpuschedule_tpu_torch.train --config ppo-mlp-synth64 \\
+        --iterations 4 --ckpt-dir out/run --ckpt-every 1 \\
+        --max-rollbacks 2 --fault nan-grad@2
 """
 from __future__ import annotations
 
@@ -111,14 +119,14 @@ from .experiment import (Experiment, PopulationExperiment, algo_config,
                          load_source_trace, make_env_windows, trace_sim)
 from .parallel import PBTConfig, split_devices
 from .parallel.groups import home_device
+from .resilience import (DivergenceError, DivergenceWatchdog, FaultInjector,
+                         FaultSpec, parse_fault)
 from .sim.core import validate_trace
 from .sim.faults import FAULT_REGIMES
 
-_Q1 = "ROADMAP.md queue 1"
 # the JAX CLI's flags that this port does not take, and what they wait for
-UNPORTED_FLAGS: dict[str, str] = dict.fromkeys(
-    ("--mesh", "--max-rollbacks", "--fault"),
-    f"the data-parallel and resilience slice ({_Q1}, item 21)")
+UNPORTED_FLAGS: dict[str, str] = {
+    "--mesh": "the data-parallel slice (ROADMAP.md queue 1, item 21)"}
 
 
 # the port's one refusal of a pair the JAX CLI takes: the NaN check of
@@ -324,6 +332,23 @@ def build_parser() -> argparse.ArgumentParser:
                         "counterpart; fails fast with a traceback naming "
                         "the operation). Every operation then syncs with "
                         "the card, so not with --alarms")
+    # resilience: the divergence watchdog and deterministic fault
+    # injection, end to end
+    p.add_argument("--max-rollbacks", type=int, default=None,
+                   help="attach the divergence watchdog: a non-finite or "
+                        "exploding iteration rolls the run back to the "
+                        "last good checkpoint with a decayed LR, giving "
+                        "up cleanly after N rollbacks (requires "
+                        "--ckpt-dir; see resilience.DivergenceWatchdog)")
+    p.add_argument("--fault", action="append", default=None,
+                   metavar="KIND@N[:rank=R]",
+                   help="deterministic fault injection (repeatable): "
+                        "nan-grad@K poisons params+metrics at iteration "
+                        "K (PBT: rank=M selects the member), "
+                        "corrupt-ckpt@K truncates the checkpoint saved "
+                        "at iteration K (K counts over the run's life, "
+                        "across --resume). kill-rank/lose-rank are "
+                        "multihost faults and are refused here")
     p.add_argument("--report", action="store_true",
                    help="print the JCT-vs-baselines table after training "
                         "(stderr) and add it to the summary line")
@@ -518,6 +543,27 @@ def main(argv: "list[str] | None" = None) -> dict:
         if not args.ckpt_dir:
             sys.exit("--ckpt-keep requires --ckpt-dir (nothing is "
                      "retained without one)")
+    faults = []
+    if args.fault:
+        try:
+            faults = [parse_fault(s) for s in args.fault]
+        except ValueError as e:
+            sys.exit(str(e))
+        if any(f.kind in ("kill-rank", "lose-rank") for f in faults):
+            sys.exit("kill-rank/lose-rank are multihost faults and this "
+                     "CLI is one process; the multihost worker that arms "
+                     "them waits for the data-parallel slice (ROADMAP.md "
+                     "queue 1, item 21)")
+        if any(f.kind == "corrupt-ckpt" for f in faults) \
+                and not args.ckpt_dir:
+            sys.exit("--fault corrupt-ckpt requires --ckpt-dir (no "
+                     "checkpoint is ever written without one)")
+    if args.max_rollbacks is not None:
+        if args.max_rollbacks < 0:
+            sys.exit("--max-rollbacks must be >= 0")
+        if not args.ckpt_dir:
+            sys.exit("--max-rollbacks requires --ckpt-dir (rollback "
+                     "restores the last good checkpoint)")
     if args.resume and not args.ckpt_dir:
         sys.exit("--resume requires --ckpt-dir")
     if args.faults is not None and args.faults not in FAULT_REGIMES:
@@ -584,7 +630,9 @@ def main(argv: "list[str] | None" = None) -> dict:
             "pbt": args.pbt,
             "faults": cfg.faults is not None,
             "domains": cfg.domains is not None,
+            "fault_injection": bool(faults),
             "fused_chunk": args.fused_chunk > 1,
+            "rollbacks": args.max_rollbacks is not None,
             "hier": cfg.n_pods > 1,
             "vtrace": cfg.algo == "ppo" and cfg.ppo.correction == "vtrace",
             "sync": not args.async_run,
@@ -601,11 +649,11 @@ def main(argv: "list[str] | None" = None) -> dict:
                  "corrected variant")
     check_source_jobs(args, cfg)
     with contextlib.ExitStack() as stack:
-        return _train(args, cfg, stack)
+        return _train(args, cfg, stack, faults)
 
 
-def _train(args, cfg: ExperimentConfig, stack: contextlib.ExitStack
-           ) -> dict:
+def _train(args, cfg: ExperimentConfig, stack: contextlib.ExitStack,
+           faults: list[FaultSpec]) -> dict:
     """Build, (restore,) train and report; every context it opens (the
     telemetry first, so the checkpointer's events still land as the
     stack closes) goes on ``stack``."""
@@ -699,22 +747,33 @@ def _train(args, cfg: ExperimentConfig, stack: contextlib.ExitStack
     if args.debug_nans:
         stack.enter_context(profiling.debug_checks())
     run_kw = {} if telemetry is None else {"telemetry": telemetry}
-    if args.async_run:
-        print(f"async actor-learner: {groups.describe()} "
-              f"staleness_bound={args.staleness_bound} "
-              f"queue_capacity={args.queue_capacity}", file=sys.stderr)
-        out = exp.run_async(
-            groups=groups, staleness_bound=args.staleness_bound,
-            queue_capacity=args.queue_capacity, log_every=args.log_every,
-            logger=logger, ckpt=ckpt, ckpt_every=args.ckpt_every,
-            **eval_kw, **run_kw)
-    elif args.pbt:
-        out = exp.run(log_every=args.log_every, logger=logger, ckpt=ckpt,
-                      ckpt_every=args.ckpt_every, **eval_kw, **run_kw)
-    else:
-        out = exp.run(log_every=args.log_every, logger=logger, ckpt=ckpt,
-                      ckpt_every=args.ckpt_every,
-                      fused_chunk=args.fused_chunk, **eval_kw, **run_kw)
+    if args.max_rollbacks is not None:
+        run_kw["watchdog"] = DivergenceWatchdog(
+            max_rollbacks=args.max_rollbacks, bus=bus)
+    if faults:
+        run_kw["injector"] = FaultInjector(faults, bus=bus)
+    try:
+        if args.async_run:
+            print(f"async actor-learner: {groups.describe()} "
+                  f"staleness_bound={args.staleness_bound} "
+                  f"queue_capacity={args.queue_capacity}", file=sys.stderr)
+            out = exp.run_async(
+                groups=groups, staleness_bound=args.staleness_bound,
+                queue_capacity=args.queue_capacity,
+                log_every=args.log_every, logger=logger, ckpt=ckpt,
+                ckpt_every=args.ckpt_every, **eval_kw, **run_kw)
+        elif args.pbt:
+            out = exp.run(log_every=args.log_every, logger=logger,
+                          ckpt=ckpt, ckpt_every=args.ckpt_every, **eval_kw,
+                          **run_kw)
+        else:
+            out = exp.run(log_every=args.log_every, logger=logger,
+                          ckpt=ckpt, ckpt_every=args.ckpt_every,
+                          fused_chunk=args.fused_chunk, **eval_kw, **run_kw)
+    except DivergenceError as e:
+        # the watchdog's clean give-up: the budget is spent and the state
+        # rolled back; a non-zero exit with the reason, not a traceback
+        sys.exit(f"divergence watchdog gave up: {e}")
     dev = exp.device
     summary = {k: v for k, v in out.items() if k != "history"}
     summary.update(

@@ -452,7 +452,7 @@ def test_population_bound0_is_the_sync_population(tmp_path):
         [d.src.tolist() for d in b.controller.history]
     assert out["async"]["staleness_max_per_member"] == [0, 0]
     assert "total_loss_1" in out["history"][0]
-    with pytest.raises(NotImplementedError, match=r"item 21\)"):
+    with pytest.raises(TypeError, match="watchdog"):
         b.run_async(1, watchdog=object())
 
 

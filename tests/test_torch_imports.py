@@ -200,6 +200,12 @@ def test_importing_the_async_path_leaves_jax_out():
                      "train", "bench", "profile_breakdown"))
 
 
+def test_importing_the_resilience_path_leaves_jax_out():
+    _leaves_jax_out(("resilience", "resilience.faults",
+                     "resilience.watchdog", "resilience.heartbeat",
+                     "resilience.supervisor", "train"))
+
+
 def test_unported_messages_name_open_roadmap_items():
     """Every ``item N`` a refusal of the port names is an open item of
     ``ROADMAP.md`` (one with its own entry in queue 1, a numbered line

@@ -468,7 +468,8 @@ def test_population_build_refusals(tmp_path):
     with pytest.raises(NotImplementedError, match="item 21"):
         PopulationExperiment.build(TINY_HIER, mesh=object(), device="cpu")
     pop = _build()
-    with pytest.raises(NotImplementedError, match="item 21"):
+    with pytest.raises(ValueError, match="watchdog rollback needs a "
+                                         "checkpoint store"):
         pop.run(1, watchdog=object())
     with RunTelemetry(str(tmp_path), alarms=True, device="cpu") as tel:
         pop.run(1, log_every=1, telemetry=tel)

@@ -477,12 +477,14 @@ def test_train_cli_refuses_unported_flags_with_the_slice_named(argv):
     # --alarms (whose sync guard its per-op host read would trip on the
     # card) it is refused with the port's reason; --async and its flags
     # are ported: a queue of no slot and a bound without the engine are
-    # refused with JAX's words
+    # refused with JAX's words; --max-rollbacks is ported: without
+    # --ckpt-dir it is refused with JAX's words
     match = {"--continual": "continual ingest refused: no verified shards",
              "--debug-nans": "--debug-nans reads every operation's output",
              "--async": "--queue-capacity must be >= 1",
              "--staleness-bound": "--staleness-bound configures the async "
-                                  "engine; pass --async with it"
+                                  "engine; pass --async with it",
+             "--max-rollbacks": "--max-rollbacks requires --ckpt-dir"
              }.get(argv[0], r"waits for .*item \d+")
     if argv[0] == "--debug-nans":
         argv = argv + ["--alarms", "--obs-dir", "unused"]
